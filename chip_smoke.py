@@ -11,14 +11,30 @@ imports nothing of JAX. Phases, each printed on its own lines:
 3. K1 (``scores_blockmax``) against its plain PyTorch version on the card:
    q 8192x512 against db 16000x512 with n_valid < T, ip/l2 x highest/high,
    max absolute error at most 1e-5, and the times of both;
-4. K2 (``topk``) against its plain version at (8192, 640) k=5 and
-   (8192, 6528) k=51, with ties and -inf rows: values and indices exact;
+4. K2 (``topk``) against its plain version at (8192, 640) k=5,
+   (8192, 6528) k=51 and (8192, 1024) k=200, with ties and -inf rows:
+   values and indices exact;
 5. ``ExactKnnIndex.search`` at k=5 and k=51 over 131072 rows against a plain
    whole-row search on the card, on inputs whose scores are exact in fp32
    (so every tie is real and ids must follow the tie rule exactly);
 6. ``python -m lemon_tpu_torch.cli.run_lemon`` in-process on 20000 synthetic
    caption pairs with ViT-B/32 at full width (random weights): output files,
-   finite scores, test AUROC above 0.5, and both kernels launched by that run.
+   finite scores, test AUROC above 0.5, and K1 and K2 launched by that run;
+7. K3 (``flash_attention``) against its plain version at the towers' shapes,
+   B=128: (197, 12, 64) and (50, 12, 64) unmasked, (256, 8, 64) and
+   (77, 8, 64) causal; max absolute error at most 2e-5, and both times;
+8. K4 (``fused_gather_topk``) against its plain version at q 8192 over 1024
+   blocks of 128 columns, k=5 and k=51, with ties and -inf columns: values
+   and ids exact; its time, the plain time and the time of the search's own
+   select tail (gather + K2). Then its path once: K1 over a 131072-row tile,
+   the block top-k, K4, held to the search's select tail;
+9. the from-scratch ViT-B/16 path (``mimic_clip_from_scratch_random``: 224 px
+   in 16 px patches, text context 256, embed 768; random weights): 512 pairs
+   embedded with one state dict under ``attention_impl="plain"`` and
+   ``"flash"`` agree within 1e-4, then a detection of 8000 synthetic caption
+   pairs under ``"flash"`` (``detect.build_neighbor_logs`` and
+   ``detect.select_and_evaluate``): finite scores, test AUROC above 0.5, and
+   K1, K2 and K3 launched by that run.
 
 The second-to-last line is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -37,6 +53,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 K1_TOL = 1e-5
+K3_TOL = 2e-5  # tests/test_attention.py:26: fp32 with another summation order
+EMBED_TOL = 1e-4  # tests/test_attention.py:56-57: the towers, plain vs flash
+# (L, heads, head dim, causal) of the towers' attention: ViT-B/16 vision,
+# ctx-256 text, ViT-B/32 vision, ctx-77 text
+K3_SHAPES = ((197, 12, 64, False), (256, 8, 64, True), (50, 12, 64, False), (77, 8, 64, True))
 
 
 def fail(msg: str) -> None:
@@ -116,7 +137,7 @@ def phase_k2(torch, topk, device):
     g = torch.Generator().manual_seed(1)
     times = {}
     worst = 0.0
-    for w, k in ((640, 5), (6528, 51)):
+    for w, k in ((640, 5), (6528, 51), (1024, 200)):
         x = topk_inputs(torch, g, 8192, w, device)
         v, i = topk.topk(x, k)
         v0, i0 = topk.topk_plain(x, k)
@@ -128,6 +149,73 @@ def phase_k2(torch, topk, device):
         times[(w, k)] = (ms, plain_ms)
         print(f"K2 topk (8192, {w}) k={k}: values and indices exact; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
     return worst, times
+
+
+def phase_k3(torch, attention, device):
+    g = torch.Generator(device=device).manual_seed(3)
+    worst = 0.0
+    times = {}
+    for l, h, d, causal in K3_SHAPES:
+        x = torch.randn(128, l, 3 * h * d, device=device, generator=g)
+        q, k, v = (t.reshape(128, l, h, d) for t in x.split(h * d, dim=-1))  # the towers' strided views
+        out = attention.flash_attention(q, k, v, causal)
+        ref = attention.flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"K3 {(l, h, d, causal)}: bad output")
+        err = (out - ref).abs().max().item()
+        ms, plain_ms = paired_ms(torch, lambda: attention.flash_attention(q, k, v, causal),
+                                 lambda: attention.flash_attention_plain(q, k, v, causal), 20)
+        times[(l, h, d, causal)] = (ms, plain_ms)
+        print(f"K3 flash_attention (128, {l}, {h}, {d}) {'causal' if causal else 'unmasked'}: max_abs_err {err:.3e} "
+              f"(tol {K3_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+        check(err <= K3_TOL, f"K3 {(l, h, d, causal)}: error {err} > {K3_TOL}")
+        worst = max(worst, err)
+    return worst, times
+
+
+def phase_k4(torch, scoremax, select, topk, blockmax_select, device):
+    """K4 against its plain version, then its path: K1, the block top-k and
+    K4 at the geometry of benchmarks/probe_knn_select_fused.py."""
+    b, nb = 8192, 1024
+    g = torch.Generator(device=device).manual_seed(4)
+    s = torch.randint(0, 4096, (b, nb * 128), device=device, generator=g, dtype=torch.int32).float() / 16  # ties
+    s[:, -200:] = -torch.inf
+    s[0] = -torch.inf
+    s[1] = -torch.inf
+    s[1, 130:133] = 2.0  # fewer finite entries than k
+    sb = s.view(b, nb, 128)
+    bmax = sb.amax(2)
+    times = {}
+    for k in (5, 51):
+        ids = topk.topk(bmax, k)[1].sort(dim=1).values
+        v, i = select.fused_gather_topk(sb, ids, k)
+        v0, i0 = select.fused_gather_topk_plain(sb, ids, k)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)), f"K4 k={k}: differs from the plain version")
+        ms, plain_ms = paired_ms(torch, lambda: select.fused_gather_topk(sb, ids, k),
+                                 lambda: select.fused_gather_topk_plain(sb, ids, k), 20)
+        tail_ms = cuda_ms(torch, lambda: select.gather_then_topk(sb, ids, k, topk.topk), 20)
+        times[k] = (ms, plain_ms, tail_ms)
+        print(f"K4 fused_gather_topk (8192, 1024 blocks) k={k}: values and ids exact; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, the search's select tail (gather + K2) {tail_ms:.3f} ms", flush=True)
+    del s, sb, bmax
+
+    gen = torch.Generator().manual_seed(5)
+    xq = unit_rows(torch, gen, b, 512, device)
+    xb = unit_rows(torch, gen, nb * 128, 512, device)
+    k = 51
+    select.fused_gather_topk.launches = 0
+    s, bmax = scoremax.scores_blockmax(xq, xb, "ip", None, 0, nb * 128, "high")
+    blocks = topk.topk(bmax, k)[1].sort(dim=1).values
+    v, i = select.fused_gather_topk(s.view(b, nb, 128), blocks, k)
+    torch.cuda.synchronize()
+    launches = select.fused_gather_topk.launches
+    v0, i0 = blockmax_select(s, bmax, k)
+    check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)), "K4 path: differs from the search's select tail")
+    print(f"K4 path (K1 ip/high 8192x512 . 131072x512, block top-k, K4 k={k}): equal to the search's select tail; "
+          f"K4 launches {launches}", flush=True)
+    check(launches > 0, "K4 path: K4 was not launched")
+    return times, launches
 
 
 def plain_search(torch, scoremax, topk, xb, xq, k, precision):
@@ -211,6 +299,74 @@ def phase_run_lemon(torch, scoremax, topk):
     return launches
 
 
+def phase_vit_b16_flash(torch, scoremax, topk, attention, device):
+    """The from-scratch ViT-B/16 model through K3: plain and flash towers
+    on one state dict, then a whole detection under flash."""
+    import dataclasses
+
+    import numpy as np
+
+    from lemon_tpu_torch import detect
+    from lemon_tpu_torch.core.profiling import PhaseTimer
+    from lemon_tpu_torch.data.datasets import get_dataset
+    from lemon_tpu_torch.models.clip import ClipModel
+    from lemon_tpu_torch.models.encoder import ClipEncoder
+    from lemon_tpu_torch.models.registry import MODEL_CONFIGS, create_encoder
+
+    name, n, n_check = "mimic_clip_from_scratch_random", 8000, 512
+    cfg = detect.DetectionConfig(dataset="synthetic_caption", noise_type="random", clip_model=name, knn_k=5,
+                                 synthetic_n=n)
+    timer = PhaseTimer(device)
+    t0 = time.perf_counter()
+    with timer.phase("load_data"):
+        splits = dict(zip(("train", "val", "test"), get_dataset(
+            cfg.dataset, cfg.data_seed, noise_level=cfg.noise_level, noise_type=cfg.noise_type, synthetic_n=n)))
+    with timer.phase("load_model"):
+        plain = create_encoder(name, device, seed=cfg.seed, batch_size=cfg.batch_size)
+        model = ClipModel(dataclasses.replace(MODEL_CONFIGS[name], attention_impl="flash"))
+        model.load_state_dict(plain.model.state_dict())
+        flash = ClipEncoder(model, device, batch_size=cfg.batch_size, weights_fingerprint=plain.weights_fingerprint)
+
+    head = splits["train"].subset(np.arange(n_check))
+    texts = list(head.sentence)
+    with timer.phase("embed_check_plain"):
+        p_img, p_txt = plain.embed_split(head, texts)
+    with timer.phase("embed_check_flash"):
+        f_img, f_txt = flash.embed_split(head, texts)
+    del plain
+    err = max(float(np.abs(p_img - f_img).max()), float(np.abs(p_txt - f_txt).max()))
+    print(f"ViT-B/16 ctx-256 towers, {n_check} pairs: flash vs plain embeddings max_abs_err {err:.3e} "
+          f"(tol {EMBED_TOL})", flush=True)
+    dim = MODEL_CONFIGS[name].embed_dim
+    check(p_img.shape == (n_check, dim) and p_txt.shape == (n_check, dim), "ViT-B/16: wrong embedding shape")
+    check(err <= EMBED_TOL, f"ViT-B/16: flash embeddings differ from plain by {err} > {EMBED_TOL}")
+
+    scoremax.scores_blockmax.launches = 0
+    topk.topk.launches = 0
+    attention.flash_attention.launches = 0
+    t1 = time.perf_counter()
+    logs = detect.build_neighbor_logs(cfg, flash, splits, None, timer)  # captions: no label set
+    agg, df = detect.select_and_evaluate(cfg, logs, device, timer)
+    wall = time.perf_counter() - t1
+    launches = {"scores_blockmax": scoremax.scores_blockmax.launches, "topk": topk.topk.launches,
+                "flash_attention": attention.flash_attention.launches}
+
+    scores = df["know_val_labels_pred_score"].to_numpy()
+    check(len(scores) == n and np.isfinite(scores).all(), "ViT-B/16 detection: non-finite or missing scores")
+    for col in ("d_1", "dists_n", "D_n", "dists_tr_n", "dists_m", "D_m", "dists_tr_m"):
+        vals = np.stack(df[col].to_list()) if col != "d_1" else df[col].to_numpy()
+        check(bool(np.isfinite(vals).all()), f"ViT-B/16 detection: non-finite {col}")
+    auroc = {s: float(agg["know_val_labels"][s]["AUROC"]) for s in ("train", "val", "test")}
+    print(f"detection synthetic_caption n={n} k=5 {name} (ViT-B/16 @224, text ctx 256, embed 768, random init, "
+          f"attention_impl=flash): wall {wall:.2f} s (with load and the check {time.perf_counter() - t0:.2f} s); "
+          f"AUROC {auroc}", flush=True)
+    print("ViT-B/16 phase timing (s): " + json.dumps({k: round(v, 4) for k, v in timer.as_dict().items()}), flush=True)
+    print(f"ViT-B/16 detection kernel launches: {launches}", flush=True)
+    check(auroc["test"] > 0.5, f"ViT-B/16 detection: test AUROC {auroc['test']} <= 0.5")
+    check(all(c > 0 for c in launches.values()), f"ViT-B/16 detection: a kernel was not launched: {launches}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -218,8 +374,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
     try:
-        from lemon_tpu_torch.knn.index import ExactKnnIndex
-        from lemon_tpu_torch.ops import _build, scoremax, topk
+        from lemon_tpu_torch.knn.index import ExactKnnIndex, _blockmax_select
+        from lemon_tpu_torch.ops import _build, attention, scoremax, select, topk
     except ImportError as e:
         fail(f"cannot import lemon_tpu_torch from {ROOT}: {e}")
     device = torch.device("cuda", 0)
@@ -242,17 +398,33 @@ def main() -> None:
     k1_err, k1_times = phase_k1(torch, scoremax, device)
     k2_err, k2_times = phase_k2(torch, topk, device)
     phase_knn(torch, scoremax, topk, ExactKnnIndex, device)
-    launches = phase_run_lemon(torch, scoremax, topk)
+    b32 = phase_run_lemon(torch, scoremax, topk)
+    k3_err, k3_times = phase_k3(torch, attention, device)
+    k4_times, k4_launches = phase_k4(torch, scoremax, select, topk, _blockmax_select, device)
+    b16 = phase_vit_b16_flash(torch, scoremax, topk, attention, device)
+
+    def launches(name):
+        paths = {"run_lemon_vit_b32": b32.get(name, 0), "detect_vit_b16_flash": b16.get(name, 0)}
+        return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     k1_ms, k1_plain = k1_times[("ip", "high")]  # the main path's mode (--knn_precision auto)
     k2_ms, k2_plain = k2_times[(640, 5)]  # the main path's candidate width at k=5
+    k3_ms, k3_plain = k3_times[K3_SHAPES[0]]  # the ViT-B/16 vision tower, the path's largest attention
+    k4_ms, k4_plain, _ = k4_times[51]  # the probe's k
     print(json.dumps({"kernels": [
         {"name": "scores_blockmax", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
-         "replaces": "lemon_tpu/ops/scoremax.py:119", "launches": launches["scores_blockmax"],
+         "replaces": "lemon_tpu/ops/scoremax.py:119", **launches("scores_blockmax"),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
         {"name": "topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/topk.cu",
-         "replaces": "lemon_tpu/ops/topk.py:80", "launches": launches["topk"],
+         "replaces": "lemon_tpu/ops/topk.py:80", **launches("topk"),
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "flash_attention", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/attention.cu",
+         "replaces": "lemon_tpu/ops/attention.py:101", **launches("flash_attention"),
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain},
+        {"name": "fused_gather_topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/select.cu",
+         "replaces": "lemon_tpu/ops/select.py:138", "launches": k4_launches,
+         "launches_by_path": {"knn_select_fused_probe": k4_launches},
+         "max_abs_err": 0.0, "ms": k4_ms, "plain_ms": k4_plain},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

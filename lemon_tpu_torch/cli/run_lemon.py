@@ -9,8 +9,9 @@ Outputs: args.json, out.txt/err.txt, res.pkl, {criteria}_scores.csv, done.
 
 Differences from the JAX CLI: ``--platform`` is ``cuda`` (default) or
 ``cpu`` and a run without a GPU raises unless ``--platform cpu`` is given;
-the port is fp32 only; ``--mesh`` and the registry models other than
-``huggingface_clip`` and ``tiny`` raise ``NotImplementedError``.
+the port is fp32 only; ``--mesh`` and the ``biomed_clip`` model raise
+``NotImplementedError``. The towers run the plain attention route, as the
+JAX CLI runs its XLA one: neither CLI has an attention flag.
 """
 
 from __future__ import annotations

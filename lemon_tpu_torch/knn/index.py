@@ -18,7 +18,10 @@ kernel K2 (:func:`lemon_tpu_torch.ops.topk.topk`) — never ``torch.topk``,
 which does not promise the order of ties on CUDA. A tile of at least
 ``4*k*128`` columns runs the blockmax prefilter (:func:`_blockmax_select`);
 a narrower one takes its top-k directly. The per-tile results are merged
-with one more K2 top-k over the tile-major concatenation.
+with one more K2 top-k over the tile-major concatenation. K2 takes any
+``k <= W``, so every k of the search stays on the kernel (the JAX package
+falls back to ``lax.top_k`` above 128). The fused gather + top-k K4
+(:mod:`lemon_tpu_torch.ops.select`) is not wired in, as in the JAX package.
 
 Left out from the JAX package: the one-hot matmul gathers and index
 reconstruction (TPU gather workarounds; plain indexing here), the
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from lemon_tpu_torch.ops.scoremax import LANES, scores_blockmax
+from lemon_tpu_torch.ops.select import gather_then_topk
 from lemon_tpu_torch.ops.topk import topk
 
 
@@ -78,11 +82,7 @@ def _blockmax_select(s: torch.Tensor, bmax: torch.Tensor, k: int):
     (values, columns local to the tile)."""
     b, t = s.shape
     _, block_ids = topk(bmax, k)
-    block_ids = block_ids.sort(dim=1).values
-    cand = s.view(b, t // LANES, LANES).gather(1, block_ids[:, :, None].expand(b, k, LANES))
-    vals, pos = topk(cand.reshape(b, k * LANES), k)
-    cols = block_ids.gather(1, pos // LANES) * LANES + pos % LANES
-    return vals, cols
+    return gather_then_topk(s.view(b, t // LANES, LANES), block_ids.sort(dim=1).values, k, topk)
 
 
 def _tile_topk(xq, db, dbsq, start: int, k: int, n_valid: int, metric: str, precision: str):
@@ -138,6 +138,10 @@ class ExactKnnIndex:
         is the bf16x3 score product (see ops/scoremax.py)."""
         if metric not in ("ip", "l2") or precision not in ("highest", "high"):
             raise ValueError(f"metric {metric!r} / precision {precision!r}")
+        if device.type == "cuda" and device.index is None:
+            # a tensor on the current card reports its index ("cuda:0"), so
+            # adopting it must compare against the indexed device
+            device = torch.device("cuda", torch.cuda.current_device())
         self.metric = metric
         self.device = device
         self.tile = tile

@@ -4,15 +4,20 @@ The fp32 path of the JAX ``ClipModel``, module for module:
 
 - ``LayerNorm``: fp32 statistics, eps 1e-5 (:166);
 - QuickGELU, ``x * sigmoid(1.702 x)`` (:193);
-- fused-QKV attention as plain matmul + softmax, with an additive -1e9
-  causal mask for text (:457-534);
+- fused-QKV attention (:457-534): under ``attention_impl="plain"`` a matmul
+  + softmax with an additive -1e9 causal mask for text, under ``"flash"``
+  kernel K3 (:func:`lemon_tpu_torch.ops.attention.flash_attention`), which
+  builds the causal mask itself. ``"plain"`` and ``"flash"`` are the
+  counterparts of the JAX ``attention_impl`` values ``'xla'`` and
+  ``'pallas'`` (:58);
 - the ViT patch embedding as a reshape + matmul, not a conv (:670-682);
 - text pooling at the first EOT token, ``argmax`` of the ids (:790).
 
 Inputs keep the JAX layout: pixels are NHWC. Left out, because they are
 TPU layout workarounds or later precision modes and are all off on the fp32
-path (lemon_tpu/core/precision.py:35-44): attention packing, the pooled last
-block, the folded LayerNorm, ``QuantDense`` and the ResNet tower.
+path (lemon_tpu/core/precision.py:35-44): attention packing (the port never
+packs, so the flash route has nothing to turn off), the pooled last block,
+the folded LayerNorm, ``QuantDense`` and the ResNet tower.
 """
 
 from __future__ import annotations
@@ -24,6 +29,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from lemon_tpu_torch.ops.attention import flash_attention
+
+ATTENTION_IMPLS = ("plain", "flash")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +48,13 @@ class ClipConfig:
     text_width: int = 512
     text_heads: int = 8
     text_layers: int = 12
+    # "plain" | "flash": the counterparts of the JAX package's "xla" |
+    # "pallas". "flash" runs both towers' attention through kernel K3.
+    attention_impl: str = "plain"
+
+    def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {self.attention_impl!r}")
 
     @property
     def v_heads(self) -> int:
@@ -52,6 +68,16 @@ class ClipConfig:
     def vit_b32() -> "ClipConfig":
         """openai/clip-vit-base-patch32 (run_lemon.py:113)."""
         return ClipConfig()
+
+    @staticmethod
+    def vit_b16(embed_dim: int = 512, context_length: int = 77) -> "ClipConfig":
+        """ViT-B/16 of the from-scratch MIMIC/CC3M models
+        (chexzero_clip.py:458-470: embed 768, context 256)."""
+        return ClipConfig(embed_dim=embed_dim, vision_patch_size=16, context_length=context_length)
+
+    @staticmethod
+    def from_scratch_mimic() -> "ClipConfig":
+        return ClipConfig.vit_b16(embed_dim=768, context_length=256)
 
     @staticmethod
     def tiny(vocab_size: int = 49408) -> "ClipConfig":
@@ -75,24 +101,29 @@ _MASK = -1e9  # additive mask value of the JAX towers (finite: no inf - inf)
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with a fused QKV projection."""
+    """Multi-head self-attention with a fused QKV projection; ``causal``
+    lets token i see tokens j <= i. The plain route adds a -1e9 mask, the
+    flash route (K3) masks itself (lemon_tpu/models/clip.py:511-514)."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, impl: str = "plain", causal: bool = False):
         super().__init__()
         self.heads = heads
+        self.impl = impl
+        self.causal = causal
         self.qkv = nn.Linear(width, 3 * width)
         self.out = nn.Linear(width, width)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, d = x.shape
         hd = d // self.heads
-        q, k, v = self.qkv(x).split(d, dim=-1)
-        q = q.reshape(b, l, self.heads, hd).transpose(1, 2)
-        k = k.reshape(b, l, self.heads, hd).transpose(1, 2)
-        v = v.reshape(b, l, self.heads, hd).transpose(1, 2)
+        # (B, L, H, hd) views of the fused projection, the JAX layout
+        q, k, v = (t.reshape(b, l, self.heads, hd) for t in self.qkv(x).split(d, dim=-1))
+        if self.impl == "flash":
+            return self.out(flash_attention(q, k, v, causal=self.causal).reshape(b, l, d))
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         logits = (q * hd ** -0.5) @ k.transpose(-1, -2)
-        if mask is not None:
-            logits = logits + mask
+        if self.causal:
+            logits = logits + torch.full((l, l), _MASK, dtype=x.dtype, device=x.device).triu(1)
         out = torch.softmax(logits, dim=-1) @ v
         return self.out(out.transpose(1, 2).reshape(b, l, d))
 
@@ -100,16 +131,16 @@ class Attention(nn.Module):
 class TransformerBlock(nn.Module):
     """Pre-LN residual block (chexzero_clip.py:190-200)."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, impl: str = "plain", causal: bool = False):
         super().__init__()
         self.ln_1 = _layer_norm(width)
-        self.attn = Attention(width, heads)
+        self.attn = Attention(width, heads, impl, causal)
         self.ln_2 = _layer_norm(width)
         self.mlp_fc = nn.Linear(width, 4 * width)
         self.mlp_proj = nn.Linear(4 * width, width)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x), mask)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x))
         return x + self.mlp_proj(quick_gelu(self.mlp_fc(self.ln_2(x))))
 
 
@@ -125,7 +156,9 @@ class VisionTower(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(w))
         self.positional_embedding = nn.Parameter(torch.empty(g * g + 1, w))
         self.ln_pre = _layer_norm(w)
-        self.blocks = nn.ModuleList(TransformerBlock(w, cfg.v_heads) for _ in range(cfg.vision_layers))
+        self.blocks = nn.ModuleList(
+            TransformerBlock(w, cfg.v_heads, cfg.attention_impl) for _ in range(cfg.vision_layers)
+        )
         self.ln_post = _layer_norm(w)
         self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim))
 
@@ -151,16 +184,17 @@ class TextTower(nn.Module):
         w = cfg.text_width
         self.token_embedding = nn.Embedding(cfg.vocab_size, w)
         self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, w))
-        self.blocks = nn.ModuleList(TransformerBlock(w, cfg.text_heads) for _ in range(cfg.text_layers))
+        self.blocks = nn.ModuleList(
+            TransformerBlock(w, cfg.text_heads, cfg.attention_impl, causal=True) for _ in range(cfg.text_layers)
+        )
         self.ln_final = _layer_norm(w)
         self.text_projection = nn.Parameter(torch.empty(w, cfg.embed_dim))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         b, l = tokens.shape
         x = self.token_embedding(tokens) + self.positional_embedding[:l]
-        mask = torch.full((l, l), _MASK, dtype=x.dtype, device=x.device).triu(1)
         for block in self.blocks:
-            x = block(x, mask)
+            x = block(x)
         x = self.ln_final(x)
         # ids peak at the EOT token; argmax returns its first occurrence
         eot = tokens.argmax(dim=-1)

@@ -1,10 +1,13 @@
-"""HuggingFace CLIP checkpoints -> flax-layout parameter trees.
+"""CLIP checkpoints -> flax-layout parameter trees.
 
-The numpy logic of lemon_tpu/models/loader.py:23-131,282, copied: the tree
-it returns goes through the same bridge as a JAX tree
-(:func:`lemon_tpu_torch.models.convert.from_flax_params`), so both
-checkpoint routes share one converter. OpenAI-format state dicts (the
-``chexzero`` family) are not ported yet and raise.
+The numpy logic of lemon_tpu/models/loader.py:23-143,213-287 for the two
+families the ViT towers load: HuggingFace ``CLIPModel`` state dicts and
+OpenAI-format ones (fused ``attn.in_proj_weight``; ``chexzero`` and the
+from-scratch ViT-B/16 models, chexzero_clip.py:419-479). The tree goes
+through the same bridge as a JAX tree
+(:func:`lemon_tpu_torch.models.convert.from_flax_params`), so every
+checkpoint route shares one converter. OpenAI-format ModifiedResNet state
+dicts (``rn50``) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -107,9 +110,82 @@ def from_hf_state_dict(sd: Mapping[str, np.ndarray], cfg: ClipConfig | None = No
     return {"params": params}, cfg
 
 
+def _text_config_fields(sd: Mapping[str, np.ndarray]) -> dict:
+    text_width = sd["ln_final.weight"].shape[0]
+    return dict(
+        embed_dim=sd["text_projection"].shape[1],
+        context_length=sd["positional_embedding"].shape[0],
+        vocab_size=sd["token_embedding.weight"].shape[0],
+        text_width=text_width,
+        text_heads=text_width // 64,
+        text_layers=len({k.split(".")[2] for k in sd if k.startswith("transformer.resblocks.")}),
+    )
+
+
+def openai_config_from_state_dict(sd: Mapping[str, np.ndarray]) -> ClipConfig:
+    """Shapes of an OpenAI-format ViT state dict (chexzero_clip.py:419-456)."""
+    patch = sd["visual.conv1.weight"].shape[-1]
+    grid = int(round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5))
+    return ClipConfig(
+        image_resolution=patch * grid,
+        vision_layers=len({k.split(".")[3] for k in sd if k.startswith("visual.transformer.resblocks.")}),
+        vision_width=sd["visual.conv1.weight"].shape[0],
+        vision_patch_size=patch,
+        **_text_config_fields(sd),
+    )
+
+
+def from_openai_state_dict(sd: Mapping[str, np.ndarray], cfg: ClipConfig | None = None):
+    """An OpenAI-format ViT CLIP state dict (fused in_proj) -> (flax-layout
+    tree, config). ``visual.proj`` marks the ViT tower (chexzero_clip.py:420);
+    a ModifiedResNet one raises."""
+    if "visual.proj" not in sd:
+        raise NotImplementedError(
+            "OpenAI-format ModifiedResNet (rn50) state dicts are not ported to lemon_tpu_torch yet "
+            "(ROADMAP queue 1, the other registry models)"
+        )
+    cfg = cfg or openai_config_from_state_dict(sd)
+
+    def block(prefix: str) -> dict:
+        g = lambda name: np.asarray(sd[f"{prefix}.{name}"])
+        in_w, in_b = g("attn.in_proj_weight"), g("attn.in_proj_bias")  # rows stacked [q; k; v]
+        d = in_w.shape[1]
+        return _block_params(
+            in_w[:d], in_b[:d], in_w[d : 2 * d], in_b[d : 2 * d], in_w[2 * d :], in_b[2 * d :],
+            g("attn.out_proj.weight"), g("attn.out_proj.bias"),
+            g("ln_1.weight"), g("ln_1.bias"),
+            g("ln_2.weight"), g("ln_2.bias"),
+            g("mlp.c_fc.weight"), g("mlp.c_fc.bias"),
+            g("mlp.c_proj.weight"), g("mlp.c_proj.bias"),
+        )
+
+    a = lambda key: np.asarray(sd[key])
+    ln = lambda prefix: {"scale": a(f"{prefix}.weight"), "bias": a(f"{prefix}.bias")}
+    params = {
+        "visual": {
+            "patch_embedding": _conv_to_patch_kernel(a("visual.conv1.weight")),
+            "class_embedding": a("visual.class_embedding"),
+            "positional_embedding": a("visual.positional_embedding"),
+            "ln_pre": ln("visual.ln_pre"),
+            "transformer": {f"block_{i}": block(f"visual.transformer.resblocks.{i}") for i in range(cfg.vision_layers)},
+            "ln_post": ln("visual.ln_post"),
+            "proj": a("visual.proj"),
+        },
+        "text": {
+            "token_embedding": a("token_embedding.weight"),
+            "positional_embedding": a("positional_embedding"),
+            "transformer": {f"block_{i}": block(f"transformer.resblocks.{i}") for i in range(cfg.text_layers)},
+            "ln_final": ln("ln_final"),
+            "text_projection": a("text_projection"),
+        },
+        "logit_scale": a("logit_scale"),
+    }
+    return {"params": params}, cfg
+
+
 def detect_and_convert(sd: Mapping[str, np.ndarray]):
     if any(k.startswith("vision_model.") for k in sd):
         return from_hf_state_dict(sd)
     if any(k.startswith("visual.") for k in sd):
-        raise NotImplementedError("OpenAI-format CLIP state dicts (chexzero) are not ported to lemon_tpu_torch yet")
+        return from_openai_state_dict(sd)
     raise ValueError("Unrecognized CLIP state-dict format")

@@ -1,16 +1,22 @@
-"""Model factory (port of lemon_tpu/models/registry.py for the ViT-B/32 path).
+"""Model factory (port of lemon_tpu/models/registry.py for the ViT towers).
 
-- ``'huggingface_clip'``  ViT-B/32; weights from an HF ``CLIPModel``
-  checkpoint or a JAX ``.npz`` tree when one is found
-- ``'tiny'``              test-scale config
+- ``'huggingface_clip'``              ViT-B/32; weights from an HF
+  ``CLIPModel`` checkpoint or a JAX ``.npz`` tree when one is found
+- ``'chexzero'``                      ViT-B/32, an OpenAI-format state dict
+- ``'mimic_clip_from_scratch_random'``,
+  ``'mimic_clip_from_scratch_cat'``   ViT-B/16 at 224 px, embed 768,
+  text context 256
+- ``'cc3m_clip_from_scratch'``        ViT-B/16, embed 768, context 77
+- ``'tiny'``                          test-scale config
 
 Checkpoint resolution (lemon_tpu/models/registry.py:41-51): the
 ``LEMON_TPU_CKPT_<NAME>`` environment variable, then
-``<data_root>/checkpoints/<name>.{npz,pt,bin,safetensors}``. Without one the
+``<data_root>/checkpoints/<name>.{npz,pt,bin,safetensors}``; a checkpoint
+in either format (HF or OpenAI) loads under any name. Without one the
 weights are a seeded random init, announced loudly: fine for benchmarks and
-synthetic data, wrong for real-data results. The other registry names of the
-JAX package (BiomedCLIP, RN50, the OpenAI-format ``chexzero`` and the
-from-scratch ViT-B/16 models) are not ported yet and raise.
+synthetic data, wrong for real-data results. ``'biomed_clip'`` (timm
+ViT-B/16 + PubMedBERT) and ``'rn50'`` (ModifiedResNet) are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,8 +35,13 @@ from lemon_tpu_torch.models.loader import detect_and_convert, load_torch_file
 
 MODEL_CONFIGS = {
     "huggingface_clip": ClipConfig.vit_b32(),
+    "chexzero": ClipConfig.vit_b32(),
+    "mimic_clip_from_scratch_random": ClipConfig.from_scratch_mimic(),
+    "mimic_clip_from_scratch_cat": ClipConfig.from_scratch_mimic(),
+    "cc3m_clip_from_scratch": ClipConfig.vit_b16(embed_dim=768, context_length=77),
     "tiny": ClipConfig.tiny(),
 }
+NOT_PORTED = ("biomed_clip", "rn50")
 
 
 def checkpoint_path(name: str) -> Optional[Path]:
@@ -54,7 +65,8 @@ def checkpoint_fingerprint(ckpt: Optional[Path], seed: int) -> str:
 
 
 def load_checkpoint(path: Path, cfg: ClipConfig):
-    """(state dict, config) from a JAX ``.npz`` tree or an HF checkpoint."""
+    """(state dict, config) from a JAX ``.npz`` tree, or an HF or
+    OpenAI-format checkpoint."""
     if path.suffix == ".npz":
         return from_flax_params(load_flax_npz(path)), cfg
     if path.suffix == ".safetensors":
@@ -69,10 +81,13 @@ def load_checkpoint(path: Path, cfg: ClipConfig):
 
 def create_encoder(name: str, device: torch.device, seed: int = 0, batch_size: int = 128, checkpoint: Optional[str] = None) -> ClipEncoder:
     """A frozen encoder for a registry name (run_lemon.py:112-115)."""
-    if name not in MODEL_CONFIGS:
+    if name in NOT_PORTED:
         raise NotImplementedError(
-            f"clip_model '{name}' is not ported to lemon_tpu_torch yet; options: {sorted(MODEL_CONFIGS)}"
+            f"clip_model '{name}' is not ported to lemon_tpu_torch yet (ROADMAP queue 1, the other registry "
+            f"models); options: {sorted(MODEL_CONFIGS)}"
         )
+    if name not in MODEL_CONFIGS:
+        raise KeyError(f"unknown clip_model '{name}'; options: {sorted(MODEL_CONFIGS)}")
     cfg = MODEL_CONFIGS[name]
     ckpt = Path(checkpoint) if checkpoint else checkpoint_path(name)
     if ckpt is not None:

@@ -1,14 +1,17 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
 interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
+    nvcc -shared
 
 The library goes to ``build/lemon_tpu_torch/<hash>/`` at the checkout root,
-keyed by a hash of the sources and the flags, so an edited kernel rebuilds and
-an unchanged one loads. The build happens at first use, never at import: the
-CPU tests import every module on machines without ``nvcc``.
+keyed by a hash of the sources (``*.cu`` and ``*.cuh``) and the flags, so an
+edited kernel rebuilds and an unchanged one loads. The build happens at first
+use, never at import: the CPU tests import every module on machines without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,18 +29,21 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "lemon_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, l2, high, stream
-    "lemon_scores_blockmax": (
-        [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
-    ),
+    "lemon_scores_blockmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
     # x, vals, idx, B, W, k, stream
-    "lemon_topk": [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "lemon_topk": [_P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, o, B, L, H, D, stride_b, stride_l, scale, causal, stream
+    "lemon_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, ctypes.c_float, _I, _P],
+    # sb, block_ids, vals, idx, B, n_blocks, k, stream
+    "lemon_gather_topk": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -55,10 +61,18 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "liblemon_kernels.so"
+
+
+def _run_all(cmds):
+    """Run the commands in parallel; (return codes, combined log)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(f"$ {' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
+    return [p.returncode for p in procs], log
 
 
 @functools.lru_cache(maxsize=1)
@@ -68,14 +82,22 @@ def library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+        tag = f"{os.getpid()}.tmp"
+        nvcc = _nvcc()
+        sources = sorted(CSRC.glob("*.cu"))
+        objects = [out.with_name(f"{src.stem}.{tag}.o") for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        codes, log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objects)])
+        if not any(codes):
+            tmp = out.with_name(f"{out.name}.{tag}")
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+            codes, link_log = _run_all([link])
+            log += link_log
         out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        for o in objects:
+            o.unlink(missing_ok=True)
+        if any(codes):
+            raise RuntimeError(f"nvcc failed ({codes}):\n{log}")
         os.replace(tmp, out)
         print(f"[lemon_tpu_torch] built {out} in {time.perf_counter() - t0:.1f} s", flush=True)
     lib = ctypes.CDLL(str(out))

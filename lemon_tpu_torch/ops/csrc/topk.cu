@@ -1,110 +1,45 @@
 // Exact row-wise top-k with the FAISS tie rule.
 //
 // Replaces the Pallas kernel lemon_tpu/ops/topk.py `_topk_kernel` (launched
-// by `_pallas_topk_padded`, :80). For x (B, W) fp32 row-major and k <= 128 it
-// writes vals (B, k) in descending order and idx (B, k) int64, ties going to
-// the lower column and -inf entries taken in ascending column order, exactly
-// like jax.lax.top_k.
-//
-// Removal by index, not by value. The TPU kernel consumed a selected entry by
-// overwriting it with -inf, which cannot advance past an entry that already
-// is -inf; it mapped -inf to the lowest finite float on load to work around
-// that. Here pass j takes the best entry that comes strictly after pass
-// j-1's pick (v, i) in the total order "value descending, column
-// ascending": entry (v', i') is eligible iff v' < v or (v' == v and i' > i).
-// Nothing is written back, ties and -inf rows advance by column, and no
-// sentinel value is reserved.
+// by `_pallas_topk_padded`, :80). For x (B, W) fp32 row-major and 0 < k <= W
+// it writes vals (B, k) in descending order and idx (B, k) int64, ties going
+// to the lower column and -inf entries taken in ascending column order,
+// exactly like jax.lax.top_k. The TPU kernel stops at k = 128 (the JAX
+// package takes lax.top_k above it); the selection here (select_rows.cuh)
+// keeps no per-k state, so every k of the search stays on this kernel.
 //
 // What bounds it on an H100. On the main path W is k*128 (640 at k = 5,
 // 6528 at k = 51) or T/128 for the block maxima; the k passes re-read the
 // row k times, so the row is staged once in shared memory (up to 48K floats,
 // 192 KB, opted in above 48 KB) and each pass is a strided scan plus a
-// block-wide (value, column) argmax: warp shuffles, then one warp over the
-// warp winners. One block per row, rows in parallel over the SMs; the passes
-// are latency-bound by the two barriers each. Wider rows read global memory
-// (L2) on every pass instead of shared memory.
+// block-wide (value, column) argmax. One block per row, rows in parallel over
+// the SMs; the passes are latency-bound by the two barriers each. Wider rows
+// read global memory (L2) on every pass instead of shared memory.
 
-#include <climits>
 #include <cuda_runtime.h>
-#include <math_constants.h>
+
+#include "select_rows.cuh"
 
 namespace {
 
 constexpr int SMEM_MAX_FLOATS = 48 * 1024;
-
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
 
 template <int THREADS, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 topk_kernel(const float* __restrict__ x, float* __restrict__ vals, long long* __restrict__ idx,
             int W, int k) {
   extern __shared__ float staged[];
-  constexpr int NW = THREADS / 32;
-  __shared__ float red_v[NW];
-  __shared__ int red_i[NW];
-  __shared__ float sel_v;
-  __shared__ int sel_i;
-
   const long long r = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const float* xr = x + r * W;
   if (STAGED) {
-    for (int c = tid; c < W; c += THREADS) staged[c] = xr[c];
+    for (int c = threadIdx.x; c < W; c += THREADS) staged[c] = xr[c];
     __syncthreads();
   }
   const float* row = STAGED ? staged : xr;
-
-  // Everything comes after (+inf, -1) in the selection order.
-  float pv = CUDART_INF_F;
-  int pi = -1;
-  for (int j = 0; j < k; ++j) {
-    float bv = -CUDART_INF_F;
-    int bi = INT_MAX;  // loses to any real column, -inf ones included
-    for (int c = tid; c < W; c += THREADS) {
-      const float v = row[c];
-      const bool eligible = v < pv || (v == pv && c > pi);
-      if (eligible && better(v, c, bv, bi)) {
-        bv = v;
-        bi = c;
-      }
-    }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < NW ? red_v[lane] : -CUDART_INF_F;
-      bi = lane < NW ? red_i[lane] : INT_MAX;
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        sel_v = bv;
-        sel_i = bi;
-        vals[r * k + j] = bv;
-        idx[r * k + j] = bi;
-      }
-    }
-    __syncthreads();
-    pv = sel_v;
-    pi = sel_i;
-  }
+  lemon_select::select_top_k<THREADS>(row, W, k, [&](int j, float v, int c) {
+    vals[r * k + j] = v;
+    idx[r * k + j] = c;
+  });
 }
 
 template <int THREADS>
@@ -128,7 +63,7 @@ int launch(const float* x, float* vals, long long* idx, int B, int W, int k,
 }  // namespace
 
 // Shapes are checked by the Python wrapper (lemon_tpu_torch/ops/topk.py):
-// 0 < k <= min(W, 128) and 0 < B < 2^31. Returns the launch's error code.
+// 0 < k <= W and 0 < B < 2^31. Returns the launch's error code.
 extern "C" int lemon_topk(const float* x, float* vals, long long* idx, int B, int W, int k,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -4,7 +4,8 @@ Port of ``lemon_tpu/ops/topk.py`` (``pallas_topk``). Values come out in
 descending order with ties to the lower column, and ``-inf`` entries are
 taken in ascending column order, exactly like ``jax.lax.top_k``. Every top-k
 in the port's kNN goes through here: ``torch.topk`` does not promise the
-order of ties on CUDA. The CUDA kernel is ``csrc/topk.cu``.
+order of ties on CUDA. The CUDA kernel is ``csrc/topk.cu``; unlike the TPU
+kernel it has no bound on k below the row width.
 """
 
 from __future__ import annotations
@@ -12,8 +13,6 @@ from __future__ import annotations
 import torch
 
 from lemon_tpu_torch.ops import _build
-
-MAX_K = 128
 
 
 def topk_plain(x: torch.Tensor, k: int):
@@ -25,7 +24,7 @@ def topk_plain(x: torch.Tensor, k: int):
 
 def topk(x: torch.Tensor, k: int):
     """(values (B, k) float32, indices (B, k) int64) of the k largest entries
-    of each row of ``x`` (B, W), contiguous float32, ``0 < k <= min(W, 128)``.
+    of each row of ``x`` (B, W), contiguous float32, ``0 < k <= W``.
     NaN is not supported. CPU tensors take the plain version; CUDA tensors
     launch the kernel (``topk.launches`` counts the launches)."""
     _check(x, k)
@@ -51,7 +50,7 @@ def _check(x: torch.Tensor, k: int) -> None:
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"topk: need a contiguous 2-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
     b, w = x.shape
-    if not 0 < k <= min(w, MAX_K):
-        raise ValueError(f"topk: need 0 < k <= min(W={w}, {MAX_K}), got k={k}")
+    if not 0 < k <= w:
+        raise ValueError(f"topk: need 0 < k <= W={w}, got k={k}")
     if not 0 < b < 2**31 or w >= 2**31:
         raise ValueError(f"topk: unsupported shape {tuple(x.shape)}")

@@ -146,3 +146,32 @@ def calc_scores_grid(logs: NeighborLogs, grid: np.ndarray, device: torch.device,
     comps = component_tensors(logs, device)
     g = torch.as_tensor(np.asarray(grid, np.float32), device=device)
     return torch.cat([scores_grid(comps, g[s : s + batch]) for s in range(0, len(g), batch)]).cpu().numpy()
+
+
+def _clip(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """``jnp.clip(x, -bound, bound)``, gradient included: half at a tie
+    (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(-bound)), x.new_tensor(bound))
+
+
+def soft_margin_proxy_loss(x: torch.Tensor, components, y_signed: torch.Tensor, force_zero: torch.Tensor, force_one: torch.Tensor) -> torch.Tensor:
+    """Differentiable proxy for F1, one value per row of ``x`` (R, 6):
+    SoftMarginLoss(score, y in {-1, 1}) = mean(log(1 + exp(-y * score)))
+    (lib/metrics/utils.py:123-127; lemon_tpu/scoring/lemon.py:203-233).
+
+    As in the JAX package, the hparams are clamped to the grid's domain
+    |h| <= 100 and the exponent to +-60, so no iterate overflows float32;
+    ``force_zero`` / ``force_one`` (6,) bool masks pin ablated hparams
+    inside the loss, so their gradient is zero."""
+    d1, dists_n, D_n, dtr_n, dists_m, D_m, dtr_m = components
+    x = _clip(x, 100.0)
+    x = torch.where(force_zero, torch.zeros_like(x), x)
+    x = torch.where(force_one, torch.ones_like(x), x)
+    beta, gamma, t1n, t2n, t1m, t2m = (x[:, i, None, None] for i in range(6))
+    k = dists_n.shape[1]
+    wn = torch.exp(_clip(-t1n * D_n - t2n * dtr_n, 60.0))
+    wm = torch.exp(_clip(-t1m * D_m - t2m * dtr_m, 60.0))
+    d_n = torch.sum(wn * dists_n, dim=2) / k
+    d_m = torch.sum(wm * dists_m, dim=2) / k
+    score = d1 + beta[:, :, 0] * d_n + gamma[:, :, 0] * d_m
+    return torch.logaddexp(torch.zeros_like(score), -y_signed * score).mean(dim=1)

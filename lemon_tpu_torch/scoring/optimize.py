@@ -10,13 +10,13 @@ The strict path (``use_device_grid=False``, ``--strict_hparam_parity``) is
 the JAX package's unchanged: host scipy, the torch ``_proxy_lbfgs`` per
 restart, then every grid point under the caller's objective on the host.
 
-The default path scores the whole grid on the device (``scores_grid``
-per batch of grid rows, then an exact all-thresholds F1 sweep,
-:func:`grid_best_f1_device`), re-ranks the top 8 under the caller's
-objective and polishes the best candidate with one host Powell run. Its
-proxy stage runs the host ``_proxy_lbfgs`` once per restart: the JAX
-package's batched device L-BFGS (``_proxy_lbfgs_device_batch``, optax) is
-not ported yet.
+The default path runs all proxy restarts as one batched L-BFGS on the
+device (:func:`proxy_lbfgs_device_batch`, optax's ``lbfgs`` with Armijo
+backtracking as the JAX package runs it), scores the whole grid on the
+device (``scores_grid`` per batch of grid rows, then an exact
+all-thresholds F1 sweep, :func:`grid_best_f1_device`), re-ranks the top 8
+under the caller's objective and polishes the best candidate with one host
+Powell run.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from lemon_tpu_torch.scoring.lemon import (
     calc_scores,
     component_tensors,
     scores_grid,
+    soft_margin_proxy_loss,
     unpack_hparams,
 )
 from lemon_tpu_torch.scoring.thresholds import optimize_f1_efficient
@@ -112,7 +113,7 @@ def _objective(x, logs: NeighborLogs, y, obj_func: Callable, obj_args: dict, for
 
 
 def _proxy_lbfgs(logs: NeighborLogs, y: np.ndarray, x0, force_zero, force_one) -> np.ndarray:
-    """Proxy stage: torch LBFGS with the reference's configuration — lr=0.1,
+    """Strict-parity proxy stage: torch LBFGS with the reference's configuration — lr=0.1,
     max_iter=20, strong_wolfe, the step() loop run 20 times (torch_minimize,
     lib/metrics/utils.py:129-141) — on the SoftMarginLoss proxy
     (optim_func_torch, :124-127). Host CPU, copied from
@@ -150,6 +151,124 @@ def _proxy_lbfgs(logs: NeighborLogs, y: np.ndarray, x0, force_zero, force_one) -
     for _ in range(20):
         optimizer.step(closure)
     return x.detach().numpy()
+
+
+# optax 0.2.6 defaults: lbfgs(memory_size=10, scale_init_precond=True),
+# scale_by_backtracking_linesearch(slope_rtol=1e-4, decrease_factor=0.8,
+# increase_factor=1.5, max_learning_rate=1.0, atol=0, rtol=0)
+LBFGS_MEMORY = 10
+LS_MAX_STEPS = 15
+LS_SLOPE_RTOL = 1e-4
+LS_DECREASE = 0.8
+LS_INCREASE = 1.5
+LS_MAX_LR = 1.0
+
+
+def _value_and_grad(fn, x: torch.Tensor):
+    """Per-row values of ``fn`` and their gradients: rows are independent,
+    so the gradient of the sum is the stack of the rows' gradients."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        value = fn(xg)
+        (grad,) = torch.autograd.grad(value.sum(), xg)
+    return value.detach(), grad
+
+
+def _rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(dim=1)
+
+
+def proxy_lbfgs_device_batch(x0s: torch.Tensor, comps, y_signed: torch.Tensor, fz: torch.Tensor, fo: torch.Tensor, maxiter: int = 100) -> torch.Tensor:
+    """Every proxy restart as one row of batched tensors on their device
+    (port of lemon_tpu/scoring/optimize.py:124-174).
+
+    ``x0s`` (R, 6) float32 start points, ``comps`` the float32 score
+    components, ``y_signed`` (N,) in {-1, 1}, ``fz`` / ``fo`` (6,) bool
+    ablation masks. Each row runs ``maxiter`` steps of optax 0.2.6's
+    ``lbfgs`` (memory 10, the first step scaled to a unit-norm direction,
+    later ones by the last curvature pair) under
+    ``scale_by_backtracking_linesearch(max_backtracking_steps=15,
+    store_grad=True)``, whose value and gradient at the accepted point are
+    reused by the next step. A row's line search takes its first trial step
+    with sufficient decrease (Armijo), else its 16th; one that never finds a
+    finite value takes no step. The 16 trials of all rows are one batched
+    evaluation. Autograd gives the gradient; no ``torch.optim``.
+    Returns the (R, 6) candidates clipped to +-100, with a non-finite row
+    replaced by its start point."""
+
+    def loss(x):
+        return soft_margin_proxy_loss(x, comps, y_signed, fz, fo)
+
+    x = x0s.clone()
+    r = x.shape[0]
+    s_mem = x.new_zeros((LBFGS_MEMORY, r, 6))  # parameter differences
+    y_mem = x.new_zeros((LBFGS_MEMORY, r, 6))  # gradient differences
+    rho = x.new_zeros((LBFGS_MEMORY, r))
+    prev_x, prev_g = torch.zeros_like(x), torch.zeros_like(x)
+    ls_lr = x.new_ones(r)
+    ls_value = x.new_full((r,), torch.inf)
+    ls_grad = torch.zeros_like(x)
+    for count in range(maxiter):
+        # value_and_grad_from_state: reuse the line search's last point
+        # unless its value is not finite
+        stale = ~torch.isfinite(ls_value)
+        value, grad = ls_value, ls_grad
+        if bool(stale.any()):
+            v, g = _value_and_grad(loss, x)
+            value = torch.where(stale, v, value)
+            grad = torch.where(stale[:, None], g, grad)
+
+        # scale_by_lbfgs: store the newest curvature pair, then the
+        # two-loop product with the memory (oldest pairs are zero at first)
+        mi, pmi = count % LBFGS_MEMORY, (count - 1) % LBFGS_MEMORY
+        if count > 0:
+            dp, du = x - prev_x, grad - prev_g
+            vd = _rowdot(du, dp)
+            w = torch.where(vd == 0.0, torch.zeros_like(vd), 1.0 / vd)
+            den = _rowdot(du, du)
+            scale = torch.where(den > 0.0, vd / den, torch.ones_like(den))
+        else:
+            dp, du, w = torch.zeros_like(x), torch.zeros_like(x), x.new_zeros(r)
+            scale = torch.clamp(1.0 / torch.linalg.vector_norm(grad, dim=1), max=1.0)
+        s_mem[pmi], y_mem[pmi], rho[pmi] = dp, du, w
+        direction = grad
+        alphas = [None] * LBFGS_MEMORY
+        for i in reversed(range(LBFGS_MEMORY)):
+            j = (mi + i) % LBFGS_MEMORY
+            alphas[i] = rho[j] * _rowdot(s_mem[j], direction)
+            direction = direction - alphas[i][:, None] * y_mem[j]
+        direction = scale[:, None] * direction
+        for i in range(LBFGS_MEMORY):
+            j = (mi + i) % LBFGS_MEMORY
+            beta = rho[j] * _rowdot(y_mem[j], direction)
+            direction = direction + (alphas[i] - beta)[:, None] * s_mem[j]
+        prev_x, prev_g = x, grad
+        direction = -direction
+
+        # scale_by_backtracking_linesearch. Its trial step sizes lr, 0.8 lr,
+        # 0.8^2 lr, ... are evaluated in one batch, and each row takes the
+        # first with sufficient decrease, else the last: the trials the
+        # sequential search would stop at, without one host sync per trial
+        slope = _rowdot(direction, grad)
+        lrs = [torch.clamp(LS_INCREASE * ls_lr, max=LS_MAX_LR)]
+        for _ in range(LS_MAX_STEPS):
+            lrs.append(lrs[-1] * LS_DECREASE)
+        lrs = torch.stack(lrs)  # (T, R)
+        t = lrs.shape[0]
+        v, g = _value_and_grad(loss, (x + lrs[:, :, None] * direction).reshape(t * r, 6))
+        v, g = v.view(t, r), g.view(t, r, 6)
+        error = v - value - lrs * LS_SLOPE_RTOL * slope
+        error = torch.clamp(torch.where(torch.isnan(error), torch.full_like(error, torch.inf), error), min=0.0)
+        done = error <= 0.0
+        pick = torch.where(done.any(dim=0), done.to(torch.int8).argmax(dim=0), t - 1)[None]  # (1, R)
+        lr, ls_value, error = lrs.gather(0, pick)[0], v.gather(0, pick)[0], error.gather(0, pick)[0]
+        ls_grad = g.gather(0, pick[:, :, None].expand(1, r, 6))[0]
+        # a search that found no finite value takes no step
+        ls_lr = torch.where(torch.isinf(error), torch.zeros_like(lr), lr)
+        x = x + ls_lr[:, None] * direction
+
+    xf = x.clamp(-100.0, 100.0)
+    return torch.where(torch.isfinite(xf).all(dim=1, keepdim=True), xf, x0s)
 
 
 def maximize_metric(
@@ -194,8 +313,18 @@ def maximize_metric(
                         best_x = res.x
 
     with timer.phase("hparam_proxy_lbfgs"):
-        for x0 in x0s:
-            consider(_proxy_lbfgs(logs_val, y, x0, force_zero, force_one))
+        x0_list = list(x0s)
+        if use_device_grid and x0_list:
+            comps = component_tensors(logs_val, device)
+            y_signed = torch.as_tensor(np.asarray(y, np.float32) * 2 - 1, device=device)
+            fz = torch.tensor([name in force_zero for name in HPARAM_ORDER], device=device)
+            fo = torch.tensor([name in force_one for name in HPARAM_ORDER], device=device)
+            x0_mat = torch.as_tensor(np.asarray(x0_list, np.float32), device=device)
+            for cand in proxy_lbfgs_device_batch(x0_mat, comps, y_signed, fz, fo).cpu().numpy().astype(np.float64):
+                consider(cand)
+        else:
+            for x0 in x0_list:
+                consider(_proxy_lbfgs(logs_val, y, x0, force_zero, force_one))
 
     gm = grid_to_matrix(grid, force_zero=force_zero, force_one=force_one)
     with timer.phase("hparam_grid"):

@@ -1,0 +1,159 @@
+"""K3 (lemon_tpu_torch.ops.attention) and the towers' flash route against
+the JAX package.
+
+``flash_attention_plain`` is held to ``lemon_tpu.ops.attention.flash_attention``
+in Pallas interpret mode and to ``reference_attention`` on the same numpy
+inputs in the (B, L, H, D) layout, at tests/test_attention.py's bar (2e-5,
+fp32 with another summation order). The towers under
+``attention_impl="flash"`` are held to the JAX towers under ``'pallas'`` on a
+narrow ViT-B/16-shaped config with the same weights (``from_flax_params``),
+at the towers' bar (1e-4). On the CPU the wrapper takes the plain version;
+the CUDA kernel is checked against it on the card (marked ``cuda``). The
+JAX towers (flax) are imported inside the tests that use them, so the
+``cuda`` tests also collect where only jax is installed.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lemon_tpu.ops.attention import flash_attention as jax_flash
+from lemon_tpu.ops.attention import reference_attention
+from lemon_tpu_torch.models.clip import ClipConfig, ClipModel
+from lemon_tpu_torch.models.convert import from_flax_params
+from lemon_tpu_torch.ops import attention
+
+JAX_IMPL = {"plain": "xla", "flash": "pallas"}
+# ViT-B/16 geometry at narrow width: 64 px in 16 px patches (17 tokens),
+# text context 40, head dim 64 in both towers
+NARROW_B16 = ClipConfig(
+    embed_dim=64, image_resolution=64, vision_layers=2, vision_width=128, vision_patch_size=16,
+    context_length=40, text_width=128, text_heads=2, text_layers=2,
+)
+
+
+def _qkv(b, l, h, d, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, l, h, d)).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [33, 50, 77, 128, 200])
+def test_plain_matches_jax_flash_and_reference(l, causal):
+    q, k, v = _qkv(2, l, 2, 64, seed=l)
+    ours = attention.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal).numpy()
+    assert ours.shape == (2, l, 2, 64)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    np.testing.assert_allclose(ours, np.asarray(jax_flash(jq, jk, jv, causal=causal, interpret=True)), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(ours, np.asarray(reference_attention(jq, jk, jv, causal=causal)), rtol=2e-5, atol=2e-5)
+
+
+def _jax_cfg(cfg: ClipConfig):
+    from lemon_tpu.models import clip as jclip
+
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["attention_impl"] = JAX_IMPL[cfg.attention_impl]
+    return jclip.ClipConfig(**fields)
+
+
+def _inputs(cfg, b, seed):
+    rng = np.random.default_rng(seed)
+    pixels = rng.standard_normal((b, cfg.image_resolution, cfg.image_resolution, 3)).astype(np.float32)
+    tokens = np.zeros((b, cfg.context_length), np.int32)
+    for r in range(b):  # SOT, a few ids, EOT (the max id), zero padding
+        n = 5 + 7 * r
+        tokens[r, 0] = cfg.vocab_size - 2
+        tokens[r, 1 : n + 1] = rng.integers(1, cfg.vocab_size - 2, n)
+        tokens[r, n + 1] = cfg.vocab_size - 1
+    return pixels, tokens
+
+
+def _port_embed(state, cfg, pixels, tokens):
+    model = ClipModel(cfg)
+    model.load_state_dict(state)
+    with torch.no_grad():
+        return (model.eval().encode_image(torch.from_numpy(pixels)).numpy(),
+                model.encode_text(torch.from_numpy(tokens).long()).numpy())
+
+
+def test_towers_under_flash_match_jax_pallas():
+    from lemon_tpu.models import clip as jclip
+
+    cfg = dataclasses.replace(NARROW_B16, attention_impl="flash")
+    jcfg = _jax_cfg(cfg)
+    _, params = jclip.init_params(jcfg, seed=2)
+    pixels, tokens = _inputs(cfg, 3, seed=1)
+    img, txt = _port_embed(from_flax_params(params), cfg, pixels, tokens)
+    jmodel = jclip.ClipModel(jcfg)  # 'pallas' runs the kernel in interpret mode on the CPU
+    np.testing.assert_allclose(img, np.asarray(jmodel.apply(params, jnp.asarray(pixels), method="encode_image")), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(txt, np.asarray(jmodel.apply(params, jnp.asarray(tokens), method="encode_text")), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cfg", [ClipConfig.tiny(), NARROW_B16], ids=["tiny", "narrow_b16"])
+def test_flash_and_plain_routes_agree(cfg):
+    """One state dict under both routes of the port (the comparison
+    chip_smoke makes at full width on the card)."""
+    from lemon_tpu.models import clip as jclip
+
+    _, params = jclip.init_params(_jax_cfg(cfg), seed=4)
+    state = from_flax_params(params)
+    pixels, tokens = _inputs(cfg, 2, seed=3)
+    plain = _port_embed(state, cfg, pixels, tokens)
+    flash = _port_embed(state, dataclasses.replace(cfg, attention_impl="flash"), pixels, tokens)
+    for a, b in zip(plain, flash):
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(2, 5, 2, 64)
+    with pytest.raises(ValueError, match="forward only"):
+        attention.flash_attention(q.clone().requires_grad_(True), q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        attention.flash_attention(*(torch.zeros(2, 5, 2, 48),) * 3)
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, q, torch.zeros(2, 6, 2, 64))  # shapes differ
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, q, q.double())
+    with pytest.raises(ValueError):
+        attention.flash_attention(*(torch.zeros(2, 0, 2, 64),) * 3)
+    with pytest.raises(ValueError, match="attention_impl"):
+        ClipConfig(attention_impl="pallas")
+
+
+def test_cpu_tensors_launch_nothing():
+    before = attention.flash_attention.launches
+    q, k, v = map(torch.from_numpy, _qkv(1, 9, 1, 32, seed=0))
+    out = attention.flash_attention(q, k, v, causal=True)
+    assert attention.flash_attention.launches == before
+    assert torch.equal(out, attention.flash_attention_plain(q, k, v, causal=True))
+    # the first query sees only itself
+    assert torch.allclose(out[:, 0], v[:, 0])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # the towers' shapes (ViT-B/16 vision, ctx-256 text, ViT-B/32 vision, ctx-77 text), then odd ones
+    (128, 197, 12, 64, False), (128, 256, 8, 64, True), (128, 50, 12, 64, False), (128, 77, 8, 64, True),
+    (3, 33, 2, 32, True), (2, 200, 3, 128, False), (4, 1, 1, 64, True),
+])
+def test_kernel_matches_plain_on_the_card(cuda_device, shape):
+    b, l, h, d, causal = shape
+    g = torch.Generator(device=cuda_device).manual_seed(l)
+    x = torch.randn(b, l, 3 * h * d, device=cuda_device, generator=g)
+    q, k, v = (t.reshape(b, l, h, d) for t in x.split(h * d, dim=-1))  # strided, as in the towers
+    before = attention.flash_attention.launches
+    out = attention.flash_attention(q, k, v, causal)
+    assert attention.flash_attention.launches == before + 1
+    ref = attention.flash_attention_plain(q, k, v, causal)
+    assert (out - ref).abs().max().item() <= 2e-5
+    assert torch.equal(out, attention.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal))

@@ -8,6 +8,7 @@ fp32 with different summation order); preprocessing within PIL's uint8
 rounding (tests/test_image.py's bars).
 """
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -32,11 +33,17 @@ CONFIGS = {
     "tiny": ClipConfig.tiny(),
     # full ViT-B/32 widths (768 vision, 512 text, 512 embed), one layer each
     "vit_b32_1layer": ClipConfig(vision_layers=1, text_layers=1),
+    # the from-scratch MIMIC model's widths: ViT-B/16 (197 tokens), embed
+    # 768, text context 256, one layer each
+    "vit_b16_ctx256_1layer": dataclasses.replace(ClipConfig.from_scratch_mimic(), vision_layers=1, text_layers=1),
 }
+JAX_IMPL = {"plain": "xla", "flash": "pallas"}
 
 
 def _jax_cfg(cfg: ClipConfig) -> jclip.ClipConfig:
-    return jclip.ClipConfig(**{f.name: getattr(cfg, f.name) for f in cfg.__dataclass_fields__.values()})
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["attention_impl"] = JAX_IMPL[cfg.attention_impl]
+    return jclip.ClipConfig(**fields)
 
 
 def _inputs(cfg, b, seed):

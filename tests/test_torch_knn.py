@@ -18,7 +18,8 @@ import torch
 
 from lemon_tpu.knn.index import _tiled_search, numpy_search
 from lemon_tpu.knn.index import train_split_exclusion as jax_exclusion
-from lemon_tpu_torch.knn.index import ExactKnnIndex, auto_tile, train_split_exclusion
+from lemon_tpu_torch.knn.index import ExactKnnIndex, _blockmax_select, auto_tile, train_split_exclusion
+from lemon_tpu_torch.ops.topk import topk_plain
 
 CASES = [
     # (n_db, d, k, tile): one narrow tile; 5 prefilter tiles + merge;
@@ -98,6 +99,46 @@ def test_k_beyond_ntotal_pads_with_n_valid(metric):
     np.testing.assert_array_equal(i[~pad], ri[~pad])
 
 
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_k_above_128_matches_jax(metric):
+    """k = 150 over 400 rows: one narrow tile, so the top-k is taken
+    directly. The JAX package leaves its Pallas top-k above k = 128 for
+    lax.top_k; the port keeps K2 for every k."""
+    xb, xq = _data(400, 16, 7, seed=150, quantized=False)
+    s, i = _port_search(xb, xq, 150, metric, None)
+    rs, ri = _jax_search(xb, xq, 150, metric, 512)
+    assert s.shape == (7, 150)
+    np.testing.assert_array_equal(i, ri)
+    np.testing.assert_allclose(s, rs, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [129, 200, 255])
+def test_blockmax_select_exact_above_128(k):
+    """The prefilter at k in 128..255, on the narrowest tile that takes it
+    (4*k*128 columns): quantised scores with ties, a masked tail, and a row
+    with fewer finite entries than k, against a whole-row top-k."""
+    rng = np.random.default_rng(k)
+    t = 4 * k * 128
+    s = torch.from_numpy((rng.integers(0, 64, (3, t)) / 8).astype(np.float32))
+    s[:, -300:] = -torch.inf
+    s[1, 5:] = -torch.inf
+    vals, cols = _blockmax_select(s, s.view(3, -1, 128).amax(2), k)
+    v0, c0 = topk_plain(s, k)
+    assert torch.equal(vals, v0) and torch.equal(cols, c0)
+
+
+def test_k_above_128_through_the_prefilter_matches_numpy():
+    """A whole search whose one tile is wide enough for the prefilter at
+    k = 150 (76800 rows), on exact data with duplicated rows."""
+    n_db, k = 4 * 150 * 128, 150
+    xb, xq = _data(n_db, 8, 3, seed=7, quantized=True)
+    xb[n_db // 2] = xb[1]
+    s, i = _port_search(xb, xq, k, "ip", n_db)
+    ns, ni = numpy_search(xb, xq, k, "ip")
+    np.testing.assert_array_equal(s, ns)
+    np.testing.assert_array_equal(i, ni)
+
+
 def test_train_split_self_exclusion_matches_jax():
     """k+1 search of train rows against a comparison subset, then the
     reference's drop-self / drop-last rule."""
@@ -135,3 +176,16 @@ def test_auto_tile_fits_the_budget():
         assert tile % 128 == 0 and tile * 4 * q <= max(4 << 30, 128 * 4 * q)
         assert -(-n // tile) * tile >= n
     assert auto_tile(131072, 8192) == 131072  # a 128k database stays one tile
+
+
+@pytest.mark.cuda
+def test_index_on_the_card_adopts_device_tensors():
+    """``torch.device("cuda")`` names the current card; an encoder built on
+    it holds its embeddings on "cuda:<index>", which the index adopts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernels have no CPU mode")
+    xb, xq = _data(700, 16, 10, seed=2, quantized=True)  # exact scores: ids follow the tie rule
+    index = ExactKnnIndex(metric="ip", device=torch.device("cuda"))
+    index.add(torch.from_numpy(xb).to("cuda"))
+    s, i = index.search(torch.from_numpy(xq).to("cuda"), 5)
+    np.testing.assert_array_equal(i, numpy_search(xb, xq, 5, "ip")[1])

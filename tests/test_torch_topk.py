@@ -1,9 +1,10 @@
 """K2 (lemon_tpu_torch.ops.topk) against the Pallas kernel it replaces.
 
 The plain PyTorch version is held to ``lemon_tpu.ops.topk.pallas_topk`` in
-Pallas interpret mode and to ``jax.lax.top_k``: values and indices must be
-equal exactly, including the tie rule (lower column first) and rows with
-fewer than k finite entries. The CUDA kernel itself runs only on the card
+Pallas interpret mode (k <= 128, that kernel's bound) and to
+``jax.lax.top_k`` (every k, as the JAX package's search falls back to it
+above 128): values and indices must be equal exactly, including the tie
+rule (lower column first) and rows with fewer than k finite entries. The CUDA kernel itself runs only on the card
 (marked ``cuda``).
 """
 
@@ -17,11 +18,14 @@ from lemon_tpu.ops.topk import pallas_topk
 from lemon_tpu_torch.ops import topk as topk_mod
 
 CASES = [
-    # (B, W, k): k=1, k=128, W not a multiple of 128, the main path's k*128
+    # (B, W, k): k=1, k=128, W not a multiple of 128, the main path's k*128,
+    # k above the TPU kernel's 128 (the JAX package takes lax.top_k there)
     (9, 640, 5),
     (6, 999, 1),
     (5, 300, 128),
     (4, 6528, 51),
+    (5, 1000, 200),
+    (3, 257, 257),
 ]
 
 
@@ -45,9 +49,10 @@ def test_plain_matches_pallas_and_lax(case):
     rv, ri = jax.lax.top_k(jnp.asarray(x), k)
     np.testing.assert_array_equal(v, np.asarray(rv))
     np.testing.assert_array_equal(i, np.asarray(ri))
-    pv, pi = pallas_topk(jnp.asarray(x), k)
-    np.testing.assert_array_equal(v, np.asarray(pv))
-    np.testing.assert_array_equal(i, np.asarray(pi))
+    if k <= 128:  # the TPU kernel's bound: the JAX package takes lax.top_k above it
+        pv, pi = pallas_topk(jnp.asarray(x), k)
+        np.testing.assert_array_equal(v, np.asarray(pv))
+        np.testing.assert_array_equal(i, np.asarray(pi))
 
 
 def test_tie_rule_and_neg_inf_order():
@@ -59,9 +64,11 @@ def test_tie_rule_and_neg_inf_order():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
-        topk_mod.topk(torch.zeros(2, 300), 129)  # k > 128
+        topk_mod.topk(torch.zeros(2, 300), 301)  # k > W: no bound at 128 any more
     with pytest.raises(ValueError):
         topk_mod.topk(torch.zeros(2, 4), 5)  # k > W
+    with pytest.raises(ValueError):
+        topk_mod.topk(torch.zeros(2, 4), 0)
     with pytest.raises(ValueError):
         topk_mod.topk(torch.zeros(2, 8, dtype=torch.float64), 2)
     with pytest.raises(ValueError):
@@ -82,7 +89,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES + [(3, 60000, 51)])
+@pytest.mark.parametrize("case", CASES + [(3, 60000, 51), (8192, 1024, 200), (4, 40000, 129)])
 def test_kernel_matches_plain_on_the_card(cuda_device, case):
     b, w, k = case
     x = torch.from_numpy(_inputs(b, w, seed=w + k)).to(cuda_device)
