@@ -10,10 +10,15 @@ imports nothing of JAX. Phases, each printed on its own lines:
 2. the build of the CUDA kernels from ``lemon_tpu_torch/ops/csrc/*.cu``;
 3. K1 (``scores_blockmax``) against its plain PyTorch version on the card:
    q 8192x512 against db 16000x512 with n_valid < T, ip/l2 x highest/high,
-   max absolute error at most 1e-5, and the times of both;
-4. K2 (``topk``) against its plain version at (8192, 640) k=5,
-   (8192, 6528) k=51 and (8192, 1024) k=200, with ties and -inf rows:
-   values and indices exact;
+   max absolute error at most 1e-5, strip maxima exact, and the times of
+   both; the split pass of ``high`` bit for bit against its plain version;
+   ``torch.matmul(q, db.T)`` alone (cuBLAS SGEMM, TF32 off) as a reference;
+4. K2 (``topk``) against its plain version at the main path's (8192, 125)
+   and (8192, 768) k=6, and at (8192, 640) k=5, (8192, 6528) k=51 and
+   (8192, 1024) k=200, with ties and -inf rows: values and indices exact,
+   for the variant the kernel picks and for each variant forced, with the
+   time of each and of ``torch.sort(stable=True)``; then both variants
+   where they cross over, and k=51 on rows of distinct values;
 5. ``ExactKnnIndex.search`` at k=5 and k=51 over 131072 rows against a plain
    whole-row search on the card, on inputs whose scores are exact in fp32
    (so every tie is real and ids must follow the tie rule exactly);
@@ -22,7 +27,9 @@ imports nothing of JAX. Phases, each printed on its own lines:
    finite scores, test AUROC above 0.5, and K1 and K2 launched by that run;
 7. K3 (``flash_attention``) against its plain version at the towers' shapes,
    B=128: (197, 12, 64) and (50, 12, 64) unmasked, (256, 8, 64) and
-   (77, 8, 64) causal; max absolute error at most 2e-5, and both times;
+   (77, 8, 64) causal; max absolute error at most 2e-5, both times, and the
+   time of ``scaled_dot_product_attention`` in fp32 (TF32 off) with the
+   backend it ran;
 8. K4 (``fused_gather_topk``) against its plain version at q 8192 over 1024
    blocks of 128 columns, k=5 and k=51, with ties and -inf columns: values
    and ids exact; its time, the plain time and the time of the search's own
@@ -36,6 +43,10 @@ imports nothing of JAX. Phases, each printed on its own lines:
    ``detect.select_and_evaluate``): finite scores, test AUROC above 0.5, and
    K1, K2 and K3 launched by that run.
 
+Every kernel line prints its bound: the larger of the bytes it must move
+(each input read once, each output written once) over 3.35 TB/s and its
+operations over the peak rate of their type (989 TFLOP/s bf16 on the tensor
+cores, 67 TFLOP/s fp32), and the share of the bound that the kernel reaches.
 The second-to-last line is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 """
@@ -58,6 +69,15 @@ EMBED_TOL = 1e-4  # tests/test_attention.py:56-57: the towers, plain vs flash
 # (L, heads, head dim, causal) of the towers' attention: ViT-B/16 vision,
 # ctx-256 text, ViT-B/32 vision, ctx-77 text
 K3_SHAPES = ((197, 12, 64, False), (256, 8, 64, True), (50, 12, 64, False), (77, 8, 64, True))
+# (W, k) of K2: the main path's block maxima (T/128 of a 16000-row tile) and
+# candidates ((k+1)*128) at --knn_k 5, then k=5, k=51 and k=200 candidates
+K2_SHAPES = ((125, 6), (768, 6), (640, 5), (6528, 51), (1024, 200))
+# (W, k, rows) where the two K2 variants are compared: their crossover on
+# tie-heavy rows, and k=51 on rows of distinct (Gaussian) values
+K2_CROSSOVER = ((1024, 16, "ties"), (1024, 32, "ties"), (640, 51, "ties"), (6528, 51, "gaussian"))
+# H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s, bf16 tensor-core and fp32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 
 
 def fail(msg: str) -> None:
@@ -91,19 +111,37 @@ def paired_ms(torch, kernel, plain, iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(n_bytes: float, n_ops: float, peak: str):
+    """(ms, what sets it): the least time the card could take."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_FLOPS[peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_text(b, ms: float) -> str:
+    return f"bound {b[0]:.4f} ms ({b[1]}), {b[0] / ms:.1%} of it"
+
+
 def unit_rows(torch, g, n, d, device):
     x = torch.randn(n, d, generator=g)
     return (x / x.norm(dim=1, keepdim=True)).to(device)
 
 
 def phase_k1(torch, scoremax, device):
+    b, t, d = 8192, 16000, 512
     g = torch.Generator().manual_seed(0)
-    q = unit_rows(torch, g, 8192, 512, device)
-    db = unit_rows(torch, g, 16000, 512, device)
+    q = unit_rows(torch, g, b, d, device)
+    db = unit_rows(torch, g, t, d, device)
     dbsq = (db * db).sum(1)
     n_valid = 15900
     worst = 0.0
     times = {}
+    for x, name in ((q, "q"), (db, "db")):
+        (hi, lo), (hi0, lo0) = scoremax.split_bf16(x), scoremax.split_bf16_plain(x)
+        torch.cuda.synchronize()
+        check(all(bool(torch.equal(a.view(torch.int16), a0.view(torch.int16))) for a, a0 in ((hi, hi0), (lo, lo0))),
+              f"K1 split pass of {name}: differs from the plain split")
+    print("K1 split pass (bf16 hi/lo of q and db, D padded to 64): bit-equal to the plain split", flush=True)
     for metric in ("ip", "l2"):
         for precision in ("highest", "high"):
             args = (q, db, metric, dbsq if metric == "l2" else None, 0, n_valid, precision)
@@ -117,11 +155,17 @@ def phase_k1(torch, scoremax, device):
             berr = (bm - bm0).abs().max().item()
             check(bool(torch.equal(bm, s.view(8192, -1, 128).amax(2))), f"K1 {metric}/{precision}: bmax != strip max")
             ms, plain_ms = paired_ms(torch, lambda: scoremax.scores_blockmax(*args), lambda: scoremax.scores_blockmax_plain(*args), 10)
-            times[(metric, precision)] = (ms, plain_ms)
+            high = precision == "high"
+            bnd = bound(4 * (b * d + t * d + (t if metric == "l2" else 0) + b * t + b * t // 128),
+                        (3 if high else 1) * 2 * b * t * d, "bf16" if high else "fp32")
+            times[(metric, precision)] = (ms, plain_ms, bnd)
             print(f"K1 scores_blockmax {metric}/{precision} (8192x512 . 16000x512): max_abs_err {err:.3e} "
-                  f"(bmax {berr:.3e}, tol {K1_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+                  f"(bmax {berr:.3e}, tol {K1_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+                  f"{bound_text(bnd, ms)}", flush=True)
             check(err <= K1_TOL and berr <= K1_TOL, f"K1 {metric}/{precision}: error {err} > {K1_TOL}")
             worst = max(worst, err, berr)
+    mm_ms = cuda_ms(torch, lambda: torch.matmul(q, db.T), 10)
+    print(f"K1 reference: torch.matmul(q, db.T) alone (cuBLAS SGEMM, TF32 off) {mm_ms:.3f} ms", flush=True)
     return worst, times
 
 
@@ -137,37 +181,80 @@ def phase_k2(torch, topk, device):
     g = torch.Generator().manual_seed(1)
     times = {}
     worst = 0.0
-    for w, k in ((640, 5), (6528, 51), (1024, 200)):
-        x = topk_inputs(torch, g, 8192, w, device)
-        v, i = topk.topk(x, k)
+    b = 8192
+    for w, k in K2_SHAPES:
+        x = topk_inputs(torch, g, b, w, device)
         v0, i0 = topk.topk_plain(x, k)
-        torch.cuda.synchronize()
-        check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)), f"K2 ({w}, k={k}): differs from the plain version")
+        variants = ["auto"] + [m for m in ("warp", "radix") if m != "warp" or w <= topk.WARP_MAX_W]
+        for variant in variants:
+            v, i = topk.topk(x, k, variant)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)),
+                  f"K2 ({w}, k={k}) {variant}: differs from the plain version")
         fin = torch.isfinite(v0)
         worst = max(worst, (v - v0)[fin].abs().max().item())
         ms, plain_ms = paired_ms(torch, lambda: topk.topk(x, k), lambda: topk.topk_plain(x, k), 20)
-        times[(w, k)] = (ms, plain_ms)
-        print(f"K2 topk (8192, {w}) k={k}: values and indices exact; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+        sort_ms = cuda_ms(torch, lambda: torch.sort(x, dim=1, descending=True, stable=True), 20)
+        by_variant = {m: cuda_ms(torch, lambda: topk.topk(x, k, m), 20) for m in variants[1:]}
+        bnd = bound(4 * b * w + 12 * b * k, b * w, "fp32")
+        times[(w, k)] = (ms, plain_ms, sort_ms, bnd)
+        print(f"K2 topk (8192, {w}) k={k}: values and indices exact ({', '.join(variants)}); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, torch.sort(stable=True) {sort_ms:.4f} ms; by variant "
+              + ", ".join(f"{m} {t:.4f} ms" for m, t in by_variant.items()) + f"; {bound_text(bnd, ms)}", flush=True)
+    for w, k, rows in K2_CROSSOVER:
+        x = topk_inputs(torch, g, b, w, device) if rows == "ties" else torch.randn(b, w, generator=g).to(device)
+        v0, i0 = topk.topk_plain(x, k)
+        by_variant = {}
+        for variant in [m for m in ("warp", "radix") if m != "warp" or w <= topk.WARP_MAX_W]:
+            v, i = topk.topk(x, k, variant)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)),
+                  f"K2 ({w}, k={k}, {rows}) {variant}: differs from the plain version")
+            by_variant[variant] = cuda_ms(torch, lambda: topk.topk(x, k, variant), 20)
+        print(f"K2 variants (8192, {w}) k={k}, {rows} rows: exact; "
+              + ", ".join(f"{m} {t:.4f} ms" for m, t in by_variant.items()), flush=True)
     return worst, times
 
 
+def sdpa_backend(torch, q, k, v, causal: bool) -> str:
+    """The backend that ``scaled_dot_product_attention`` picks for these inputs."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        names = {b.value: name for name, b in SDPBackend.__members__.items()}
+        return names.get(int(torch._fused_sdp_choice(q, k, v, None, 0.0, causal)), "unknown")
+    except (AttributeError, ImportError, RuntimeError, TypeError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
 def phase_k3(torch, attention, device):
+    import torch.nn.functional as F
+
     g = torch.Generator(device=device).manual_seed(3)
     worst = 0.0
     times = {}
     for l, h, d, causal in K3_SHAPES:
-        x = torch.randn(128, l, 3 * h * d, device=device, generator=g)
-        q, k, v = (t.reshape(128, l, h, d) for t in x.split(h * d, dim=-1))  # the towers' strided views
+        b = 128
+        x = torch.randn(b, l, 3 * h * d, device=device, generator=g)
+        q, k, v = (t.reshape(b, l, h, d) for t in x.split(h * d, dim=-1))  # the towers' strided views
         out = attention.flash_attention(q, k, v, causal)
         ref = attention.flash_attention_plain(q, k, v, causal)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, L, D)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)  # noqa: E731
+        sdpa_err = (sdpa().transpose(1, 2) - ref).abs().max().item()
         torch.cuda.synchronize()
         check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"K3 {(l, h, d, causal)}: bad output")
         err = (out - ref).abs().max().item()
         ms, plain_ms = paired_ms(torch, lambda: attention.flash_attention(q, k, v, causal),
                                  lambda: attention.flash_attention_plain(q, k, v, causal), 20)
-        times[(l, h, d, causal)] = (ms, plain_ms)
+        sdpa_ms = cuda_ms(torch, sdpa, 20)
+        pairs = l * (l + 1) // 2 if causal else l * l  # the query-key pairs the mask keeps
+        bnd = bound(4 * 4 * b * l * h * d, 4 * b * h * d * pairs, "fp32")
+        times[(l, h, d, causal)] = (ms, plain_ms, sdpa_ms, bnd)
         print(f"K3 flash_attention (128, {l}, {h}, {d}) {'causal' if causal else 'unmasked'}: max_abs_err {err:.3e} "
-              f"(tol {K3_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+              f"(tol {K3_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+              f"{sdpa_ms:.3f} ms ({sdpa_backend(torch, qt, kt, vt, causal)}, fp32, max_abs_err {sdpa_err:.3e}); "
+              f"{bound_text(bnd, ms)}", flush=True)
         check(err <= K3_TOL, f"K3 {(l, h, d, causal)}: error {err} > {K3_TOL}")
         worst = max(worst, err)
     return worst, times
@@ -195,9 +282,11 @@ def phase_k4(torch, scoremax, select, topk, blockmax_select, device):
         ms, plain_ms = paired_ms(torch, lambda: select.fused_gather_topk(sb, ids, k),
                                  lambda: select.fused_gather_topk_plain(sb, ids, k), 20)
         tail_ms = cuda_ms(torch, lambda: select.gather_then_topk(sb, ids, k, topk.topk), 20)
-        times[k] = (ms, plain_ms, tail_ms)
+        bnd = bound(4 * b * k * 128 + 8 * b * k + 12 * b * k, b * k * 128, "fp32")
+        times[k] = (ms, plain_ms, tail_ms, bnd)
         print(f"K4 fused_gather_topk (8192, 1024 blocks) k={k}: values and ids exact; kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, the search's select tail (gather + K2) {tail_ms:.3f} ms", flush=True)
+              f"plain {plain_ms:.3f} ms, the search's select tail (gather + K2) {tail_ms:.3f} ms; "
+              f"{bound_text(bnd, ms)}", flush=True)
     del s, sb, bmax
 
     gen = torch.Generator().manual_seed(5)
@@ -407,24 +496,29 @@ def main() -> None:
         paths = {"run_lemon_vit_b32": b32.get(name, 0), "detect_vit_b16_flash": b16.get(name, 0)}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
-    k1_ms, k1_plain = k1_times[("ip", "high")]  # the main path's mode (--knn_precision auto)
-    k2_ms, k2_plain = k2_times[(640, 5)]  # the main path's candidate width at k=5
-    k3_ms, k3_plain = k3_times[K3_SHAPES[0]]  # the ViT-B/16 vision tower, the path's largest attention
-    k4_ms, k4_plain, _ = k4_times[51]  # the probe's k
+    k1_ms, k1_plain, k1_bound = k1_times[("ip", "high")]  # the main path's mode (--knn_precision auto)
+    k2_ms, k2_plain, k2_sort, k2_bound = k2_times[(768, 6)]  # the main path's candidates at --knn_k 5
+    k3_ms, k3_plain, k3_sdpa, k3_bound = k3_times[K3_SHAPES[0]]  # the ViT-B/16 vision tower, the path's largest attention
+    k4_ms, k4_plain, _, k4_bound = k4_times[51]  # the probe's k
+
+    def numbers(err, ms, plain_ms, bnd, library_ms):
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
     print(json.dumps({"kernels": [
         {"name": "scores_blockmax", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
          "replaces": "lemon_tpu/ops/scoremax.py:119", **launches("scores_blockmax"),
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
+         **numbers(k1_err, k1_ms, k1_plain, k1_bound, None)},
         {"name": "topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/topk.cu",
          "replaces": "lemon_tpu/ops/topk.py:80", **launches("topk"),
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+         **numbers(k2_err, k2_ms, k2_plain, k2_bound, k2_sort)},
         {"name": "flash_attention", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/attention.cu",
          "replaces": "lemon_tpu/ops/attention.py:101", **launches("flash_attention"),
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain},
+         **numbers(k3_err, k3_ms, k3_plain, k3_bound, k3_sdpa)},
         {"name": "fused_gather_topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/select.cu",
          "replaces": "lemon_tpu/ops/select.py:138", "launches": k4_launches,
          "launches_by_path": {"knn_select_fused_probe": k4_launches},
-         "max_abs_err": 0.0, "ms": k4_ms, "plain_ms": k4_plain},
+         **numbers(0.0, k4_ms, k4_plain, k4_bound, None)},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

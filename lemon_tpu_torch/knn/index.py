@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from lemon_tpu_torch.core.device import resolve_device
 from lemon_tpu_torch.ops.scoremax import LANES, scores_blockmax
 from lemon_tpu_torch.ops.select import gather_then_topk
 from lemon_tpu_torch.ops.topk import topk
@@ -131,13 +132,16 @@ class ExactKnnIndex:
     >>> scores, ids = index.search(q, k=5)
     """
 
-    def __init__(self, metric: str = "ip", device: torch.device = torch.device("cpu"), tile: Optional[int] = None, precision: str = "highest"):
-        """``tile=None`` picks the widest tile whose score block fits a 4 GiB
+    def __init__(self, metric: str = "ip", device: Optional[torch.device] = None, tile: Optional[int] = None, precision: str = "highest"):
+        """``device=None`` is the current CUDA card (``resolve_device("cuda")``,
+        which raises without one); pass ``torch.device("cpu")`` to search on
+        the CPU. ``tile=None`` picks the widest tile whose score block fits a 4 GiB
         budget per query chunk; a given tile is rounded up to a multiple of
         128 (exact search: the tile changes no result). ``precision='high'``
         is the bf16x3 score product (see ops/scoremax.py)."""
         if metric not in ("ip", "l2") or precision not in ("highest", "high"):
             raise ValueError(f"metric {metric!r} / precision {precision!r}")
+        device = resolve_device("cuda") if device is None else device
         if device.type == "cuda" and device.index is None:
             # a tensor on the current card reports its index ("cuda:0"), so
             # adopting it must compare against the indexed device

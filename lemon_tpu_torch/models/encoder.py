@@ -20,9 +20,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from lemon_tpu.models.tokenizer import get_tokenizer, tokenize_batch
 from lemon_tpu_torch.data.datasets import Prefetcher, Split, iter_batches, load_images
 from lemon_tpu_torch.models.clip import ClipModel
+from lemon_tpu_torch.models.tokenizer import get_tokenizer, tokenize_batch
 from lemon_tpu_torch.ops.image import preprocess_device
 
 

@@ -36,10 +36,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, l2, high, stream
-    "lemon_scores_blockmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
-    # x, vals, idx, B, W, k, stream
-    "lemon_topk": [_P, _P, _P, _I, _I, _I, _P],
+    # x, hi, lo, N, D, Dp, stream
+    "lemon_split_bf16": [_P, _P, _P, _L, _I, _I, _P],
+    # q_hi, q_lo, db_hi, db_lo, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, l2, stream
+    "lemon_scores_blockmax_high": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
+    # q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, l2, stream
+    "lemon_scores_blockmax_highest": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
+    # x, vals, idx, B, W, k, variant, stream
+    "lemon_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, o, B, L, H, D, stride_b, stride_l, scale, causal, stream
     "lemon_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, ctypes.c_float, _I, _P],
     # sb, block_ids, vals, idx, B, n_blocks, k, stream

@@ -16,13 +16,15 @@
 // selection (select_rows.cuh, also K2's) is the lower-global-id rule and the
 // ids are rebuilt only for the k winners.
 //
-// What bounds it on an H100. One block per row stages its k*128 candidates
-// (at most 64 KB; each gathered block is 512 contiguous bytes) in shared
-// memory, once, and runs the k selection passes there, so the candidate
-// matrix never makes the round trip through device memory that the port's
-// unfused tail (torch.gather + K2) pays. The passes are latency-bound, as in
-// K2. A block id outside [0, nb) reads as a block of -inf (memory safety
-// only: the contract excludes it).
+// What bounds it on an H100: bytes (the k*128 gathered scores of a row).
+// For k <= 8 one warp per row gathers its candidates straight into
+// registers and runs K2's warp selection (select_rows.cuh, warp_top_k); for
+// larger k one block per row stages its k*128 candidates (at most 64 KB;
+// each gathered block is 512 contiguous bytes) in shared memory, once, and
+// runs K2's threshold select there. Either way the candidate matrix never
+// makes the round trip through device memory that the port's unfused tail
+// (torch.gather + K2) pays. A block id outside [0, nb) reads as a block of
+// -inf (memory safety only: the contract excludes it).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -40,6 +42,8 @@ gather_topk_kernel(const float* __restrict__ sb, const long long* __restrict__ b
                    float* __restrict__ vals, long long* __restrict__ idx, int nb, int k) {
   extern __shared__ float cand[];  // k * 128
   __shared__ long long ids[MAX_K];
+  __shared__ unsigned long long sorted[MAX_K];
+  __shared__ lemon_select::Scratch sm;
   const long long r = blockIdx.x;
   for (int s = threadIdx.x; s < k; s += THREADS) ids[s] = block_ids[r * k + s];
   __syncthreads();
@@ -50,20 +54,61 @@ gather_topk_kernel(const float* __restrict__ sb, const long long* __restrict__ b
     cand[e] = (blk >= 0 && blk < nb) ? row[blk * LANES + e % LANES] : -CUDART_INF_F;
   }
   __syncthreads();
-  lemon_select::select_top_k<THREADS>(cand, w, k, [&](int j, float v, int c) {
-    vals[r * k + j] = v;
-    idx[r * k + j] = ids[c / LANES] * LANES + c % LANES;
+  lemon_select::select_top_k<THREADS, MAX_K>(
+      [&](unsigned c) { return lemon_select::order_key(cand[c]); }, static_cast<unsigned>(w), k, sorted, sm,
+      [&](int j, int c) {
+        vals[r * k + j] = cand[c];
+        idx[r * k + j] = ids[c / LANES] * LANES + c % LANES;
+      });
+}
+
+// k <= 8 (W = k*128 <= 1024): one warp per row, 8 rows per block. Entry
+// e = lane + 32 j of the gathered row is lane + 32 (j % 4) of block slot
+// j / 4, so each load of a warp reads 128 contiguous bytes of one block.
+constexpr int WARP_ROWS = 8;
+constexpr int WARP_MAX_K = 8;
+
+template <int CAP>
+__global__ void __launch_bounds__(WARP_ROWS * 32)
+gather_topk_warp_kernel(const float* __restrict__ sb, const long long* __restrict__ block_ids,
+                        float* __restrict__ vals, long long* __restrict__ idx, int B, int nb, int k) {
+  const int lane = threadIdx.x & 31;
+  const long long r = static_cast<long long>(blockIdx.x) * WARP_ROWS + (threadIdx.x >> 5);
+  if (r >= B) return;  // the whole warp
+  const float* row = sb + r * nb * LANES;
+  const long long* ids = block_ids + r * k;
+  unsigned key[CAP];
+#pragma unroll
+  for (int j = 0; j < CAP; ++j) {
+    key[j] = 0u;  // past the row
+    if (j / 4 < k) {
+      const long long blk = ids[j / 4];
+      key[j] = lemon_select::order_key((blk >= 0 && blk < nb) ? row[blk * LANES + lane + 32 * (j % 4)]
+                                                               : -CUDART_INF_F);
+    }
+  }
+  lemon_select::warp_top_k<CAP>(key, k, [&](int j, int c) {
+    const long long blk = ids[c / LANES];
+    vals[r * k + j] = (blk >= 0 && blk < nb) ? row[blk * LANES + c % LANES] : -CUDART_INF_F;
+    idx[r * k + j] = blk * LANES + c % LANES;
   });
 }
 
+template <int CAP>
+int launch_warp(const float* sb, const long long* block_ids, float* vals, long long* idx, int B, int nb, int k,
+                cudaStream_t stream) {
+  gather_topk_warp_kernel<CAP><<<(B + WARP_ROWS - 1) / WARP_ROWS, WARP_ROWS * 32, 0, stream>>>(
+      sb, block_ids, vals, idx, B, nb, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int THREADS>
-int launch(const float* sb, const long long* block_ids, float* vals, long long* idx, int B,
-           int nb, int k, cudaStream_t stream) {
+int launch(const float* sb, const long long* block_ids, float* vals, long long* idx, int B, int nb, int k,
+           cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(k) * LANES * sizeof(float);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gather_topk_kernel<THREADS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t e = cudaFuncSetAttribute(gather_topk_kernel<THREADS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   gather_topk_kernel<THREADS><<<B, THREADS, smem, stream>>>(sb, block_ids, vals, idx, nb, k);
@@ -77,6 +122,10 @@ int launch(const float* sb, const long long* block_ids, float* vals, long long* 
 extern "C" int lemon_gather_topk(const float* sb, const long long* block_ids, float* vals,
                                  long long* idx, int B, int nb, int k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= 2) return launch_warp<8>(sb, block_ids, vals, idx, B, nb, k, st);
+  if (k <= 4) return launch_warp<16>(sb, block_ids, vals, idx, B, nb, k, st);
+  if (k <= 6) return launch_warp<24>(sb, block_ids, vals, idx, B, nb, k, st);
+  if (k <= WARP_MAX_K) return launch_warp<32>(sb, block_ids, vals, idx, B, nb, k, st);
   if (k * LANES <= 2048) return launch<128>(sb, block_ids, vals, idx, B, nb, k, st);
   return launch<256>(sb, block_ids, vals, idx, B, nb, k, st);
 }

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from scipy.optimize import minimize
 
+from lemon_tpu_torch.core.device import resolve_device
 from lemon_tpu_torch.core.profiling import PhaseTimer
 from lemon_tpu_torch.scoring.lemon import (
     HPARAM_ORDER,
@@ -281,11 +282,15 @@ def maximize_metric(
     force_one: Sequence[str] = (),
     scipy_methods: Sequence[str] = ("Powell", "Nelder-Mead"),
     use_device_grid: bool = True,
-    device: torch.device = torch.device("cpu"),
+    device: torch.device | None = None,
     timer: PhaseTimer | None = None,
 ) -> Tuple[np.ndarray, float, float]:
     """(best 6-vector, best objective value, threshold at the optimum);
-    signature and ensemble semantics of lib/metrics/utils.py:151-196."""
+    signature and ensemble semantics of lib/metrics/utils.py:151-196.
+    ``device=None`` is the current CUDA card (``resolve_device("cuda")``,
+    which raises without one); pass ``torch.device("cpu")`` to fit on the
+    CPU."""
+    device = resolve_device("cuda") if device is None else device
     timer = timer or PhaseTimer(device)
     obj_func_args = obj_func_args or {}
     grid = grid if grid is not None else default_grid()

@@ -50,7 +50,7 @@ def _jax_search(xb, xq, k, metric, tile, precision="highest"):
 
 
 def _port_search(xb, xq, k, metric, tile, precision="highest"):
-    index = ExactKnnIndex(metric=metric, tile=tile, precision=precision)
+    index = ExactKnnIndex(metric=metric, device=torch.device("cpu"), tile=tile, precision=precision)
     index.add(xb)
     return index.search(xq, k)
 
@@ -162,7 +162,7 @@ def test_train_split_self_exclusion_matches_jax():
 def test_query_chunks_and_device_adoption(monkeypatch):
     monkeypatch.setenv("LEMON_TPU_KNN_QCHUNK", "4")
     xb, xq = _data(700, 16, 10, seed=2, quantized=False)
-    index = ExactKnnIndex(metric="ip", tile=256)
+    index = ExactKnnIndex(metric="ip", device=torch.device("cpu"), tile=256)
     index.add(torch.from_numpy(xb))  # adopted as is
     assert index.device_array().data_ptr() == index._xb.data_ptr() and index.ntotal == 700
     s, i = index.search(torch.from_numpy(xq), 5)

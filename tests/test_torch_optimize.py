@@ -108,7 +108,7 @@ def test_default_fit_matches_jax_without_torch_optim(monkeypatch):
     monkeypatch.setattr(torch.optim, "LBFGS", no_optim)
     arrays = _arrays(n=400, seed=3)
     grid = {"beta": [0, 5, 20], "gamma": [0, 5, 20], "tau_1": [0, 1, 5], "tau_2": [0, 1, 5]}
-    x, f1, thres = maximize_metric(NeighborLogs(**arrays), grid=grid)
+    x, f1, thres = maximize_metric(NeighborLogs(**arrays), grid=grid, device=torch.device("cpu"))
     jx, jf1, jthres = jax_maximize(JaxLogs(**arrays), grid=grid)
     assert x.shape == (6,) and np.isfinite(x).all() and np.isfinite(thres)
     assert abs(f1 - jf1) <= 1e-3, (f1, jf1)

@@ -88,6 +88,35 @@ def test_plain_matches_pallas_exactly_on_exact_inputs(metric, precision):
     np.testing.assert_array_equal(bm, bm_ref)
 
 
+def _jax_split(x):
+    hi = jnp.asarray(x).astype(jnp.bfloat16)
+    lo = (jnp.asarray(x) - hi.astype(jnp.float32)).astype(jnp.bfloat16)
+    return np.asarray(hi.astype(jnp.float32)), np.asarray(lo.astype(jnp.float32))
+
+
+def _split_inputs(n, d, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n, d)) * 10.0 ** rng.integers(-6, 6, (n, d))).astype(np.float32)
+    x[0, : min(d, 4)] = [0.0, -0.0, 1.0 + 2.0**-8, -(1.0 + 3 * 2.0**-9)][: min(d, 4)]  # signed zeros, RNE ties
+    return x
+
+
+@pytest.mark.parametrize("d", [37, 512, 770])
+def test_plain_split_matches_jax_bf16(d):
+    """The split pass's plain version: hi = bf16(x), lo = bf16(x - hi), bit
+    for bit as JAX rounds them (what the TPU kernel multiplies), and D
+    zero-padded to a multiple of 64."""
+    x = _split_inputs(9, d, seed=d)
+    hi, lo = scoremax.split_bf16(torch.from_numpy(x))
+    dp = -(-d // 64) * 64
+    assert hi.dtype == lo.dtype == torch.bfloat16 and hi.shape == lo.shape == (9, dp)
+    ref_hi, ref_lo = _jax_split(x)
+    for got, ref in ((hi, ref_hi), (lo, ref_lo)):
+        got = got.float().numpy()
+        np.testing.assert_array_equal(got[:, :d].view(np.uint32), ref.view(np.uint32))
+        assert not got[:, d:].any()
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q = torch.zeros(4, 8)
     with pytest.raises(ValueError):
@@ -100,6 +129,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         scoremax.scores_blockmax(torch.zeros(8, 4).T, torch.zeros(128, 8))  # not contiguous
     with pytest.raises(ValueError):
         scoremax.scores_blockmax(q, torch.zeros(128, 8), precision="default")
+    with pytest.raises(ValueError):
+        scoremax.scores_blockmax(torch.zeros(0, 8), torch.zeros(128, 8), precision="high")  # B = 0
+    with pytest.raises(ValueError):
+        scoremax.scores_blockmax(q, torch.zeros(128, 9), precision="high")  # D differs
+    with pytest.raises(ValueError):
+        scoremax.split_bf16(torch.zeros(8, 4).T)  # not contiguous
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
@@ -120,10 +155,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 4096, 512, 128, 4000), (77, 640, 37, 0, 600), (129, 256, 770, 0, 256)])
 @pytest.mark.parametrize("precision", ["highest", "high"])
 @pytest.mark.parametrize("metric", ["ip", "l2"])
-def test_kernel_matches_plain_on_the_card(cuda_device, metric, precision):
-    b, t, d, start, n_valid = 300, 4096, 512, 128, 4000
+def test_kernel_matches_plain_on_the_card(cuda_device, metric, precision, shape):
+    b, t, d, start, n_valid = shape
     q, db, dbsq = _inputs(b, t, d, seed=7, quantized=False)
     before = scoremax.scores_blockmax.launches
     s, bm = _torch(q, db, dbsq, metric, start, n_valid, precision, device=cuda_device)
@@ -132,3 +168,13 @@ def test_kernel_matches_plain_on_the_card(cuda_device, metric, precision):
     s0, bm0 = scoremax.scores_blockmax_plain(dev(q), dev(db), metric, dev(dbsq), start, n_valid, precision)
     np.testing.assert_allclose(s, s0.cpu().numpy(), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(bm, s.reshape(b, -1, 128).max(axis=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [37, 512, 770])
+def test_split_pass_matches_plain_on_the_card(cuda_device, d):
+    x = torch.from_numpy(_split_inputs(1000, d, seed=d)).to(cuda_device)
+    hi, lo = scoremax.split_bf16(x)
+    hi0, lo0 = scoremax.split_bf16_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(hi.view(torch.int16), hi0.view(torch.int16)) and torch.equal(lo.view(torch.int16), lo0.view(torch.int16))

@@ -93,7 +93,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(13, 64, 1), (13, 64, 5), (9, 64, 51), (3, 130, 128), (2048, 1024, 51)])
+@pytest.mark.parametrize("case", [(13, 64, 1), (13, 64, 5), (9, 64, 51), (3, 130, 128), (2048, 1024, 51),
+                                  (17, 64, 3), (13, 64, 8), (13, 64, 9), (2048, 1024, 5)])  # warp path k <= 8
 def test_kernel_matches_plain_on_the_card(cuda_device, case):
     b, nb, k = case
     sb, ids = (torch.from_numpy(a).to(cuda_device) for a in _inputs(b, nb, k, seed=k))

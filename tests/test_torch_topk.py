@@ -5,7 +5,8 @@ Pallas interpret mode (k <= 128, that kernel's bound) and to
 ``jax.lax.top_k`` (every k, as the JAX package's search falls back to it
 above 128): values and indices must be equal exactly, including the tie
 rule (lower column first) and rows with fewer than k finite entries. The CUDA kernel itself runs only on the card
-(marked ``cuda``).
+(marked ``cuda``). -0.0 and +0.0 tie (the TPU kernel's rule): there
+``lax.top_k``, which orders +0.0 before -0.0, agrees on the values only.
 """
 
 import jax
@@ -26,29 +27,45 @@ CASES = [
     (4, 6528, 51),
     (5, 1000, 200),
     (3, 257, 257),
+    # the main path at --knn_k 5: the block maxima of a 16000-row tile
+    # (W = T/128) and the (k+1)*128 candidates, both at k+1
+    (6, 125, 6),
+    (6, 768, 6),
 ]
+SIGNED_ZERO_CASES = [(5, 125, 6), (4, 768, 40)]
 
 
-def _inputs(b, w, seed):
+def _inputs(b, w, seed, signed_zeros=False):
     """Quantised values (many exact ties), one all -inf row, one row with
-    fewer finite entries than any k here, one with a -inf prefix."""
+    fewer finite entries than any k here, one with a -inf prefix. With
+    ``signed_zeros``, values in {-0.5, -0.0, +0.0}, and a row whose only
+    zeros lead it with alternating signs."""
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 12, (b, w)).astype(np.float32) / 4
+    if signed_zeros:
+        x = rng.choice(np.array([-0.5, -0.0, 0.0], np.float32), (b, w))
+        x[3] = -0.5
+        x[3, :4] = [-0.0, 0.0, -0.0, 0.0]
     x[0] = -np.inf
     x[1, 1:] = -np.inf
     x[2, :37] = -np.inf
     return x
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + [(*c, "signed_zeros") for c in SIGNED_ZERO_CASES])
 def test_plain_matches_pallas_and_lax(case):
-    b, w, k = case
-    x = _inputs(b, w, seed=w + k)
+    b, w, k = case[:3]
+    signed_zeros = len(case) == 4
+    x = _inputs(b, w, seed=w + k, signed_zeros=signed_zeros)
     v, i = topk_mod.topk(torch.from_numpy(x), k)
     v, i = v.numpy(), i.numpy()
     rv, ri = jax.lax.top_k(jnp.asarray(x), k)
     np.testing.assert_array_equal(v, np.asarray(rv))
-    np.testing.assert_array_equal(i, np.asarray(ri))
+    if signed_zeros:
+        assert (v == 0).any() and not np.array_equal(i, np.asarray(ri))  # lax puts +0.0 first
+        assert i[3, :4].tolist() == [0, 1, 2, 3] and np.signbit(v[3, [0, 2]]).all()
+    else:
+        np.testing.assert_array_equal(i, np.asarray(ri))
     if k <= 128:  # the TPU kernel's bound: the JAX package takes lax.top_k above it
         pv, pi = pallas_topk(jnp.asarray(x), k)
         np.testing.assert_array_equal(v, np.asarray(pv))
@@ -73,6 +90,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         topk_mod.topk(torch.zeros(2, 8, dtype=torch.float64), 2)
     with pytest.raises(ValueError):
         topk_mod.topk(torch.zeros(8, 2).T, 2)
+    with pytest.raises(ValueError):
+        topk_mod.topk(torch.zeros(2, 1025), 2, variant="warp")  # the warp variant holds W <= 1024
+    with pytest.raises(ValueError):
+        topk_mod.topk(torch.zeros(2, 8), 2, variant="bitonic")
 
 
 def test_cpu_tensors_launch_nothing():
@@ -88,11 +109,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+CARD_CASES = CASES + [(3, 60000, 51), (8192, 1024, 200), (4, 40000, 129), (8192, 125, 6), (8192, 768, 6),
+                      (3, 5000, 4500), (40, 1000, 32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES + [(3, 60000, 51), (8192, 1024, 200), (4, 40000, 129)])
-def test_kernel_matches_plain_on_the_card(cuda_device, case):
-    b, w, k = case
-    x = torch.from_numpy(_inputs(b, w, seed=w + k)).to(cuda_device)
-    v, i = topk_mod.topk(x, k)
+@pytest.mark.parametrize("variant", ["auto", "warp", "radix"])
+@pytest.mark.parametrize("case", CARD_CASES + [(*c, "signed_zeros") for c in SIGNED_ZERO_CASES])
+def test_kernel_matches_plain_on_the_card(cuda_device, case, variant):
+    b, w, k = case[:3]
+    if variant == "warp" and w > topk_mod.WARP_MAX_W:
+        pytest.skip("the warp variant holds rows of at most 1024")
+    x = torch.from_numpy(_inputs(b, w, seed=w + k, signed_zeros=len(case) == 4)).to(cuda_device)
+    v, i = topk_mod.topk(x, k, variant)
     v0, i0 = topk_mod.topk_plain(x, k)
+    torch.cuda.synchronize()
     assert torch.equal(v, v0) and torch.equal(i, i0)
+    assert torch.equal(torch.signbit(v), torch.signbit(v0))
