@@ -25,11 +25,14 @@ imports nothing of JAX. Phases, each printed on its own lines:
 6. ``python -m lemon_tpu_torch.cli.run_lemon`` in-process on 20000 synthetic
    caption pairs with ViT-B/32 at full width (random weights): output files,
    finite scores, test AUROC above 0.5, and K1 and K2 launched by that run;
-7. K3 (``flash_attention``) against its plain version at the towers' shapes,
-   B=128: (197, 12, 64) and (50, 12, 64) unmasked, (256, 8, 64) and
-   (77, 8, 64) causal; max absolute error at most 2e-5, both times, and the
-   time of ``scaled_dot_product_attention`` in fp32 (TF32 off) with the
-   backend it ran;
+7. K3 (``flash_attention``, 3xTF32 on the tensor cores) against its plain
+   version and against ``flash_attention_3xtf32_plain`` (the kernel's
+   precision scheme in plain fp32) at the towers' shapes, B=128:
+   (197, 12, 64) and (50, 12, 64) unmasked, (256, 8, 64) and (77, 8, 64)
+   causal, then the other head dims, (197, 24, 32) unmasked and
+   (256, 4, 128) causal; max absolute error at most 2e-5 against both, both
+   times, and the time of ``scaled_dot_product_attention`` in fp32 (TF32
+   off) with the backend it ran;
 8. K4 (``fused_gather_topk``) against its plain version at q 8192 over 1024
    blocks of 128 columns, k=5 and k=51, with ties and -inf columns: values
    and ids exact; its time, the plain time and the time of the search's own
@@ -45,8 +48,10 @@ imports nothing of JAX. Phases, each printed on its own lines:
 
 Every kernel line prints its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
-operations over the peak rate of their type (989 TFLOP/s bf16 on the tensor
-cores, 67 TFLOP/s fp32), and the share of the bound that the kernel reaches.
+operations over the peak rate of their type (989 TFLOP/s bf16 and 495 TFLOP/s
+TF32 on the tensor cores, 67 TFLOP/s fp32), and the share of the bound that
+the kernel reaches. K3's lines also print the fp32 bound of its products on
+the CUDA cores, the bound of the kernel it replaced.
 The second-to-last line is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 """
@@ -67,17 +72,18 @@ K1_TOL = 1e-5
 K3_TOL = 2e-5  # tests/test_attention.py:26: fp32 with another summation order
 EMBED_TOL = 1e-4  # tests/test_attention.py:56-57: the towers, plain vs flash
 # (L, heads, head dim, causal) of the towers' attention: ViT-B/16 vision,
-# ctx-256 text, ViT-B/32 vision, ctx-77 text
-K3_SHAPES = ((197, 12, 64, False), (256, 8, 64, True), (50, 12, 64, False), (77, 8, 64, True))
+# ctx-256 text, ViT-B/32 vision, ctx-77 text; then the other two head dims
+K3_SHAPES = ((197, 12, 64, False), (256, 8, 64, True), (50, 12, 64, False), (77, 8, 64, True),
+             (197, 24, 32, False), (256, 4, 128, True))
 # (W, k) of K2: the main path's block maxima (T/128 of a 16000-row tile) and
 # candidates ((k+1)*128) at --knn_k 5, then k=5, k=51 and k=200 candidates
 K2_SHAPES = ((125, 6), (768, 6), (640, 5), (6528, 51), (1024, 200))
 # (W, k, rows) where the two K2 variants are compared: their crossover on
 # tie-heavy rows, and k=51 on rows of distinct (Gaussian) values
 K2_CROSSOVER = ((1024, 16, "ties"), (1024, 32, "ties"), (640, 51, "ties"), (6528, 51, "gaussian"))
-# H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s, bf16 tensor-core and fp32 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s, bf16 and TF32 tensor-core and fp32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 
 
 def fail(msg: str) -> None:
@@ -239,23 +245,28 @@ def phase_k3(torch, attention, device):
         q, k, v = (t.reshape(b, l, h, d) for t in x.split(h * d, dim=-1))  # the towers' strided views
         out = attention.flash_attention(q, k, v, causal)
         ref = attention.flash_attention_plain(q, k, v, causal)
+        emu = attention.flash_attention_3xtf32_plain(q, k, v, causal)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, L, D)
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)  # noqa: E731
         sdpa_err = (sdpa().transpose(1, 2) - ref).abs().max().item()
         torch.cuda.synchronize()
         check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"K3 {(l, h, d, causal)}: bad output")
         err = (out - ref).abs().max().item()
+        emu_err = (out - emu).abs().max().item()
         ms, plain_ms = paired_ms(torch, lambda: attention.flash_attention(q, k, v, causal),
                                  lambda: attention.flash_attention_plain(q, k, v, causal), 20)
         sdpa_ms = cuda_ms(torch, sdpa, 20)
         pairs = l * (l + 1) // 2 if causal else l * l  # the query-key pairs the mask keeps
-        bnd = bound(4 * 4 * b * l * h * d, 4 * b * h * d * pairs, "fp32")
+        n_bytes, n_ops = 4 * 4 * b * l * h * d, 4 * b * h * d * pairs
+        bnd = bound(n_bytes, 3 * n_ops, "tf32")  # three TF32 products
+        fp32_bnd = bound(n_bytes, n_ops, "fp32")  # the bound of the CUDA-core kernel it replaced
         times[(l, h, d, causal)] = (ms, plain_ms, sdpa_ms, bnd)
         print(f"K3 flash_attention (128, {l}, {h}, {d}) {'causal' if causal else 'unmasked'}: max_abs_err {err:.3e} "
-              f"(tol {K3_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, scaled_dot_product_attention "
-              f"{sdpa_ms:.3f} ms ({sdpa_backend(torch, qt, kt, vt, causal)}, fp32, max_abs_err {sdpa_err:.3e}); "
-              f"{bound_text(bnd, ms)}", flush=True)
-        check(err <= K3_TOL, f"K3 {(l, h, d, causal)}: error {err} > {K3_TOL}")
+              f"(3xTF32 plain {emu_err:.3e}; tol {K3_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {sdpa_ms:.4f} ms ({sdpa_backend(torch, qt, kt, vt, causal)}, fp32, "
+              f"max_abs_err {sdpa_err:.3e}); {bound_text(bnd, ms)}; fp32 bound {fp32_bnd[0]:.4f} ms ({fp32_bnd[1]})",
+              flush=True)
+        check(err <= K3_TOL and emu_err <= K3_TOL, f"K3 {(l, h, d, causal)}: error {err}, {emu_err} > {K3_TOL}")
         worst = max(worst, err)
     return worst, times
 

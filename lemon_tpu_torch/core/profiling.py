@@ -14,12 +14,15 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
-from lemon_tpu_torch.core.device import synchronize
+from lemon_tpu_torch.core.device import resolve_device, synchronize
 
 
 class PhaseTimer:
     def __init__(self, device: Optional[torch.device] = None):
-        self.device = device or torch.device("cpu")
+        """``device=None`` is the current CUDA card (``resolve_device("cuda")``,
+        which raises without one); pass ``torch.device("cpu")`` to time CPU
+        work."""
+        self.device = resolve_device("cuda") if device is None else device
         self.totals: Dict[str, float] = {}
 
     @contextlib.contextmanager

@@ -1,4 +1,4 @@
-// Flash attention, forward only, fp32.
+// Flash attention, forward only, fp32 in and out, 3xTF32 on Hopper's tensor cores.
 //
 // Replaces the Pallas kernel lemon_tpu/ops/attention.py `_attn_kernel`
 // (launched by `_flash_attention`, :101). For q, k, v in the CLIP towers'
@@ -6,202 +6,517 @@
 //
 //   o[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h]) v[b, j, h]
 //
-// with scale = D^-0.5 applied to q before the product (attention.py:42) and,
-// when causal, only keys j <= i. The (L, L) logits never reach device memory:
-// one block owns a 64-row query tile of one (batch, head) and walks the keys
-// in 64-row tiles staged in shared memory, carrying the online-softmax state
-// (running max, normaliser, accumulator) in fp32 registers. Bounds checks
-// replace the TPU kernel's padding to 128 and its -1e30 key mask: keys past L
-// or after the query (causal) get -inf logits, query rows past L are computed
-// on zeros and never stored, and a causal tile stops at its last query row.
+// with scale = D^-0.5 applied to q in fp32 before the product
+// (attention.py:42) and, when causal, only keys j <= i. The (L, L) logits
+// never reach device memory. A work item is one 64-row query tile of one
+// (batch, head); one warpgroup (128 threads) walks its keys in tiles of BKV,
+// carrying the online-softmax state (running max, normaliser, accumulator) in
+// fp32 registers. Bounds checks replace the TPU kernel's padding to 128 and
+// its -1e30 key mask: keys past L or after the query (causal) get -inf
+// logits and zero v rows, query rows past L are computed on zeros and never
+// stored, and a causal item stops at its last query row.
 //
-// What bounds it on an H100. At the towers' shapes (L 50..256, D 64) the work
-// is 4*B*H*L^2*D flops against 16*B*L*H*D bytes moved, about L/4 flops per
-// byte: compute-bound on the CUDA cores, since this first version stays in
-// fp32 FFMA (no tensor cores, no TMA, no wgmma). Each thread owns 8 query
-// rows x 4 key columns of the logits tile and 8 rows x D/16 columns of the
-// accumulator, so one shared-memory read feeds 2-3 FMAs; rows are padded by
-// one float so the strided reads hit 32 distinct banks. The rows of a logits
-// tile sit in 16 lanes of one warp, so the row max and row sum are
-// half-warp shuffles. Probabilities go through shared memory to the P.V
-// product. 128 threads, 64-66 KB of shared memory at D = 64 (opted in above
-// 48 KB), three blocks per SM.
+// Precision: 3xTF32. Every operand x is split into TF32 values hi + lo
+// (Veltkamp's split, see split()), and each product is hi.hi + hi.lo + lo.hi
+// (lo.lo dropped), accumulated in fp32 by wgmma.mma_async.m64nNk8.f32.tf32.
+// The product of two TF32 values is exact in fp32, so the result is
+// fp32-accurate up to the order of the sums (2e-5 against fp32 attention).
+// Both products run on the tensor cores:
+// - S = (q * scale) . k^T, both operands K-major (D contiguous) from shared
+//   memory: an item's q tile is split and stored once, each k tile once;
+// - O += P . V, P from registers, V^T from shared memory. A TF32 wgmma takes
+//   only K-major operands, so V is stored transposed (D rows of keys). The
+//   S accumulator gives a thread columns 2t and 2t+1 of each 8, while the
+//   TF32 A fragment wants k = t and t + 4; the keys of every group of 8 are
+//   therefore stored in the order 0, 2, 4, 6, 1, 3, 5, 7, so that the S
+//   registers are the A fragment as they stand (no shuffles).
+// Shared operands use the 128-byte swizzle (16-byte chunk j of a 128-byte row
+// r at chunk j ^ (r % 8), 8-row groups 1024 B apart); a TF32 row of 32
+// values is one atom, so D = 64 is two atoms along K and a k-step of 8 moves
+// the descriptor 32 bytes inside the atom.
+//
+// Overlap. The wgmmas are asynchronous: v^T is split and stored while S runs,
+// the next k tile while P . V runs, and each tile's global loads go to
+// registers one phase ahead of their stores. Generic-proxy stores reach
+// wgmma through a fence.proxy.async and a barrier (without it the products
+// read stale tiles). The kernel is persistent: as many blocks as fit on the
+// card each take every n-th item, n coprime to the query tiles of a head so
+// that causal items of all lengths spread evenly, and an item's last key tile
+// loads the next item's q and first k and v tiles.
+//
+// What bounds it on an H100. At the towers' shapes (L 50..256, D 64) the
+// three TF32 products are 12*B*H*L^2*D flops against 16*B*L*H*D bytes moved:
+// at L = 197 and 256 (causal) the tensor cores at 495 TFLOP/s and the bytes
+// at 3.35 TB/s are both near 0.09 ms, at L = 50 and 77 the bytes set it.
+// Measured, the products are not what limits it: a tile's integer address
+// and split work, the barriers and the latency of each item's first loads
+// are, with two or three blocks on an SM. Query tiles are padded to 64 rows
+// (197 -> 256). Keys go in 64-key tiles (96 KB of shared memory at D = 64,
+// two blocks an SM), or in 32-key tiles (64 KB, three blocks, registers
+// capped at 168) where the last 64-key tile would be at most half full
+// (L = 77 and 197 pad to 96 and 224 keys instead of 128 and 256); D = 128
+// takes 32-key tiles (128 KB, one block).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cstdint>
+#include <numeric>
+
 namespace {
 
-constexpr int BQ = 64;       // query rows per block
-constexpr int BKV = 64;      // keys per staged tile
-constexpr int THREADS = 128; // 8 row groups x 16 column lanes
-constexpr int RPT = 8;       // query rows per thread: tr + 8 * i
-constexpr int CPT = 4;       // logits columns per thread: tc + 16 * j
-constexpr int PP = BKV + 1;  // padded row stride of the probability tile
+constexpr int BQ = 64;        // query rows per block: one warpgroup's m64
+constexpr int THREADS = 128;  // one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(BQ) * (D + 1) + static_cast<size_t>(BKV) * (D + 1) +
-                          static_cast<size_t>(BKV) * D + static_cast<size_t>(BQ) * PP);
+template <int D, int BKV_>
+struct Tiles {
+  static constexpr int BKV = BKV_;                       // keys per tile
+  static constexpr int Q_BYTES = BQ * D * 4;             // one of q_hi, q_lo
+  static constexpr int KV_BYTES = BKV * D * 4;           // one of k_hi, k_lo, vt_hi, vt_lo
+  static constexpr int SMEM = 2 * Q_BYTES + 4 * KV_BYTES + 1024;  // + slack to align to 1024 B
+  static constexpr int Q4 = BQ * D / 4 / THREADS;        // float4 of a q tile per thread
+  static constexpr int K4 = BKV * D / 4 / THREADS;       // float4 of a k tile per thread
+  static constexpr int VG = D * (BKV / 8) / THREADS;     // (column, 8-key group) items of a v tile per thread
+  // 32-key tiles at D <= 64 fit three blocks on an SM (registers capped at 168)
+  static constexpr int MIN_BLOCKS = (D <= 64 && BKV == 32) ? 3 : 1;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o, int L, int H,
-                       long long stride_b, long long stride_l, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int DPT = D / 16;  // accumulator columns per thread: tc + 16 * jj
-  extern __shared__ float smem[];
-  float* sq = smem;              // BQ x DP, already scaled
-  float* sk = sq + BQ * DP;      // BKV x DP
-  float* sv = sk + BKV * DP;     // BKV x D
-  float* sp = sv + BKV * D;      // BQ x PP
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.y * BQ;
+// Veltkamp's split in four fp32 operations, rounded to nearest and never
+// contracted: hi = x rounded to 11 significant bits (a TF32 value), and
+// lo = x - hi exactly, with at most 12 significant bits, of which the tensor
+// core reads the TF32 part (the low 13 bits of the container are not used),
+// dropping at most 2^-23 of |x|. Needs |x| < 2^114 (8193 x stays finite).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const float t = __fmul_rn(x, 8193.f);
+  const float h = __fsub_rn(t, __fsub_rn(t, x));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
+}
+
+__device__ __forceinline__ void store_split4(unsigned char* hi_base, unsigned char* lo_base, uint32_t off, float a,
+                                             float b, float c, float d) {
+  uint4 h, l;
+  split(a, h.x, l.x);
+  split(b, h.y, l.y);
+  split(c, h.z, l.z);
+  split(d, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi_base + off) = h;
+  *reinterpret_cast<uint4*>(lo_base + off) = l;
+}
+
+// Byte offset of the 16-byte chunk `chunk` (0..7) of row `row` in one atom
+// column of a 128-byte-swizzled operand.
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// K-major operand in 128-byte-swizzled rows of 128 B: 8-row groups 1024 B
+// apart (SBO), the leading offset unused by this layout, swizzle mode 1.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Keeps a register A operand alive (unmoved, unreused) until after the
+// wgmma that reads it has been waited for.
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Generic-proxy stores to shared memory -> visible to wgmma, then a barrier.
+__device__ __forceinline__ void fence_async_barrier() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The accumulator operands of an m64nNk8 product: N/2 floats a thread.
+#define ACC4(i) "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
+#define ACC16(i) ACC4(i), ACC4((i) + 4), ACC4((i) + 8), ACC4((i) + 12)
+#define LIST16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define LIST32 LIST16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define LIST64                                                                                                   \
+  LIST32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51," \
+         " %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 x N fp32, wgmma accumulator layout) += A (64 x 8) . B (N x 8)^T, both
+// TF32 K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" LIST16 "}, %16, %17, p, 1, 1;\n}\n"
+      : ACC16(0)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" LIST32 "}, %32, %33, p, 1, 1;\n}\n"
+      : ACC16(0), ACC16(16)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x N fp32) += A (64 x 8, TF32 register fragment) . B (N x 8)^T, B TF32
+// K-major in shared memory. Fragment of warp w, lane 4g + t: a0 = A[16w + g][t],
+// a1 = A[16w + g + 8][t], a2 = A[16w + g][t + 4], a3 = A[16w + g + 8][t + 4].
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" LIST16 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : ACC16(0)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" LIST32 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : ACC16(0), ACC16(16)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" LIST64 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : ACC16(0), ACC16(16), ACC16(32), ACC16(48)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+template <int D, int BKV_>
+__global__ void __launch_bounds__(THREADS, (Tiles<D, BKV_>::MIN_BLOCKS))
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                       float* __restrict__ o, int B, int L, int H, long long stride_b, long long stride_l,
+                       float scale, int causal) {
+  using T = Tiles<D, BKV_>;
+  constexpr int BKV = T::BKV;
+  constexpr int NS = BKV / 2;  // S accumulators a thread
+  constexpr int NO = D / 2;    // O accumulators a thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const sq_hi = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* const sq_lo = sq_hi + T::Q_BYTES;
+  unsigned char* const sk_hi = sq_lo + T::Q_BYTES;  // [D / 32 atoms][BKV rows][128 B]
+  unsigned char* const sk_lo = sk_hi + T::KV_BYTES;
+  unsigned char* const sv_hi = sk_lo + T::KV_BYTES;  // v^T: [BKV / 32 atoms][D rows][128 B], keys permuted
+  unsigned char* const sv_lo = sv_hi + T::KV_BYTES;
+
   const int tid = threadIdx.x;
-  const int tr = tid >> 4;
-  const int tc = tid & 15;
-  const long long head = static_cast<long long>(b) * stride_b + static_cast<long long>(h) * D;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_qt = (L + BQ - 1) / BQ;
+  const int n_items = B * H * n_qt;
 
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, d = e - (e / D) * D;
-    const int row = q0 + r;
-    sq[r * DP + d] = row < L ? q[head + row * stride_l + d] * scale : 0.f;
-  }
+  // A work item is one 64-row query tile of one (batch, head); consecutive
+  // items are the query tiles of one head, so the blocks in flight share
+  // their k and v in L2.
+  struct Item {
+    long long in, out;  // offsets of the head's first element in q/k/v and in o
+    int q0;
+  };
+  auto item_at = [&](int it) {
+    const int bh = it / n_qt;
+    const int b = bh / H, h = bh - b * H;
+    return Item{static_cast<long long>(b) * stride_b + static_cast<long long>(h) * D,
+                (static_cast<long long>(b) * L * H + h) * D, (it - bh * n_qt) * BQ};
+  };
 
-  float m[RPT], l[RPT], acc[RPT][DPT];
+  // Tiles as loaded: float4 rows of q and k (16-byte chunks of D), and for
+  // v, 8 consecutive keys of one column (lanes on consecutive columns).
+  // Offsets inside a head are 32-bit (the wrapper keeps (L + 64) * stride_l
+  // below 2^31).
+  const int stride = static_cast<int>(stride_l);
+  constexpr int KSTEP = THREADS / (D / 4);  // rows between a thread's float4
+  constexpr int VSTEP = 8 * (THREADS / D);  // v rows between a thread's 8-key groups
+  const int k_row0 = tid / (D / 4), k_col = (tid % (D / 4)) * 4;
+  const int v_row0 = 8 * (tid / D), v_col = tid % D;
+  float4 qr[T::Q4];
+  float4 kr[T::K4];
+  float vr[T::VG][8];
+  auto load_q = [&](const Item& it) {
+    const int lim = L - it.q0 - k_row0;  // this thread's row i * KSTEP is a query while below lim
+    const float* const base = q + it.in + (it.q0 + k_row0) * stride + k_col;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
+    for (int i = 0; i < T::Q4; ++i)
+      qr[i] = i * KSTEP < lim ? __ldg(reinterpret_cast<const float4*>(base + i * KSTEP * stride))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto load_k = [&](const Item& it, int k0) {
+    const int lim = L - k0 - k_row0;
+    const float* const base = k + it.in + (k0 + k_row0) * stride + k_col;
 #pragma unroll
-    for (int jj = 0; jj < DPT; ++jj) acc[i][jj] = 0.f;
-  }
-
-  const int kv_end = causal ? min(L, q0 + BQ) : L;
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();  // the previous tile's readers are done (and sq is written)
-    for (int e = tid; e < BKV * D; e += THREADS) {
-      const int r = e / D, d = e - (e / D) * D;
-      const int row = k0 + r;
-      const bool in = row < L;
-      sk[r * DP + d] = in ? k[head + row * stride_l + d] : 0.f;
-      sv[r * D + d] = in ? v[head + row * stride_l + d] : 0.f;
+    for (int i = 0; i < T::K4; ++i)
+      kr[i] = i * KSTEP < lim ? __ldg(reinterpret_cast<const float4*>(base + i * KSTEP * stride))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto load_v = [&](const Item& it, int k0) {
+    const int lim = L - k0 - v_row0;
+    const float* const base = v + it.in + (k0 + v_row0) * stride + v_col;
+#pragma unroll
+    for (int i = 0; i < T::VG; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) vr[i][j] = i * VSTEP + j < lim ? __ldg(base + (i * VSTEP + j) * stride) : 0.f;
+  };
+  auto store_q = [&]() {  // scaled, then split
+#pragma unroll
+    for (int i = 0; i < T::Q4; ++i) {
+      const int r = k_row0 + i * KSTEP, c4 = k_col / 4;
+      store_split4(sq_hi, sq_lo, (c4 >> 3) * BQ * 128 + swz(r, c4 & 7), qr[i].x * scale, qr[i].y * scale,
+                   qr[i].z * scale, qr[i].w * scale);
     }
-    __syncthreads();
-
-    float s[RPT][CPT];
+  };
+  auto store_k = [&]() {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qr[RPT], kc[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qr[i] = sq[(tr + 8 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kc[j] = sk[(tc + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
+    for (int i = 0; i < T::K4; ++i) {
+      const int r = k_row0 + i * KSTEP, c4 = k_col / 4;
+      store_split4(sk_hi, sk_lo, (c4 >> 3) * BKV * 128 + swz(r, c4 & 7), kr[i].x, kr[i].y, kr[i].z, kr[i].w);
     }
+  };
+  auto store_v = [&]() {
+#pragma unroll
+    for (int i = 0; i < T::VG; ++i) {
+      const int d = v_col, grp = (v_row0 + i * VSTEP) / 8;
+      // keys 8grp..8grp+7 sit at positions 8grp + (0, 4, 1, 5, 2, 6, 3, 7):
+      // chunk 2(grp % 4) holds keys 0, 2, 4, 6 and the next chunk 1, 3, 5, 7
+      const uint32_t atom = (grp >> 2) * D * 128;
+      const int chunk = 2 * (grp & 3);
+      store_split4(sv_hi, sv_lo, atom + swz(d, chunk), vr[i][0], vr[i][2], vr[i][4], vr[i][6]);
+      store_split4(sv_hi, sv_lo, atom + swz(d, chunk + 1), vr[i][1], vr[i][3], vr[i][5], vr[i][7]);
+    }
+  };
 
+  // Descriptors of the operands' first k-step; a k-step adds its byte offset / 16.
+  const uint64_t dq_hi = smem_desc(smem_u32(sq_hi)), dq_lo = smem_desc(smem_u32(sq_lo));
+  const uint64_t dk_hi = smem_desc(smem_u32(sk_hi)), dk_lo = smem_desc(smem_u32(sk_lo));
+  const uint64_t dv_hi = smem_desc(smem_u32(sv_hi)), dv_lo = smem_desc(smem_u32(sv_lo));
+
+  const int n_blocks = static_cast<int>(gridDim.x);
+  int item = blockIdx.x;
+  Item cur = item_at(item);
+  load_k(cur, 0);
+  load_v(cur, 0);
+  load_q(cur);
+  for (; item < n_items; item += n_blocks) {
+    const bool has_next = item + n_blocks < n_items;
+    const Item next = item_at(has_next ? item + n_blocks : item);
+    const int q0 = cur.q0;
+    const int kv_end = causal ? min(L, q0 + BQ) : L;
+    const int n_tiles = (kv_end + BKV - 1) / BKV;
+    // This thread's rows of the tile: r0 (accumulators 4i, 4i+1) and r0 + 8
+    // (4i+2, 4i+3), at columns 8i + 2t and 8i + 2t + 1.
+    const int r0 = q0 + warp * 16 + g;
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float acc[NO];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int qi = q0 + tr + 8 * i;
-      float mx = -CUDART_INF_F;
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+    store_q();
+    store_k();
+    fence_async_barrier();
+
+    // Per key tile: S = (q * scale) . k^T is issued, v^T is stored while it
+    // runs and the next k tile is loaded; softmax; O += P . v is issued, the
+    // next k tile is stored while it runs and the next v tile is loaded. The
+    // last key tile loads the next item's first k and v tiles and its q.
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int k0 = kt * BKV;
+      const bool more = kt + 1 < n_tiles;
+
+      float s[NS];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int kj = k0 + tc + 16 * j;
-        if (kj >= L || (causal && kj > qi)) s[i][j] = -CUDART_INF_F;
-        mx = fmaxf(mx, s[i][j]);
+      for (int i = 0; i < NS; ++i) s[i] = 0.f;
+      fence_operands(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {
+        const uint32_t qo = ((ks >> 2) * BQ * 128 + (ks & 3) * 32) >> 4;
+        const uint32_t ko = ((ks >> 2) * BKV * 128 + (ks & 3) * 32) >> 4;
+        wgmma_ss<BKV>(s, dq_hi + qo, dk_hi + ko);
+        wgmma_ss<BKV>(s, dq_hi + qo, dk_lo + ko);
+        wgmma_ss<BKV>(s, dq_lo + qo, dk_hi + ko);
+      }
+      wgmma_commit();
+      store_v();  // v^T is free: the last P . v finished before the barrier
+      if (more) load_k(cur, k0 + BKV);
+      else if (has_next) load_k(next, 0);
+      wgmma_wait();
+      fence_operands(s);
+
+      // Online softmax over this tile; the row max is a quad max.
+      if (k0 + BKV > L || (causal && k0 + BKV - 1 > q0)) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const int row = r0 + ((i & 2) ? 8 : 0);
+          if (col >= L || (causal && col > row)) s[i] = -CUDART_INF_F;
+        }
+      }
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float alpha[2], nb[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        // every row sees key 0 in the first tile, so m_new is finite; the
+        // guard keeps a fully masked row at zero weight instead of NaN
+        const float base = m_new == -CUDART_INF_F ? 0.f : m_new;
+        alpha[r] = ex2((m[r] - base) * LOG2E);
+        nb[r] = -base * LOG2E;
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+      uint32_t p_hi[NS], p_lo[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int r = (i >> 1) & 1;
+        const float p = ex2(fmaf(s[i], LOG2E, nb[r]));
+        l[r] += p;
+        split(p, p_hi[i], p_lo[i]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      // every row sees key 0 in the first tile, so m_new is finite; the
-      // guard keeps a fully masked row at zero weight instead of NaN
-      const float base = m_new == -CUDART_INF_F ? 0.f : m_new;
-      const float alpha = expf(m[i] - base);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = expf(s[i][j] - base);
-        rs += p;
-        sp[(tr + 8 * i) * PP + tc + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < DPT; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
+      for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      fence_async_barrier();  // v^T is visible; every warp is done with k
 
-    const int n_keys = min(BKV, kv_end - k0);
-#pragma unroll 4
-    for (int j = 0; j < n_keys; ++j) {
-      float vv[DPT];
+      // O += P . v (keys past L have weight 0 and v rows of 0)
+      fence_operands(acc);
+      wgmma_fence();
 #pragma unroll
-      for (int jj = 0; jj < DPT; ++jj) vv[jj] = sv[j * D + tc + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float p = sp[(tr + 8 * i) * PP + j];
-#pragma unroll
-        for (int jj = 0; jj < DPT; ++jj) acc[i][jj] = fmaf(p, vv[jj], acc[i][jj]);
+      for (int ks = 0; ks < BKV / 8; ++ks) {
+        const uint32_t vo = ((ks >> 2) * D * 128 + (ks & 3) * 32) >> 4;
+        const int i = 4 * ks;
+        wgmma_rs<D>(acc, p_hi[i], p_hi[i + 2], p_hi[i + 1], p_hi[i + 3], dv_hi + vo);
+        wgmma_rs<D>(acc, p_hi[i], p_hi[i + 2], p_hi[i + 1], p_hi[i + 3], dv_lo + vo);
+        wgmma_rs<D>(acc, p_lo[i], p_lo[i + 2], p_lo[i + 1], p_lo[i + 3], dv_hi + vo);
       }
+      wgmma_commit();
+      if (more) {
+        store_k();
+        load_v(cur, k0 + BKV);
+      } else if (has_next) {
+        load_v(next, 0);
+        load_q(next);
+      }
+      wgmma_wait();
+      fence_operands(acc);
+      fence_operands(p_hi);
+      fence_operands(p_lo);
+      fence_async_barrier();  // the next k is visible; every warp is done with q, k and v^T
     }
-  }
 
-  const long long out_head = (static_cast<long long>(b) * L * H + h) * D;
+    const long long row_stride = static_cast<long long>(H) * D;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + tr + 8 * i;
-    if (row >= L) continue;
-    const float inv = 1.f / l[i];
+    for (int r = 0; r < 2; ++r) {
+      const float sum = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+      const float inv = 1.f / (sum + __shfl_xor_sync(0xffffffffu, sum, 2));
+      const int row = r0 + 8 * r;
+      if (row >= L) continue;
+      float* const out = o + cur.out + row * row_stride + 2 * t;
 #pragma unroll
-    for (int jj = 0; jj < DPT; ++jj)
-      o[out_head + static_cast<long long>(row) * H * D + tc + 16 * jj] = acc[i][jj] * inv;
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<float2*>(out + 8 * i) = make_float2(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+    }
+    cur = next;
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, float* o, int B, int L, int H,
-           long long stride_b, long long stride_l, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <int D, int BKV>
+int launch(const float* q, const float* k, const float* v, float* o, int B, int L, int H, long long stride_b,
+           long long stride_l, float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = Tiles<D, BKV>::SMEM;
+  static int resident[64] = {};  // blocks that fit on the card at once, by device ordinal
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64 || resident[dev] == 0) {
+    e = cudaFuncSetAttribute(flash_attention_kernel<D, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_attention_kernel<D, BKV>, THREADS, smem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm * sms == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+    resident[dev] = per_sm * sms;
   }
-  const dim3 grid(B * H, (L + BQ - 1) / BQ);
-  flash_attention_kernel<D><<<grid, THREADS, smem, stream>>>(q, k, v, o, L, H, stride_b, stride_l,
-                                                             scale, causal);
+  const int n_qt = (L + BQ - 1) / BQ;
+  const int n_items = B * H * n_qt;
+  // A block takes every n_blocks-th item. With n_blocks coprime to the number
+  // of query tiles a head has, each block cycles through all tile positions,
+  // so causal heads (later tiles see more keys) spread evenly over the blocks.
+  int n_blocks = min(n_items, resident[dev]);
+  while (n_blocks > 1 && std::gcd(n_blocks, n_qt) != 1) --n_blocks;
+  flash_attention_kernel<D, BKV><<<n_blocks, THREADS, smem, stream>>>(q, k, v, o, B, L, H, stride_b,
+                                                                                     stride_l, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Shapes are checked by the Python wrapper (lemon_tpu_torch/ops/attention.py):
-// q, k and v share their strides, with (H, D) contiguous inside each token;
-// D is 32, 64 or 128; 0 < B*H < 2^31 and 0 < L. o is (B, L, H, D)
-// contiguous. Returns the launch's error code (cudaErrorInvalidValue for an
-// unsupported D).
-extern "C" int lemon_flash_attention(const float* q, const float* k, const float* v, float* o,
-                                     int B, int L, int H, int D, long long stride_b,
-                                     long long stride_l, float scale, int causal, void* stream) {
+// q, k and v share their strides, with (H, D) contiguous inside each token,
+// 16-byte aligned pointers and strides that are multiples of 4; D is 32, 64
+// or 128; 0 < L, B * H * ceil(L / 64) < 2^31 and (L + 64) * stride_l < 2^31.
+// o is (B, L, H, D) contiguous. Returns the first CUDA error of the launch
+// (cudaErrorInvalidValue for an unsupported D).
+extern "C" int lemon_flash_attention(const float* q, const float* k, const float* v, float* o, int B, int L, int H,
+                                     int D, long long stride_b, long long stride_l, float scale, int causal,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 64-key tiles take half the barriers a key; 32-key tiles pad fewer keys
+  // where the last 64-key tile would be at most half full (L = 77, 197).
+  const bool narrow = L % 64 != 0 && L % 64 <= 32;
   switch (D) {
-    case 32: return launch<32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
-    case 64: return launch<64>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
-    case 128: return launch<128>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
+    case 32:
+      return narrow ? launch<32, 32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st)
+                    : launch<32, 64>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
+    case 64:
+      return narrow ? launch<64, 32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st)
+                    : launch<64, 64>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
+    case 128: return launch<128, 32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

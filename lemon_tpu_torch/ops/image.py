@@ -17,6 +17,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from lemon_tpu_torch.core.device import resolve_device
+
 # CLIP normalization constants (lib/datasets/utils.py:159-160).
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -72,7 +74,12 @@ def _round_u8(x: torch.Tensor) -> torch.Tensor:
 
 def preprocess_device(images_u8, size: int = 224, device=None, mean=CLIP_MEAN, std=CLIP_STD) -> torch.Tensor:
     """(B, H, W, 3) uint8 images (numpy or tensor) -> (B, size, size, 3)
-    float32 NHWC on ``device`` (default: the tensor's own, else CPU)."""
+    float32 NHWC on ``device``. ``device=None`` keeps a tensor on its own
+    device and sends anything else to the current CUDA card
+    (``resolve_device("cuda")``, which raises without one); pass
+    ``torch.device("cpu")`` to preprocess on the CPU."""
+    if device is None and not isinstance(images_u8, torch.Tensor):
+        device = resolve_device("cuda")
     x = torch.as_tensor(images_u8)
     if device is not None:
         x = x.to(device, non_blocking=True)

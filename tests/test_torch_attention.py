@@ -51,6 +51,32 @@ def test_plain_matches_jax_flash_and_reference(l, causal):
     np.testing.assert_allclose(ours, np.asarray(reference_attention(jq, jk, jv, causal=causal)), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", attention.HEAD_DIMS)
+@pytest.mark.parametrize("l", [33, 50, 77, 128, 200])
+def test_3xtf32_scheme_matches_jax_reference(l, d, causal):
+    """The kernel's precision scheme (TF32 hi/lo splits, three products in
+    fp32) meets the 2e-5 bar against the JAX reference, before any card."""
+    q, k, v = _qkv(2, l, 2, d, seed=100 + l)
+    ours = attention.flash_attention_3xtf32_plain(*map(torch.from_numpy, (q, k, v)), causal=causal).numpy()
+    assert ours.shape == (2, l, 2, d)
+    ref = np.asarray(reference_attention(*map(jnp.asarray, (q, k, v)), causal=causal))
+    np.testing.assert_allclose(ours, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_split_tf32_plain_is_the_kernels_split():
+    tie = 1 + 2**-11  # halfway between two TF32 values
+    x = torch.tensor([1.0, tie + 2**-20, tie - 2**-20, -(tie + 2**-20), 3.0 * 2**-130, 0.0], dtype=torch.float32)
+    hi, lo = attention.split_tf32_plain(x)
+    assert (hi.view(torch.int32) & 0x1FFF).eq(0).all() and (lo.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert hi.tolist()[:4] == [1.0, 1 + 2**-10, 1.0, -(1 + 2**-10)]  # to nearest
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy((rng.standard_normal(4096) * 10.0 ** rng.integers(-6, 6, 4096)).astype(np.float32))
+    hi, lo = attention.split_tf32_plain(y)
+    assert ((y - hi).abs() <= y.abs() * 2.0**-11).all()
+    assert ((y - hi - lo).abs() <= y.abs() * 2.0**-22).all()
+
+
 def _jax_cfg(cfg: ClipConfig):
     from lemon_tpu.models import clip as jclip
 
@@ -145,6 +171,7 @@ def cuda_device():
     # the towers' shapes (ViT-B/16 vision, ctx-256 text, ViT-B/32 vision, ctx-77 text), then odd ones
     (128, 197, 12, 64, False), (128, 256, 8, 64, True), (128, 50, 12, 64, False), (128, 77, 8, 64, True),
     (3, 33, 2, 32, True), (2, 200, 3, 128, False), (4, 1, 1, 64, True),
+    (2, 197, 24, 32, False), (2, 256, 4, 128, True), (3, 70, 2, 128, True), (2, 130, 1, 32, True),
 ])
 def test_kernel_matches_plain_on_the_card(cuda_device, shape):
     b, l, h, d, causal = shape
@@ -156,4 +183,5 @@ def test_kernel_matches_plain_on_the_card(cuda_device, shape):
     assert attention.flash_attention.launches == before + 1
     ref = attention.flash_attention_plain(q, k, v, causal)
     assert (out - ref).abs().max().item() <= 2e-5
+    assert (out - attention.flash_attention_3xtf32_plain(q, k, v, causal)).abs().max().item() <= 2e-5
     assert torch.equal(out, attention.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal))

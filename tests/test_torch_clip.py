@@ -143,7 +143,7 @@ def test_preprocess_matches_pil_and_jax(h, w):
         axis=-1,
     )
     img = np.clip(base + rng.normal(0, 8, (h, w, 3)), 0, 255).astype(np.uint8)
-    ours = preprocess_device(img[None]).numpy()[0]
+    ours = preprocess_device(img[None], device=torch.device("cpu")).numpy()[0]
     ref = preprocess_pil(Image.fromarray(img))
     assert ours.shape == ref.shape == (224, 224, 3)
     diff = np.abs(ours - ref)

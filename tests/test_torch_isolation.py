@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from lemon_tpu_torch.core.profiling import PhaseTimer
 from lemon_tpu_torch.knn.index import ExactKnnIndex
+from lemon_tpu_torch.ops.image import preprocess_device
 from lemon_tpu_torch.scoring.lemon import NeighborLogs
 from lemon_tpu_torch.scoring.optimize import maximize_metric
 
@@ -52,3 +54,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         maximize_metric(_tiny_logs(), grid={"beta": [0, 1]})
     assert ExactKnnIndex(device=torch.device("cpu")).device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["preprocess_device", "PhaseTimer"])
+def test_preprocess_and_timer_default_to_the_card(monkeypatch, entry):
+    images = np.zeros((1, 8, 8, 3), np.uint8)
+    call = {"preprocess_device": lambda **kw: preprocess_device(images, size=8, **kw),
+            "PhaseTimer": lambda **kw: PhaseTimer(**kw)}[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    call(device=torch.device("cpu"))
+
+
+def test_preprocess_keeps_a_tensor_on_its_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = preprocess_device(torch.zeros((1, 8, 8, 3), dtype=torch.uint8), size=8)
+    assert out.device.type == "cpu" and out.shape == (1, 8, 8, 3)
