@@ -44,7 +44,33 @@ imports nothing of JAX. Phases, each printed on its own lines:
    ``"flash"`` agree within 1e-4, then a detection of 8000 synthetic caption
    pairs under ``"flash"`` (``detect.build_neighbor_logs`` and
    ``detect.select_and_evaluate``): finite scores, test AUROC above 0.5, and
-   K1, K2 and K3 launched by that run.
+   K1, K2 and K3 launched by that run;
+10. phase 6 again with ``LEMON_TPU_PRECISION=bf16`` (the variable is set for
+    the call and restored after it), its phase times beside the fp32 run's;
+11. K3 on bf16 inputs (the bf16 kernel) at the shapes of phase 7, as bf16
+    views of a fused QKV tensor: every element within one bf16 ulp of
+    ``flash_attention_plain`` and of ``flash_attention_bf16_plain`` (the
+    kernel's split scheme), its time, the plain version's and bf16
+    ``scaled_dot_product_attention``'s with its backend;
+12. phase 9 in the bf16 mode: 512 pairs of bf16 flash against bf16 plain
+    embeddings (per-row cosine at least 0.999), the same bf16 plain
+    embeddings with cuBLAS's reduced-precision bf16 reductions allowed and
+    against the fp32 ones, then a detection of 8000 pairs under flash in
+    bf16, whose K3 launches are all the bf16 kernel's;
+13. the int8 modes at ViT-B/32 (``huggingface_clip``, random weights): 2048
+    synthetic caption pairs embedded in fp32, bf16, int8 and int8_static with
+    one seed's weights, each mode's embed time per 1000 pairs and per-row
+    cosine to fp32 (at least 0.9, a sanity floor; the numbers are the
+    record), and the first 64 pairs of each fast mode embedded again by the
+    same port code on the CPU from the card's weights and calibrated scales:
+    per-row cosine at least 0.999 to the card's. In the int8 modes the first
+    W8A8 projection of the card's forward is held on its own input to the
+    same layer on the CPU (quantised activations, int32 products and output
+    bit for bit), and every W8A8 layer must have run its int8 product.
+
+The switches: TF32 off for fp32 products and convolutions, and cuBLAS's
+reduced-precision reductions of bf16 products off, as the CLI sets them
+(``core/device.resolve_device``); phase 12 measures the latter on.
 
 Every kernel line prints its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -60,6 +86,7 @@ from __future__ import annotations
 
 import ast
 import json
+import os
 import pickle
 import shutil
 import subprocess
@@ -71,6 +98,9 @@ ROOT = Path(__file__).resolve().parent
 K1_TOL = 1e-5
 K3_TOL = 2e-5  # tests/test_attention.py:26: fp32 with another summation order
 EMBED_TOL = 1e-4  # tests/test_attention.py:56-57: the towers, plain vs flash
+BF16_FLASH_COS = 0.999  # per row, bf16 flash vs bf16 plain: the plain route's logits and softmax are bf16
+CARD_CPU_COS = 0.999  # per row, a fast mode on the card vs the same code on the CPU (int32 sums exact on both)
+FP32_FLOOR_COS = 0.9  # per row, a fast mode vs fp32 at full width: a sanity floor, the measured value is the record
 # (L, heads, head dim, causal) of the towers' attention: ViT-B/16 vision,
 # ctx-256 text, ViT-B/32 vision, ctx-77 text; then the other two head dims
 K3_SHAPES = ((197, 12, 64, False), (256, 8, 64, True), (50, 12, 64, False), (77, 8, 64, True),
@@ -126,6 +156,25 @@ def bound(n_bytes: float, n_ops: float, peak: str):
 
 def bound_text(b, ms: float) -> str:
     return f"bound {b[0]:.4f} ms ({b[1]}), {b[0] / ms:.1%} of it"
+
+
+def one_bf16_ulp_err(torch, out, ref):
+    """(worst |out - ref| in units of one bf16 ulp of ref, max abs error):
+    the ulp of each element taken at no less than 2^-8 of ref's largest
+    magnitude (closer to zero the fp32 sums' own rounding is more than one
+    ulp of the element; tests/test_torch_attention.py states the same)."""
+    out, ref = out.float(), ref.float()
+    mag = torch.maximum(ref.abs(), ref.abs().max() * 2.0**-8)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (out - ref).abs()
+    return (diff / ulp).max().item(), diff.max().item()
+
+
+def row_cos(torch, a, b):
+    """Per-row cosine of two (N, D) numpy arrays: (min, mean)."""
+    a, b = torch.from_numpy(a).double(), torch.from_numpy(b).double()
+    c = torch.nn.functional.cosine_similarity(a, b, dim=1)
+    return c.min().item(), c.mean().item()
 
 
 def unit_rows(torch, g, n, d, device):
@@ -271,6 +320,46 @@ def phase_k3(torch, attention, device):
     return worst, times
 
 
+def phase_k3_bf16(torch, attention, device):
+    """K3's bf16 kernel at the shapes of phase 7: within one bf16 ulp of both
+    plain versions, timed beside the plain version and bf16 SDPA."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=device).manual_seed(13)
+    worst = 0.0
+    times = {}
+    for l, h, d, causal in K3_SHAPES:
+        b = 128
+        x = torch.randn(b, l, 3 * h * d, device=device, generator=g).bfloat16()
+        q, k, v = (t.reshape(b, l, h, d) for t in x.split(h * d, dim=-1))  # the towers' strided bf16 views
+        out = attention.flash_attention(q, k, v, causal)
+        ref = attention.flash_attention_plain(q, k, v, causal)
+        emu = attention.flash_attention_bf16_plain(q, k, v, causal)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)  # noqa: E731
+        sdpa_ulps, _ = one_bf16_ulp_err(torch, sdpa().transpose(1, 2), ref)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.bfloat16 and out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"K3 bf16 {(l, h, d, causal)}: bad output")
+        ulps, err = one_bf16_ulp_err(torch, out, ref)
+        emu_ulps, _ = one_bf16_ulp_err(torch, out, emu)
+        ms, plain_ms = paired_ms(torch, lambda: attention.flash_attention(q, k, v, causal),
+                                 lambda: attention.flash_attention_plain(q, k, v, causal), 20)
+        sdpa_ms = cuda_ms(torch, sdpa, 20)
+        pairs = l * (l + 1) // 2 if causal else l * l
+        # q, k, v, o in bf16; the kernel's three bf16 products (S, p_hi.V, p_lo.V), 2*b*h*d*pairs operations each
+        bnd = bound(2 * 4 * b * l * h * d, 3 * 2 * b * h * d * pairs, "bf16")
+        times[(l, h, d, causal)] = (ms, plain_ms, sdpa_ms, bnd)
+        print(f"K3 bf16 flash_attention (128, {l}, {h}, {d}) {'causal' if causal else 'unmasked'}: "
+              f"{ulps:.3f} bf16 ulp of the plain version (max_abs_err {err:.3e}), {emu_ulps:.3f} of the split "
+              f"plain version (tol 1); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+              f"{sdpa_ms:.4f} ms ({sdpa_backend(torch, qt, kt, vt, causal)}, bf16, {sdpa_ulps:.2f} ulp); "
+              f"{bound_text(bnd, ms)}", flush=True)
+        check(ulps <= 1 and emu_ulps <= 1, f"K3 bf16 {(l, h, d, causal)}: {ulps}, {emu_ulps} bf16 ulp > 1")
+        worst = max(worst, err)
+    return worst, times
+
+
 def phase_k4(torch, scoremax, select, topk, blockmax_select, device):
     """K4 against its plain version, then its path: K1, the block top-k and
     K4 at the geometry of benchmarks/probe_knn_select_fused.py."""
@@ -349,20 +438,28 @@ def phase_knn(torch, scoremax, topk, ExactKnnIndex, device):
               f"({t_search:.3f} s; plain whole-row sort {t_plain:.3f} s, host clock incl. copy-out)", flush=True)
 
 
-def phase_run_lemon(torch, scoremax, topk):
+def phase_run_lemon(torch, scoremax, topk, precision: str = "fp32"):
+    """``run_lemon`` in-process with ``LEMON_TPU_PRECISION=precision`` set
+    for the call; (kernel launches, phase timing)."""
     from lemon_tpu_torch.cli.run_lemon import main as run_lemon
 
-    out = ROOT / "build" / "chip_smoke" / "run_lemon"
+    out = ROOT / "build" / "chip_smoke" / f"run_lemon_{precision}"
     shutil.rmtree(out, ignore_errors=True)
     argv = ["--output_dir", str(out), "--dataset", "synthetic_caption", "--synthetic_n", "20000",
             "--knn_k", "5", "--clip_model", "huggingface_clip", "--noise_type", "random"]
     stdout, stderr = sys.stdout, sys.stderr
+    saved = os.environ.get("LEMON_TPU_PRECISION")
+    os.environ["LEMON_TPU_PRECISION"] = precision
     scoremax.scores_blockmax.launches = 0
     topk.topk.launches = 0
     t0 = time.perf_counter()
     try:
         run_lemon(argv)
     finally:
+        if saved is None:
+            del os.environ["LEMON_TPU_PRECISION"]
+        else:
+            os.environ["LEMON_TPU_PRECISION"] = saved
         tees = (sys.stdout, sys.stderr)
         sys.stdout, sys.stderr = stdout, stderr
         for tee in tees:
@@ -387,26 +484,33 @@ def phase_run_lemon(torch, scoremax, topk):
     agg = res["agg_results"]["know_val_labels"]
     auroc = {s: float(agg[s]["AUROC"]) for s in ("train", "val", "test")}
     timing = {}
-    for line in (out / "out.txt").read_text().splitlines():
+    log = (out / "out.txt").read_text()
+    for line in log.splitlines():
         if line.startswith("Phase timing: "):
             timing = ast.literal_eval(line.removeprefix("Phase timing: "))
-    print(f"run_lemon synthetic_caption n=20000 k=5 huggingface_clip (ViT-B/32, random init): wall {wall:.2f} s; "
-          f"AUROC {auroc}", flush=True)
-    print("run_lemon phase timing (s): " + json.dumps({k: round(v, 4) for k, v in timing.items()}), flush=True)
-    print(f"run_lemon kernel launches: {launches}", flush=True)
-    check(auroc["test"] > 0.5, f"run_lemon: test AUROC {auroc['test']} <= 0.5")
-    check(all(n > 0 for n in launches.values()), f"run_lemon: a kernel was not launched: {launches}")
-    return launches
+    check("precision: Precision(" in log and (precision == "fp32") == ("compute_dtype=torch.float32" in log),
+          f"run_lemon {precision}: the run did not take the mode")
+    print(f"run_lemon {precision} synthetic_caption n=20000 k=5 huggingface_clip (ViT-B/32, random init): "
+          f"wall {wall:.2f} s; AUROC {auroc}", flush=True)
+    print(f"run_lemon {precision} phase timing (s): " + json.dumps({k: round(v, 4) for k, v in timing.items()}),
+          flush=True)
+    print(f"run_lemon {precision} kernel launches: {launches}", flush=True)
+    check(auroc["test"] > 0.5, f"run_lemon {precision}: test AUROC {auroc['test']} <= 0.5")
+    check(all(n > 0 for n in launches.values()), f"run_lemon {precision}: a kernel was not launched: {launches}")
+    return launches, timing
 
 
-def phase_vit_b16_flash(torch, scoremax, topk, attention, device):
-    """The from-scratch ViT-B/16 model through K3: plain and flash towers
-    on one state dict, then a whole detection under flash."""
+def phase_vit_b16_flash(torch, scoremax, topk, attention, device, precision: str = "fp32", fp32_check=None):
+    """The from-scratch ViT-B/16 model through K3 in one precision mode:
+    plain and flash towers on one state dict, then a whole detection under
+    flash. Returns (launches, phase timing, the plain embeddings of the
+    check)."""
     import dataclasses
 
     import numpy as np
 
     from lemon_tpu_torch import detect
+    from lemon_tpu_torch.core.precision import Precision
     from lemon_tpu_torch.core.profiling import PhaseTimer
     from lemon_tpu_torch.data.datasets import get_dataset
     from lemon_tpu_torch.models.clip import ClipModel
@@ -414,6 +518,7 @@ def phase_vit_b16_flash(torch, scoremax, topk, attention, device):
     from lemon_tpu_torch.models.registry import MODEL_CONFIGS, create_encoder
 
     name, n, n_check = "mimic_clip_from_scratch_random", 8000, 512
+    prec = getattr(Precision, precision)()
     cfg = detect.DetectionConfig(dataset="synthetic_caption", noise_type="random", clip_model=name, knn_k=5,
                                  synthetic_n=n)
     timer = PhaseTimer(device)
@@ -422,8 +527,8 @@ def phase_vit_b16_flash(torch, scoremax, topk, attention, device):
         splits = dict(zip(("train", "val", "test"), get_dataset(
             cfg.dataset, cfg.data_seed, noise_level=cfg.noise_level, noise_type=cfg.noise_type, synthetic_n=n)))
     with timer.phase("load_model"):
-        plain = create_encoder(name, device, seed=cfg.seed, batch_size=cfg.batch_size)
-        model = ClipModel(dataclasses.replace(MODEL_CONFIGS[name], attention_impl="flash"))
+        plain = create_encoder(name, device, seed=cfg.seed, batch_size=cfg.batch_size, precision=prec)
+        model = ClipModel(dataclasses.replace(MODEL_CONFIGS[name], attention_impl="flash"), prec)
         model.load_state_dict(plain.model.state_dict())
         flash = ClipEncoder(model, device, batch_size=cfg.batch_size, weights_fingerprint=plain.weights_fingerprint)
 
@@ -433,23 +538,43 @@ def phase_vit_b16_flash(torch, scoremax, topk, attention, device):
         p_img, p_txt = plain.embed_split(head, texts)
     with timer.phase("embed_check_flash"):
         f_img, f_txt = flash.embed_split(head, texts)
-    del plain
-    err = max(float(np.abs(p_img - f_img).max()), float(np.abs(p_txt - f_txt).max()))
-    print(f"ViT-B/16 ctx-256 towers, {n_check} pairs: flash vs plain embeddings max_abs_err {err:.3e} "
-          f"(tol {EMBED_TOL})", flush=True)
     dim = MODEL_CONFIGS[name].embed_dim
     check(p_img.shape == (n_check, dim) and p_txt.shape == (n_check, dim), "ViT-B/16: wrong embedding shape")
-    check(err <= EMBED_TOL, f"ViT-B/16: flash embeddings differ from plain by {err} > {EMBED_TOL}")
+    if precision == "fp32":
+        err = max(float(np.abs(p_img - f_img).max()), float(np.abs(p_txt - f_txt).max()))
+        print(f"ViT-B/16 ctx-256 towers, {n_check} pairs: flash vs plain embeddings max_abs_err {err:.3e} "
+              f"(tol {EMBED_TOL})", flush=True)
+        check(err <= EMBED_TOL, f"ViT-B/16: flash embeddings differ from plain by {err} > {EMBED_TOL}")
+    else:
+        cos = {"img": row_cos(torch, f_img, p_img), "txt": row_cos(torch, f_txt, p_txt)}
+        print(f"ViT-B/16 ctx-256 towers {precision}, {n_check} pairs: flash vs plain per-row cosine (min, mean) "
+              f"{cos} (bar {BF16_FLASH_COS})", flush=True)
+        check(min(c[0] for c in cos.values()) >= BF16_FLASH_COS, f"ViT-B/16 {precision}: flash vs plain {cos}")
+        # cuBLAS may reduce split-K partial sums of bf16 products in bf16; the CLI and this script keep it off
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+        try:
+            r_img, r_txt = plain.embed_split(head, texts)
+        finally:
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        print(f"ViT-B/16 {precision} plain embeddings with reduced-precision bf16 reductions allowed vs off, "
+              f"per-row cosine (min, mean): img {row_cos(torch, r_img, p_img)}, txt {row_cos(torch, r_txt, p_txt)}",
+              flush=True)
+        if fp32_check is not None:
+            print(f"ViT-B/16 {precision} vs fp32 plain embeddings, same weights, per-row cosine (min, mean): "
+                  f"img {row_cos(torch, p_img, fp32_check[0])}, txt {row_cos(torch, p_txt, fp32_check[1])}", flush=True)
+    del plain
 
     scoremax.scores_blockmax.launches = 0
     topk.topk.launches = 0
     attention.flash_attention.launches = 0
+    attention.flash_attention.launches_bf16 = 0
     t1 = time.perf_counter()
     logs = detect.build_neighbor_logs(cfg, flash, splits, None, timer)  # captions: no label set
     agg, df = detect.select_and_evaluate(cfg, logs, device, timer)
     wall = time.perf_counter() - t1
+    n_bf16 = attention.flash_attention.launches_bf16
     launches = {"scores_blockmax": scoremax.scores_blockmax.launches, "topk": topk.topk.launches,
-                "flash_attention": attention.flash_attention.launches}
+                "flash_attention": attention.flash_attention.launches - n_bf16, "flash_attention_bf16": n_bf16}
 
     scores = df["know_val_labels_pred_score"].to_numpy()
     check(len(scores) == n and np.isfinite(scores).all(), "ViT-B/16 detection: non-finite or missing scores")
@@ -457,14 +582,130 @@ def phase_vit_b16_flash(torch, scoremax, topk, attention, device):
         vals = np.stack(df[col].to_list()) if col != "d_1" else df[col].to_numpy()
         check(bool(np.isfinite(vals).all()), f"ViT-B/16 detection: non-finite {col}")
     auroc = {s: float(agg["know_val_labels"][s]["AUROC"]) for s in ("train", "val", "test")}
-    print(f"detection synthetic_caption n={n} k=5 {name} (ViT-B/16 @224, text ctx 256, embed 768, random init, "
-          f"attention_impl=flash): wall {wall:.2f} s (with load and the check {time.perf_counter() - t0:.2f} s); "
-          f"AUROC {auroc}", flush=True)
-    print("ViT-B/16 phase timing (s): " + json.dumps({k: round(v, 4) for k, v in timer.as_dict().items()}), flush=True)
-    print(f"ViT-B/16 detection kernel launches: {launches}", flush=True)
+    print(f"detection {precision} synthetic_caption n={n} k=5 {name} (ViT-B/16 @224, text ctx 256, embed 768, "
+          f"random init, attention_impl=flash): wall {wall:.2f} s (with load and the check "
+          f"{time.perf_counter() - t0:.2f} s); AUROC {auroc}", flush=True)
+    timing = timer.as_dict()
+    print(f"ViT-B/16 {precision} phase timing (s): " + json.dumps({k: round(v, 4) for k, v in timing.items()}),
+          flush=True)
+    print(f"ViT-B/16 {precision} detection kernel launches: {launches}", flush=True)
     check(auroc["test"] > 0.5, f"ViT-B/16 detection: test AUROC {auroc['test']} <= 0.5")
-    check(all(c > 0 for c in launches.values()), f"ViT-B/16 detection: a kernel was not launched: {launches}")
-    return launches
+    k3 = "flash_attention" if precision == "fp32" else "flash_attention_bf16"
+    used = ("scores_blockmax", "topk", k3)
+    check(all(launches[c] > 0 for c in used), f"ViT-B/16 detection: a kernel was not launched: {launches}")
+    check(launches[k3] == attention.flash_attention.launches, f"ViT-B/16 {precision}: K3 ran another variant: {launches}")
+    return launches, timing, (p_img, p_txt)
+
+
+def phase_int8(torch, device):
+    """The int8 modes at ViT-B/32 against fp32 and against the same code on
+    the CPU. Returns {mode: (embed ms per 1000 pairs, img cosine to fp32)}."""
+    import numpy as np
+
+    from lemon_tpu_torch.core.precision import Precision
+    from lemon_tpu_torch.data.datasets import get_dataset
+    from lemon_tpu_torch.models.clip import ClipModel
+    from lemon_tpu_torch.models.registry import MODEL_CONFIGS, create_encoder
+    from lemon_tpu_torch.ops.image import preprocess_device
+
+    name, n, n_cpu = "huggingface_clip", 2048, 64
+    train = get_dataset("synthetic_caption", 0, noise_level=0.4, noise_type="random", synthetic_n=2560)[0]
+    split = train.subset(np.arange(n))
+    texts = list(split.sentence)
+    cpu = torch.device("cpu")
+    out, ref = {}, None
+    for mode in ("fp32", "bf16", "int8", "int8_static"):
+        prec = getattr(Precision, mode)()
+        enc = create_encoder(name, device, seed=0, precision=prec)
+        enc.embed_split(split.subset(np.arange(128)), texts[:128])  # warm up (and calibrate int8_static)
+        if mode == "int8_static":  # time the lazy calibration too: a fresh encoder, its own first batch
+            enc = create_encoder(name, device, seed=0, precision=prec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, txt = enc.embed_split(split, texts)
+        ms = (time.perf_counter() - t0) * 1e3 / n * 1000
+        check(img.shape == txt.shape == (n, MODEL_CONFIGS[name].embed_dim) and np.isfinite(img).all()
+              and np.isfinite(txt).all(), f"{mode}: bad embeddings")
+        if ref is None:
+            ref = (img, txt)
+            out[mode] = (ms, None)
+            print(f"ViT-B/32 fp32: embed {ms:.1f} ms per 1000 pairs ({n} pairs)", flush=True)
+            continue
+        cos = row_cos(torch, img, ref[0]), row_cos(torch, txt, ref[1])
+        # the same code on the CPU from the card's weights (and calibrated scales)
+        cpu_model = ClipModel(MODEL_CONFIGS[name], prec)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in enc.model.state_dict().items()})
+        res = MODEL_CONFIGS[name].image_resolution
+        if prec.matmul_int8:
+            n_int8 = int8_layer_check(torch, enc.model.eval(), cpu_model.eval(),
+                                      preprocess_device(split.images[:n_cpu], res, device, **enc._pp_kwargs))
+            print(f"ViT-B/32 {mode}: visual.blocks.0.attn.qkv on the card's input, {n_cpu} images: quantised "
+                  f"activations, int32 products and output bit-equal to the CPU's; {n_int8} int8 products in the "
+                  f"card's forward (one per W8A8 layer)", flush=True)
+        with torch.inference_mode():
+            pixels = preprocess_device(split.images[:n_cpu], res, cpu, **enc._pp_kwargs)
+            c_img = cpu_model.eval().encode_image(pixels).numpy()
+            c_txt = cpu_model.encode_text(torch.from_numpy(enc._tokenize(texts[:n_cpu])).long()).numpy()
+        card_cpu = min(row_cos(torch, img[:n_cpu], c_img), row_cos(torch, txt[:n_cpu], c_txt))
+        out[mode] = (ms, cos[0])
+        print(f"ViT-B/32 {mode}: embed {ms:.1f} ms per 1000 pairs ({n} pairs); per-row cosine to fp32 (min, mean) "
+              f"img {cos[0]}, txt {cos[1]} (floor {FP32_FLOOR_COS}); card vs CPU, first {n_cpu} images, "
+              f"{card_cpu} (bar {CARD_CPU_COS})", flush=True)
+        check(cos[0][0] >= FP32_FLOOR_COS and cos[1][0] >= FP32_FLOOR_COS, f"{mode}: cosine to fp32 {cos}")
+        check(card_cpu[0] >= CARD_CPU_COS, f"{mode}: card vs CPU cosine {card_cpu} < {CARD_CPU_COS}")
+        del enc, cpu_model
+    return out
+
+
+def int8_layer_check(torch, card_model, cpu_model, pixels) -> int:
+    """The first W8A8 projection of the card's vision forward
+    (``visual.blocks.0.attn.qkv``), held on its own input against the same
+    layer on the CPU: its quantised activations, its int32 products
+    (``torch._int_mm``) and its output bit for bit; and every W8A8 layer of
+    the forward ran its int8 product on the card. Returns that count."""
+    from lemon_tpu_torch.models import clip
+
+    real, calls, seen, captured = clip.int8_matmul, [], {}, {}
+
+    def recording(a, w):
+        out = real(a, w)
+        calls.append(a.device.type)
+        seen.setdefault(a.device.type, (a, out))
+        return out
+
+    def hook(module, args, output):
+        captured.setdefault("x", args[0])
+        captured.setdefault("y", output)
+
+    card_layer, cpu_layer = card_model.visual.blocks[0].attn.qkv, cpu_model.visual.blocks[0].attn.qkv
+    handle = card_layer.register_forward_hook(hook)
+    clip.int8_matmul = recording
+    try:
+        with torch.inference_mode():
+            card_model.encode_image(pixels)
+            n_card = calls.count("cuda")
+            y_cpu = cpu_layer(captured["x"].cpu())
+            (a_card, p_card), (a_cpu, p_cpu) = seen["cuda"], seen["cpu"]
+            p_card_a = real(a_card.cpu(), cpu_layer.weight_q)  # the card's activations, multiplied on the CPU
+    finally:
+        clip.int8_matmul = real
+        handle.remove()
+    w8a8 = sum(isinstance(m, clip.QuantLinear) and not m.weight_only for m in card_model.visual.modules())
+    check(n_card == w8a8, f"int8 layer check: {n_card} int8 products on the card, {w8a8} W8A8 layers")
+    a_card, p_card, y_card = a_card.cpu(), p_card.cpu(), captured["y"].cpu()
+    check(bool(torch.equal(p_card, p_card_a)), f"int8 layer check: card int32 products differ from the CPU's on the "
+          f"same activations in {int((p_card != p_card_a).sum())} of {p_card.numel()}")
+    check(bool(torch.equal(a_card, a_cpu)), f"int8 layer check: quantised activations differ in "
+          f"{int((a_card != a_cpu).sum())} of {a_card.numel()}")
+    check(bool(torch.equal(p_card, p_cpu)) and bool(torch.equal(y_card, y_cpu)),
+          f"int8 layer check: outputs differ, max {(y_card.float() - y_cpu.float()).abs().max().item():.3e}")
+    return n_card
+
+
+def print_side_by_side(what: str, fp32: dict, bf16: dict) -> None:
+    print(f"{what} phase timing (s), fp32 | bf16: "
+          + json.dumps({k: [round(fp32.get(k, 0.0), 4), round(bf16.get(k, 0.0), 4)] for k in {**fp32, **bf16}}),
+          flush=True)
 
 
 def main() -> None:
@@ -481,6 +722,7 @@ def main() -> None:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -498,18 +740,28 @@ def main() -> None:
     k1_err, k1_times = phase_k1(torch, scoremax, device)
     k2_err, k2_times = phase_k2(torch, topk, device)
     phase_knn(torch, scoremax, topk, ExactKnnIndex, device)
-    b32 = phase_run_lemon(torch, scoremax, topk)
+    b32, b32_timing = phase_run_lemon(torch, scoremax, topk)
+    b32_bf16, b32_bf16_timing = phase_run_lemon(torch, scoremax, topk, "bf16")
+    print_side_by_side("run_lemon ViT-B/32", b32_timing, b32_bf16_timing)
     k3_err, k3_times = phase_k3(torch, attention, device)
+    k3b_err, k3b_times = phase_k3_bf16(torch, attention, device)
     k4_times, k4_launches = phase_k4(torch, scoremax, select, topk, _blockmax_select, device)
-    b16 = phase_vit_b16_flash(torch, scoremax, topk, attention, device)
+    b16, b16_timing, b16_embeddings = phase_vit_b16_flash(torch, scoremax, topk, attention, device)
+    b16_bf16, b16_bf16_timing, _ = phase_vit_b16_flash(torch, scoremax, topk, attention, device, "bf16", b16_embeddings)
+    print_side_by_side("ViT-B/16 flash detection", b16_timing, b16_bf16_timing)
+    phase_int8(torch, device)
+
+    main_paths = {"run_lemon_vit_b32": b32, "run_lemon_vit_b32_bf16": b32_bf16, "detect_vit_b16_flash": b16,
+                  "detect_vit_b16_flash_bf16": b16_bf16}
 
     def launches(name):
-        paths = {"run_lemon_vit_b32": b32.get(name, 0), "detect_vit_b16_flash": b16.get(name, 0)}
+        paths = {path: counts.get(name, 0) for path, counts in main_paths.items()}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     k1_ms, k1_plain, k1_bound = k1_times[("ip", "high")]  # the main path's mode (--knn_precision auto)
     k2_ms, k2_plain, k2_sort, k2_bound = k2_times[(768, 6)]  # the main path's candidates at --knn_k 5
     k3_ms, k3_plain, k3_sdpa, k3_bound = k3_times[K3_SHAPES[0]]  # the ViT-B/16 vision tower, the path's largest attention
+    k3b_ms, k3b_plain, k3b_sdpa, k3b_bound = k3b_times[K3_SHAPES[0]]
     k4_ms, k4_plain, _, k4_bound = k4_times[51]  # the probe's k
 
     def numbers(err, ms, plain_ms, bnd, library_ms):
@@ -526,6 +778,9 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/attention.cu",
          "replaces": "lemon_tpu/ops/attention.py:101", **launches("flash_attention"),
          **numbers(k3_err, k3_ms, k3_plain, k3_bound, k3_sdpa)},
+        {"name": "flash_attention_bf16", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/attention.cu",
+         "replaces": "lemon_tpu/ops/attention.py:101", **launches("flash_attention_bf16"),
+         **numbers(k3b_err, k3b_ms, k3b_plain, k3b_bound, k3b_sdpa)},
         {"name": "fused_gather_topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/select.cu",
          "replaces": "lemon_tpu/ops/select.py:138", "launches": k4_launches,
          "launches_by_path": {"knn_select_fused_probe": k4_launches},

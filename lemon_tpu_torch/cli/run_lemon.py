@@ -9,8 +9,9 @@ Outputs: args.json, out.txt/err.txt, res.pkl, {criteria}_scores.csv, done.
 
 Differences from the JAX CLI: ``--platform`` is ``cuda`` (default) or
 ``cpu`` and a run without a GPU raises unless ``--platform cpu`` is given;
-the port is fp32 only; ``--mesh`` and the ``biomed_clip`` model raise
-``NotImplementedError``. The towers run the plain attention route, as the
+``--mesh`` and the ``biomed_clip`` model raise ``NotImplementedError``. The
+towers' precision mode comes from ``LEMON_TPU_PRECISION`` (``fp32``, the
+default, ``bf16``, ``int8`` or ``int8_static``), as in the JAX CLI. The towers run the plain attention route, as the
 JAX CLI runs its XLA one: neither CLI has an attention flag.
 """
 

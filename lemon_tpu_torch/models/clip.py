@@ -1,35 +1,55 @@
 """CLIP vision and text towers in PyTorch (port of lemon_tpu/models/clip.py).
 
-The fp32 path of the JAX ``ClipModel``, module for module:
+The JAX ``ClipModel`` module for module, in every mode of
+:class:`lemon_tpu_torch.core.precision.Precision`:
 
-- ``LayerNorm``: fp32 statistics, eps 1e-5 (:166);
+- ``FpLayerNorm`` (:166-190): fp32 statistics on any input dtype, eps 1e-5,
+  the normalise/affine tail in fp32 or, when ``ln_dtype`` is bf16, in bf16;
 - QuickGELU, ``x * sigmoid(1.702 x)`` (:193);
 - fused-QKV attention (:457-534): under ``attention_impl="plain"`` a matmul
-  + softmax with an additive -1e9 causal mask for text, under ``"flash"``
-  kernel K3 (:func:`lemon_tpu_torch.ops.attention.flash_attention`), which
-  builds the causal mask itself. ``"plain"`` and ``"flash"`` are the
+  + softmax in ``softmax_dtype`` with an additive -1e9 causal mask for text,
+  under ``"flash"`` kernel K3
+  (:func:`lemon_tpu_torch.ops.attention.flash_attention`, fp32 or bf16),
+  which builds the causal mask itself. ``"plain"`` and ``"flash"`` are the
   counterparts of the JAX ``attention_impl`` values ``'xla'`` and
   ``'pallas'`` (:58);
 - the ViT patch embedding as a reshape + matmul, not a conv (:670-682);
-- text pooling at the first EOT token, ``argmax`` of the ids (:790).
+- text pooling at the first EOT token, ``argmax`` of the ids (:790);
+- the pooled last block (:503-510, :557-560, :706-717, :791): with
+  ``Precision.pool_last_block`` and ``ClipConfig.pool_last_block`` the last
+  vision block computes only the CLS row (the text tower's first-EOT row
+  with ``pool_last_block_text``), never under ``"flash"``;
+- ``ln_folded_dense`` under ``Precision.fold_ln`` (:222-246, :566-578);
+- ``QuantLinear``, the W8A8 projections of the int8 modes (:249-334), with
+  :func:`quantize_clip_params` and :func:`calibrate_act_scales`.
 
-Inputs keep the JAX layout: pixels are NHWC. Left out, because they are
-TPU layout workarounds or later precision modes and are all off on the fp32
-path (lemon_tpu/core/precision.py:35-44): attention packing (the port never
-packs, so the flash route has nothing to turn off), the pooled last block,
-the folded LayerNorm, ``QuantDense`` and the ResNet tower.
+In the bf16 modes the residual stream and the projections are bf16: the
+projections' weights are cast once, when the weights are loaded (JAX casts
+the fp32 parameters at use; both round to nearest even). Where JAX asks for
+an fp32 result of bf16 operands (the patch embedding and the two
+projections), the operands are upcast and multiplied in fp32. LayerNorm
+weights and the class, position and token embeddings stay fp32 and are cast
+at use, as in JAX.
+
+Inputs keep the JAX layout: pixels are NHWC. Left out: attention packing, a
+TPU layout workaround (the port never packs, so the pooled vision rows are
+``[[0]]`` and the flash route has nothing to turn off), and the ResNet
+tower.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lemon_tpu_torch.core.precision import Precision
 from lemon_tpu_torch.ops.attention import flash_attention
 
 ATTENTION_IMPLS = ("plain", "flash")
@@ -51,6 +71,12 @@ class ClipConfig:
     # "plain" | "flash": the counterparts of the JAX package's "xla" |
     # "pallas". "flash" runs both towers' attention through kernel K3.
     attention_impl: str = "plain"
+    # The last block computes only the pooled row (exact per row: K and V
+    # still come from every token). Active only with
+    # Precision.pool_last_block, and never under "flash".
+    pool_last_block: bool = True
+    # The same for the text tower's first-EOT row; off as in JAX.
+    pool_last_block_text: bool = False
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
@@ -93,8 +119,179 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-def _layer_norm(width: int) -> nn.LayerNorm:
-    return nn.LayerNorm(width, eps=1e-5)
+def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with an fp32 result: JAX's ``preferred_element_type=float32``
+    on operands of any dtype (bf16 products are exact in fp32)."""
+    return x.float() @ w.float()
+
+
+class FpLayerNorm(nn.LayerNorm):
+    """LayerNorm with fp32 statistics on any input dtype, returned in the
+    input's dtype; ``dtype`` is the normalise/affine tail's (fp32, or bf16
+    on the fast path: the statistics stay fp32)."""
+
+    def __init__(self, width: int, dtype: torch.dtype = torch.float32):
+        super().__init__(width, eps=1e-5)
+        self.tail_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tail_dtype == torch.float32:
+            return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        dt = self.tail_dtype
+        inv = torch.rsqrt(var + self.eps).to(dt)
+        y = (x.to(dt) - mean.to(dt)) * inv
+        return (y * self.weight.to(dt) + self.bias.to(dt)).to(x.dtype)
+
+
+def ln_folded_dense(x, weight, bias, g, beta, *, compute_dtype, eps: float = 1e-5) -> torch.Tensor:
+    """``Linear(LN(x))`` without materialising ``LN(x)``
+    (lemon_tpu/models/clip.py:222-246): ``LN(x) W^T = r (x (g W)^T) -
+    (r mu) colsum(g W) + (W beta + b)`` with per-row fp32 statistics (mu, r);
+    ``weight`` is (out, in) as ``nn.Linear`` holds it, every parameter fp32.
+    The product takes ``compute_dtype`` operands and an fp32 result."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    w_scaled = weight * g[None, :]
+    c1 = w_scaled.sum(1)
+    c2 = weight @ beta + bias
+    z = _f32_product(x.to(compute_dtype), w_scaled.to(compute_dtype).T)
+    return (z * r - (r * mu) * c1 + c2).to(compute_dtype)
+
+
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """``x / 127`` rounded once, as the CPU and the JAX package divide. CUDA
+    divides by a host scalar as a product with its rounded reciprocal, which
+    is one bit off at times, so the divisor is a scalar on ``x``'s device."""
+    return x / x.new_full((), 127.0)
+
+
+def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w^T`` of int8 (M, K) and (N, K), exact in int32 (XLA's int8
+    ``dot_general`` in the JAX package): ``torch._int_mm``. On the card it
+    takes M > 16 and K, N multiples of 8, so fewer rows are zero-padded."""
+    m = a.shape[0]
+    if a.is_cuda and m <= 16:
+        a = F.pad(a, (0, 0, 0, 17 - m))
+    return torch._int_mm(a, w.t())[:m]
+
+
+class QuantLinear(nn.Module):
+    """W8A8 ``nn.Linear`` of the int8 modes (``QuantDense``,
+    lemon_tpu/models/clip.py:249-334): int8 ``weight_q`` (out, in) with
+    per-output-channel ``weight_scale``, made once by
+    :func:`quantize_clip_params`; ``bias`` fp32; the dequantisation in fp32;
+    the result in ``dtype``. Activation scales are per token and computed on
+    the fly, or one calibrated scalar ``act_scale`` (``static_act``, filled
+    by :func:`calibrate_act_scales`). ``weight_only`` (the pooled last
+    block, whose M is one row an image) dequantises the weight and runs an
+    ordinary product of unquantised activations, with the same buffers.
+    While ``act_amax`` is a tensor, the layer records its input's max-abs
+    there (the JAX ``sow`` that calibration reads)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.bfloat16,
+                 static_act: bool = False, weight_only: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.static_act = static_act
+        self.weight_only = weight_only
+        self.register_buffer("weight_q", torch.zeros(out_features, in_features, dtype=torch.int8))
+        self.register_buffer("weight_scale", torch.ones(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        if static_act:
+            self.register_buffer("act_scale", torch.ones(()))
+        self.act_amax: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead, d = x.shape[:-1], x.shape[-1]
+        x = x.reshape(-1, d)
+        xf = x.float()
+        if self.act_amax is not None:
+            self.act_amax = torch.maximum(self.act_amax, xf.abs().amax())
+        if self.weight_only:
+            w = (self.weight_q.float() * self.weight_scale[:, None]).to(self.dtype)
+            y = F.linear(x.to(self.dtype).float(), w.float(), self.bias)
+        elif self.static_act:
+            a_q = torch.clamp(torch.round(xf / self.act_scale), -127, 127).to(torch.int8)
+            y = int8_matmul(a_q, self.weight_q).float() * (self.act_scale * self.weight_scale) + self.bias
+        else:
+            a_scale = _div127(xf.abs().amax(-1, keepdim=True).clamp_min(1e-12))
+            a_q = torch.round(xf / a_scale).to(torch.int8)
+            y = int8_matmul(a_q, self.weight_q).float() * a_scale * self.weight_scale + self.bias
+        return y.reshape(*lead, -1).to(self.dtype)
+
+
+# the vision tower's projections that the int8 modes quantise (LN, softmax,
+# the attention core and the towers' heads stay float; the text tower is
+# never quantised, as in JAX)
+_QUANT_WEIGHT = re.compile(r"visual\.blocks\.\d+\.(?:attn\.qkv|attn\.out|mlp_fc|mlp_proj)\.weight")
+
+
+def quantize_clip_params(state: dict, static_act: bool = False) -> dict:
+    """A float :class:`ClipModel` state dict -> the one the int8 modes load:
+    each vision projection's ``weight`` becomes per-output-channel symmetric
+    ``weight_q`` (int8) and ``weight_scale``, plus an all-ones ``act_scale``
+    placeholder under ``static_act`` (:func:`calibrate_act_scales` fills
+    it). The port of both JAX variants (lemon_tpu/models/clip.py:342-403):
+    it runs where the tensors lie, and from fp32 weights gives the JAX
+    package's int8 weights and scales bit for bit. Everything else passes
+    through."""
+    out = {}
+    for key, val in state.items():
+        if not _QUANT_WEIGHT.fullmatch(key):
+            out[key] = val
+            continue
+        prefix = key[: -len("weight")]
+        w = val.float()
+        scale = _div127(w.abs().amax(dim=1).clamp_min(1e-12))
+        out[prefix + "weight_q"] = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
+        out[prefix + "weight_scale"] = scale
+        if static_act:
+            out[prefix + "act_scale"] = torch.ones((), device=w.device)
+    return out
+
+
+@torch.no_grad()
+def calibrate_act_scales(model: "ClipModel", pixels=None, tokens=None, margin: float = 1.0) -> "ClipModel":
+    """Fill the static ``act_scale`` of every ``QuantLinear`` from the input
+    max-abs it sees on one ``encode_image(pixels)`` and/or
+    ``encode_text(tokens)``: ``act_scale = max(amax * margin, 1e-6) / 127``
+    (lemon_tpu/models/clip.py:406-438). Layers the calls do not reach keep
+    their scales, so calibrating one tower at a time composes."""
+    layers = [m for m in model.modules() if isinstance(m, QuantLinear) and m.static_act]
+    for m in layers:
+        m.act_amax = torch.full((), -1.0, device=m.weight_q.device)  # below any max-abs: "not reached"
+    try:
+        if pixels is not None:
+            model.encode_image(pixels)
+        if tokens is not None:
+            model.encode_text(tokens)
+        amaxes = [float(m.act_amax) for m in layers]
+    finally:
+        for m in layers:
+            m.act_amax = None
+    for m, amax in zip(layers, amaxes):
+        if amax >= 0:
+            m.act_scale.fill_(float(np.float32(max(amax * margin, 1e-6) / 127.0)))
+    return model
+
+
+def _linear(in_features: int, out_features: int, precision: Precision, quant: bool = False,
+            weight_only: bool = False, fp32: bool = False) -> nn.Module:
+    """A projection of the towers: ``QuantLinear`` in the int8 modes, else an
+    ``nn.Linear`` in the compute dtype (fp32 where ``fold_ln`` folds it)."""
+    if quant:
+        return QuantLinear(in_features, out_features, precision.compute_dtype, precision.int8_static_act, weight_only)
+    return nn.Linear(in_features, out_features, dtype=torch.float32 if fp32 else precision.compute_dtype)
+
+
+def _take_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``x[b, rows[b]]``: (B, L, ...) -> (B, S, ...) for (B, S) indices."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], rows]
 
 
 _MASK = -1e9  # additive mask value of the JAX towers (finite: no inf - inf)
@@ -103,113 +300,176 @@ _MASK = -1e9  # additive mask value of the JAX towers (finite: no inf - inf)
 class Attention(nn.Module):
     """Multi-head self-attention with a fused QKV projection; ``causal``
     lets token i see tokens j <= i. The plain route adds a -1e9 mask, the
-    flash route (K3) masks itself (lemon_tpu/models/clip.py:511-514)."""
+    flash route (K3) masks itself (lemon_tpu/models/clip.py:511-514).
+    ``rows`` (B, S) restricts the queries, the output projection and the
+    result to those token rows (K and V still span every token); ``ln``
+    folds the preceding LayerNorm into the QKV projection."""
 
-    def __init__(self, width: int, heads: int, impl: str = "plain", causal: bool = False):
+    def __init__(self, width: int, heads: int, impl: str = "plain", causal: bool = False,
+                 precision: Precision = Precision(), quant: bool = False, pooled: bool = False, fold: bool = False):
         super().__init__()
         self.heads = heads
         self.impl = impl
         self.causal = causal
-        self.qkv = nn.Linear(width, 3 * width)
-        self.out = nn.Linear(width, width)
+        self.compute_dtype = precision.compute_dtype
+        self.softmax_dtype = precision.softmax_dtype
+        # qkv stays W8A8 in the pooled block: its input is full-length
+        self.qkv = _linear(width, 3 * width, precision, quant, fp32=fold)
+        self.out = _linear(width, width, precision, quant, weight_only=pooled)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[torch.Tensor] = None, ln: Optional[nn.LayerNorm] = None) -> torch.Tensor:
         b, l, d = x.shape
         hd = d // self.heads
+        if ln is not None:
+            qkv = ln_folded_dense(x, self.qkv.weight, self.qkv.bias, ln.weight, ln.bias, compute_dtype=self.compute_dtype)
+        else:
+            qkv = self.qkv(x)
         # (B, L, H, hd) views of the fused projection, the JAX layout
-        q, k, v = (t.reshape(b, l, self.heads, hd) for t in self.qkv(x).split(d, dim=-1))
+        q, k, v = (t.reshape(b, l, self.heads, hd) for t in qkv.split(d, dim=-1))
         if self.impl == "flash":
             return self.out(flash_attention(q, k, v, causal=self.causal).reshape(b, l, d))
+        if rows is not None:
+            q = _take_rows(q, rows)
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        logits = (q * hd ** -0.5) @ k.transpose(-1, -2)
+        sd = self.softmax_dtype
+        logits = (q * hd ** -0.5).to(sd) @ k.to(sd).transpose(-1, -2)
         if self.causal:
-            logits = logits + torch.full((l, l), _MASK, dtype=x.dtype, device=x.device).triu(1)
-        out = torch.softmax(logits, dim=-1) @ v
-        return self.out(out.transpose(1, 2).reshape(b, l, d))
+            query = rows if rows is not None else torch.arange(l, device=x.device)[None]
+            hidden = torch.arange(l, device=x.device)[None, None, :] > query[:, :, None]  # (B or 1, S, L)
+            logits = logits + torch.where(hidden, _MASK, 0.0).to(logits.dtype)[:, None]
+        out = torch.softmax(logits, dim=-1).to(v.dtype) @ v
+        return self.out(out.transpose(1, 2).reshape(b, q.shape[2], d))
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN residual block (chexzero_clip.py:190-200)."""
+    """Pre-LN residual block (chexzero_clip.py:190-200). ``pooled``: this is
+    the pooled last block, run on the rows ``forward`` is given (its int8
+    projections after the attention core run weight-only)."""
 
-    def __init__(self, width: int, heads: int, impl: str = "plain", causal: bool = False):
+    def __init__(self, width: int, heads: int, impl: str = "plain", causal: bool = False,
+                 precision: Precision = Precision(), quant: bool = False, pooled: bool = False):
         super().__init__()
-        self.ln_1 = _layer_norm(width)
-        self.attn = Attention(width, heads, impl, causal)
-        self.ln_2 = _layer_norm(width)
-        self.mlp_fc = nn.Linear(width, 4 * width)
-        self.mlp_proj = nn.Linear(4 * width, width)
+        # fold_ln folds ln_1/ln_2 into qkv/mlp_fc, but not under flash (:566)
+        self.fold = precision.fold_ln and impl != "flash"
+        self.compute_dtype = precision.compute_dtype
+        self.ln_1 = FpLayerNorm(width, precision.ln_dtype)
+        self.attn = Attention(width, heads, impl, causal, precision, quant, pooled, self.fold)
+        self.ln_2 = FpLayerNorm(width, precision.ln_dtype)
+        self.mlp_fc = _linear(width, 4 * width, precision, quant, weight_only=pooled, fp32=self.fold)
+        self.mlp_proj = _linear(4 * width, width, precision, quant, weight_only=pooled)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp_proj(quick_gelu(self.mlp_fc(self.ln_2(x))))
+    def forward(self, x: torch.Tensor, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        base = x if rows is None else _take_rows(x, rows)
+        if self.fold:
+            x = base + self.attn(x, rows, ln=self.ln_1)
+            y = ln_folded_dense(x, self.mlp_fc.weight, self.mlp_fc.bias, self.ln_2.weight, self.ln_2.bias,
+                                compute_dtype=self.compute_dtype)
+        else:
+            x = base + self.attn(self.ln_1(x), rows)
+            y = self.mlp_fc(self.ln_2(x))
+        return x + self.mlp_proj(quick_gelu(y))
 
 
 class VisionTower(nn.Module):
     """ViT with class token, learned positions and a final projection
     (chexzero_clip.py:226-260)."""
 
-    def __init__(self, cfg: ClipConfig):
+    def __init__(self, cfg: ClipConfig, precision: Precision = Precision()):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = cd = precision.compute_dtype
         p, w, g = cfg.vision_patch_size, cfg.vision_width, cfg.grid
-        self.patch_embed = nn.Linear(p * p * 3, w, bias=False)
+        self.pooled = precision.pool_last_block and cfg.pool_last_block and cfg.attention_impl != "flash"
+        self.patch_embed = nn.Linear(p * p * 3, w, bias=False, dtype=cd)
         self.class_embedding = nn.Parameter(torch.empty(w))
         self.positional_embedding = nn.Parameter(torch.empty(g * g + 1, w))
-        self.ln_pre = _layer_norm(w)
+        self.ln_pre = FpLayerNorm(w, precision.ln_dtype)
+        last = cfg.vision_layers - 1
         self.blocks = nn.ModuleList(
-            TransformerBlock(w, cfg.v_heads, cfg.attention_impl) for _ in range(cfg.vision_layers)
+            TransformerBlock(w, cfg.v_heads, cfg.attention_impl, precision=precision, quant=precision.matmul_int8,
+                             pooled=self.pooled and i == last)
+            for i in range(cfg.vision_layers)
         )
-        self.ln_post = _layer_norm(w)
-        self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim))
+        self.ln_post = FpLayerNorm(w)  # fp32 tail in every mode (:732, :741)
+        self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim, dtype=cd))
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        """``pixels``: (B, H, W, 3) NHWC, already normalised."""
+        """``pixels``: (B, H, W, 3) NHWC, already normalised; fp32 result."""
         b = pixels.shape[0]
         p, g, w = self.cfg.vision_patch_size, self.cfg.grid, self.cfg.vision_width
+        cd = self.compute_dtype
         # patch elements in (ph, pw, channel) order, as the JAX tower unfolds them
-        x = pixels.reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3)
-        x = self.patch_embed(x)
-        x = torch.cat([self.class_embedding.expand(b, 1, w), x], dim=1) + self.positional_embedding
+        x = pixels.to(cd).reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3)
+        x = F.linear(x.float(), self.patch_embed.weight.float()).to(cd)
+        x = torch.cat([self.class_embedding.to(cd).expand(b, 1, w), x], dim=1) + self.positional_embedding.to(cd)
         x = self.ln_pre(x)
-        for block in self.blocks:
-            x = block(x)
-        return self.ln_post(x[:, 0, :]) @ self.proj
+        # the pooled last block computes the CLS row only (exact; :706-717)
+        rows = torch.zeros(b, 1, dtype=torch.long, device=x.device) if self.pooled else None
+        for i, block in enumerate(self.blocks):
+            x = block(x, rows if i == len(self.blocks) - 1 else None)
+        return _f32_product(self.ln_post(x[:, 0, :]), self.proj)
 
 
 class TextTower(nn.Module):
-    """Causal text transformer with first-EOT pooling (chexzero_clip.py:355-376)."""
+    """Causal text transformer with first-EOT pooling (chexzero_clip.py:355-376).
+    Never quantised: the int8 modes cover the vision tower only."""
 
-    def __init__(self, cfg: ClipConfig):
+    def __init__(self, cfg: ClipConfig, precision: Precision = Precision()):
         super().__init__()
         w = cfg.text_width
+        self.compute_dtype = cd = precision.compute_dtype
+        self.pooled = precision.pool_last_block and cfg.pool_last_block_text and cfg.attention_impl != "flash"
         self.token_embedding = nn.Embedding(cfg.vocab_size, w)
         self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, w))
+        last = cfg.text_layers - 1
         self.blocks = nn.ModuleList(
-            TransformerBlock(w, cfg.text_heads, cfg.attention_impl, causal=True) for _ in range(cfg.text_layers)
+            TransformerBlock(w, cfg.text_heads, cfg.attention_impl, causal=True, precision=precision,
+                             pooled=self.pooled and i == last)
+            for i in range(cfg.text_layers)
         )
-        self.ln_final = _layer_norm(w)
-        self.text_projection = nn.Parameter(torch.empty(w, cfg.embed_dim))
+        self.ln_final = FpLayerNorm(w, precision.ln_dtype)
+        self.text_projection = nn.Parameter(torch.empty(w, cfg.embed_dim, dtype=cd))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         b, l = tokens.shape
-        x = self.token_embedding(tokens) + self.positional_embedding[:l]
-        for block in self.blocks:
-            x = block(x)
-        x = self.ln_final(x)
+        cd = self.compute_dtype
+        x = self.token_embedding(tokens).to(cd) + self.positional_embedding[:l].to(cd)
         # ids peak at the EOT token; argmax returns its first occurrence
         eot = tokens.argmax(dim=-1)
-        return x[torch.arange(b, device=x.device), eot] @ self.text_projection
+        rows = eot[:, None] if self.pooled else None
+        for i, block in enumerate(self.blocks):
+            x = block(x, rows if i == len(self.blocks) - 1 else None)
+        if self.pooled:
+            pooled = self.ln_final(x[:, 0, :])
+        else:
+            pooled = self.ln_final(x)[torch.arange(b, device=x.device), eot]
+        return _f32_product(pooled, self.text_projection)
 
 
 class ClipModel(nn.Module):
-    """Two-tower CLIP with a learned temperature (chexzero_clip.py:263-392)."""
+    """Two-tower CLIP with a learned temperature (chexzero_clip.py:263-392),
+    in one :class:`Precision` mode. A float state dict loads into every
+    mode (:meth:`load_state_dict`)."""
 
-    def __init__(self, cfg: ClipConfig):
+    def __init__(self, cfg: ClipConfig, precision: Precision = Precision()):
         super().__init__()
+        if precision.fold_ln and precision.matmul_int8:
+            raise ValueError("Precision.fold_ln and matmul_int8 are mutually exclusive (as in the JAX package)")
         self.cfg = cfg
-        self.visual = VisionTower(cfg)
-        self.text = TextTower(cfg)
+        self.precision = precision
+        self.visual = VisionTower(cfg, precision)
+        self.text = TextTower(cfg, precision)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        """``nn.Module.load_state_dict``, where a float state dict also loads
+        into the fast modes: the copy casts the projections to the compute
+        dtype, and in the int8 modes the vision projections are quantised
+        first (:func:`quantize_clip_params`; from fp32 weights, bit for bit
+        the JAX package's)."""
+        if self.precision.matmul_int8 and any(_QUANT_WEIGHT.fullmatch(k) for k in state_dict):
+            state_dict = quantize_clip_params(state_dict, static_act=self.precision.int8_static_act)
+        return super().load_state_dict(state_dict, strict=strict, assign=assign)
 
     def encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
         return self.visual(pixels)
@@ -230,7 +490,12 @@ def init_weights(model: ClipModel, seed: int = 0) -> ClipModel:
     """Random initialisation with the JAX towers' distributions
     (lemon_tpu/models/clip.py initialisers). The numbers differ from
     ``jax.random``'s; tests that need identical weights load a JAX tree
-    through :func:`lemon_tpu_torch.models.convert.from_flax_params`."""
+    through :func:`lemon_tpu_torch.models.convert.from_flax_params`. Every
+    mode gets the same weights from one seed: a bf16 or int8 model loads the
+    state dict of its fp32 twin, as a checkpoint loads (:885-902)."""
+    if model.precision.compute_dtype != torch.float32 or model.precision.matmul_int8:
+        model.load_state_dict(init_weights(ClipModel(model.cfg), seed).state_dict())
+        return model
     g = torch.Generator().manual_seed(seed)
     for module in model.modules():
         if isinstance(module, nn.Linear):

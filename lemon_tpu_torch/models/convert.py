@@ -5,7 +5,10 @@ in the JAX package, or a ``"/"``-flattened ``.npz`` as
 ``lemon_tpu/models/registry.py:63-88`` reads it) converts directly; a
 HuggingFace checkpoint first becomes a flax-layout tree in
 :mod:`lemon_tpu_torch.models.loader`. Dense kernels are (in, out) in flax
-and (out, in) in ``nn.Linear``; everything else keeps its layout.
+and (out, in) in ``nn.Linear``; everything else keeps its layout. A tree
+that the JAX int8 modes quantised (``kernel_q``, ``kernel_scale`` and, after
+calibration, ``act_scale`` under the vision projections) fills the port's
+``QuantLinear`` buffers of the same names.
 """
 
 from __future__ import annotations
@@ -18,7 +21,13 @@ import torch
 
 
 def _linear(prefix: str, node: Mapping) -> Dict[str, np.ndarray]:
-    return {f"{prefix}.weight": np.asarray(node["kernel"]).T, f"{prefix}.bias": np.asarray(node["bias"])}
+    if "kernel_q" not in node:
+        return {f"{prefix}.weight": np.asarray(node["kernel"]).T, f"{prefix}.bias": np.asarray(node["bias"])}
+    out = {f"{prefix}.weight_q": np.asarray(node["kernel_q"]).T, f"{prefix}.weight_scale": np.asarray(node["kernel_scale"]),
+           f"{prefix}.bias": np.asarray(node["bias"])}
+    if "act_scale" in node:
+        out[f"{prefix}.act_scale"] = np.asarray(node["act_scale"])
+    return out
 
 
 def _layer_norm(prefix: str, node: Mapping) -> Dict[str, np.ndarray]:
@@ -42,7 +51,8 @@ def _blocks(prefix: str, transformer: Mapping) -> Dict[str, np.ndarray]:
 def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     """A JAX ``ClipModel`` tree (with or without the ``"params"`` level) of
     numpy-convertible leaves -> a state dict for
-    :class:`lemon_tpu_torch.models.clip.ClipModel`."""
+    :class:`lemon_tpu_torch.models.clip.ClipModel`: fp32, but the int8
+    ``weight_q`` of a quantised tree."""
     params = tree["params"] if "params" in tree else tree
     v, t = params["visual"], params["text"]
     sd = {
@@ -60,7 +70,8 @@ def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
         "text.text_projection": np.asarray(t["text_projection"]),
         "logit_scale": np.asarray(params["logit_scale"]),
     }
-    return {k: torch.from_numpy(np.array(a, dtype=np.float32, order="C")) for k, a in sd.items()}
+    return {k: torch.from_numpy(np.array(a, dtype=np.int8 if k.endswith(".weight_q") else np.float32, order="C"))
+            for k, a in sd.items()}
 
 
 def unflatten(flat: Mapping[str, np.ndarray]) -> dict:

@@ -7,7 +7,15 @@ dropped afterwards), the embeddings stay on the device until one
 concatenation and one copy per modality at the end of a split, and batch
 assembly (image gather + BPE) runs one batch ahead on a background thread.
 ``embed_split`` can cache a split's embeddings as an ``.npz`` keyed on their
-content (``cache_key``).
+content and the model's precision (``cache_key``).
+
+The model's :class:`~lemon_tpu_torch.core.precision.Precision` sets the
+rest, as in lemon_tpu/models/encoder.py:51-104: the int8 modes' weights are
+quantised once, when the model's weights are loaded
+(``ClipModel.load_state_dict``); ``int8_static`` calibrates its activation
+scales on the first image batch the encoder embeds (``encode_images`` or
+``embed_split``; the text tower is never quantised); a bf16 compute dtype
+takes the fast resize (no uint8 rounding emulation, one bf16 pass).
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import numpy as np
 import torch
 
 from lemon_tpu_torch.data.datasets import Prefetcher, Split, iter_batches, load_images
-from lemon_tpu_torch.models.clip import ClipModel
+from lemon_tpu_torch.models.clip import ClipModel, calibrate_act_scales
 from lemon_tpu_torch.models.tokenizer import get_tokenizer, tokenize_batch
 from lemon_tpu_torch.ops.image import preprocess_device
 
@@ -41,6 +49,10 @@ class ClipEncoder:
         # identity of the weights (checkpoint path+mtime+size, or "random:<seed>")
         self.weights_fingerprint = weights_fingerprint
         self.tokenizer = get_tokenizer()
+        precision = model.precision
+        self._calibrated = not precision.int8_static_act
+        fast_resize = precision.compute_dtype == torch.bfloat16
+        self._pp_kwargs = {"pil_rounding": False, "precision": "default"} if fast_resize else {}
 
     def _tokenize(self, texts: Sequence[str]) -> np.ndarray:
         return tokenize_batch(list(texts), self.cfg.context_length, self.tokenizer)
@@ -52,7 +64,10 @@ class ClipEncoder:
 
     @torch.inference_mode()
     def _embed_images(self, images_u8: np.ndarray) -> torch.Tensor:
-        pixels = preprocess_device(images_u8, size=self.cfg.image_resolution, device=self.device)
+        pixels = preprocess_device(images_u8, size=self.cfg.image_resolution, device=self.device, **self._pp_kwargs)
+        if not self._calibrated:  # int8_static: scales from the first batch, then fixed
+            calibrate_act_scales(self.model, pixels=pixels)
+            self._calibrated = True
         return _l2_normalize(self.model.encode_image(pixels))
 
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
@@ -98,7 +113,7 @@ class ClipEncoder:
             h.update(str(split.images.shape).encode())
             h.update(np.ascontiguousarray(split.images).tobytes())
         h.update(self.weights_fingerprint.encode())
-        h.update(b"lemon_tpu_torch:fp32")
+        h.update(repr(self.model.precision).encode())
         return h.hexdigest()
 
     def embed_split(

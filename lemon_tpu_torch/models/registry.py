@@ -16,7 +16,9 @@ in either format (HF or OpenAI) loads under any name. Without one the
 weights are a seeded random init, announced loudly: fine for benchmarks and
 synthetic data, wrong for real-data results. ``'biomed_clip'`` (timm
 ViT-B/16 + PubMedBERT) and ``'rn50'`` (ModifiedResNet) are not ported yet
-and raise ``NotImplementedError``.
+and raise ``NotImplementedError``. The precision mode comes from
+``LEMON_TPU_PRECISION`` unless the caller passes one
+(lemon_tpu/models/registry.py:96-116).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from lemon_tpu_torch.core.precision import Precision, default_precision
 from lemon_tpu_torch.data.datasets import data_root
 from lemon_tpu_torch.models.clip import ClipConfig, ClipModel, init_weights
 from lemon_tpu_torch.models.convert import from_flax_params, load_flax_npz
@@ -79,8 +82,11 @@ def load_checkpoint(path: Path, cfg: ClipConfig):
     return from_flax_params(tree), cfg
 
 
-def create_encoder(name: str, device: torch.device, seed: int = 0, batch_size: int = 128, checkpoint: Optional[str] = None) -> ClipEncoder:
-    """A frozen encoder for a registry name (run_lemon.py:112-115)."""
+def create_encoder(name: str, device: torch.device, seed: int = 0, batch_size: int = 128, checkpoint: Optional[str] = None,
+                   precision: Optional[Precision] = None) -> ClipEncoder:
+    """A frozen encoder for a registry name (run_lemon.py:112-115), in
+    ``precision`` (``None``: :func:`default_precision`, the environment's)."""
+    precision = precision or default_precision()
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"clip_model '{name}' is not ported to lemon_tpu_torch yet (ROADMAP queue 1, the other registry "
@@ -92,13 +98,14 @@ def create_encoder(name: str, device: torch.device, seed: int = 0, batch_size: i
     ckpt = Path(checkpoint) if checkpoint else checkpoint_path(name)
     if ckpt is not None:
         state, cfg = load_checkpoint(ckpt, cfg)
-        model = ClipModel(cfg)
+        model = ClipModel(cfg, precision)
         model.load_state_dict(state)
         print(f"[lemon_tpu_torch] loaded {name} weights from {ckpt}")
     else:
-        model = init_weights(ClipModel(cfg), seed=seed)
+        model = init_weights(ClipModel(cfg, precision), seed=seed)
         print(
             f"[lemon_tpu_torch] WARNING: no checkpoint for '{name}' "
             f"(set LEMON_TPU_CKPT_{name.upper()}); using random init (seed {seed})"
         )
+    print(f"[lemon_tpu_torch] precision: {precision}")
     return ClipEncoder(model, device, batch_size=batch_size, weights_fingerprint=checkpoint_fingerprint(ckpt, seed))

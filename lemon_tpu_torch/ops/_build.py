@@ -46,6 +46,7 @@ _SIGNATURES = {
     "lemon_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, o, B, L, H, D, stride_b, stride_l, scale, causal, stream
     "lemon_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, ctypes.c_float, _I, _P],
+    "lemon_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, ctypes.c_float, _I, _P],
     # sb, block_ids, vals, idx, B, n_blocks, k, stream
     "lemon_gather_topk": [_P, _P, _P, _P, _I, _I, _I, _P],
 }

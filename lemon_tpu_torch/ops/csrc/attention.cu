@@ -1,4 +1,6 @@
-// Flash attention, forward only, fp32 in and out, 3xTF32 on Hopper's tensor cores.
+// Flash attention, forward only, on Hopper's tensor cores: fp32 in and out in
+// 3xTF32, and bf16 in and out with bf16 products (the second kernel, below
+// flash_attention_kernel).
 //
 // Replaces the Pallas kernel lemon_tpu/ops/attention.py `_attn_kernel`
 // (launched by `_flash_attention`, :101). For q, k, v in the CLIP towers'
@@ -57,13 +59,18 @@
 // (L = 77 and 197 pad to 96 and 224 keys instead of 128 and 256); D = 128
 // takes 32-key tiles (128 KB, one block).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
 #include <numeric>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace lemon_hopper;
 
 constexpr int BQ = 64;        // query rows per block: one warpgroup's m64
 constexpr int THREADS = 128;  // one warpgroup
@@ -81,10 +88,6 @@ struct Tiles {
   // 32-key tiles at D <= 64 fit three blocks on an SM (registers capped at 168)
   static constexpr int MIN_BLOCKS = (D <= 64 && BKV == 32) ? 3 : 1;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ float ex2(float x) {
   float r;
@@ -119,39 +122,6 @@ __device__ __forceinline__ void store_split4(unsigned char* hi_base, unsigned ch
 // column of a 128-byte-swizzled operand.
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
   return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
-}
-
-// K-major operand in 128-byte-swizzled rows of 128 B: 8-row groups 1024 B
-// apart (SBO), the leading offset unused by this layout, swizzle mode 1.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Keeps a register A operand alive (unmoved, unreused) until after the
-// wgmma that reads it has been waited for.
-template <int N>
-__device__ __forceinline__ void fence_operands(uint32_t (&a)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// Generic-proxy stores to shared memory -> visible to wgmma, then a barrier.
-__device__ __forceinline__ void fence_async_barrier() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
 }
 
 // The accumulator operands of an m64nNk8 product: N/2 floats a thread.
@@ -494,6 +464,281 @@ int launch(const float* q, const float* k, const float* v, float* o, int B, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K3 on bf16 inputs: the JAX towers' compute dtype under attention_impl
+// 'pallas' (the TPU kernel upcasts q, k and v, accumulates in fp32 and writes
+// q's dtype, attention.py:42, 48-49, 144). For bf16 q, k, v in (B, L, H, D)
+// it writes bf16 o (B, L, H, D) contiguous, rounded to nearest even once:
+//
+//   o[b, i, h] = bf16( sum_j softmax_j(scale * (q[b, i, h] . k[b, j, h])) v[b, j, h] )
+//
+// - S = q . k^T is one wgmma.mma_async.m64n64k16.f32.bf16.bf16 product: the
+//   product of two bf16 values is exact in fp32, so S is the fp32 dot of the
+//   upcast values up to the order of the sums. scale = D^-0.5 multiplies S in
+//   fp32 (the TPU kernel scales q first; the two differ by one fp32 rounding).
+// - O += P . V is two bf16 products, p_hi . v + p_lo . v, with the fp32
+//   probabilities split into bf16 p_hi = bf16(p) and p_lo = bf16(p - p_hi)
+//   (|p - p_hi - p_lo| <= 2^-17 p); v is exact in bf16. One product with P
+//   rounded to bf16 would err by as much as the output's own bf16 rounding.
+// - Running max, normaliser and accumulator stay in fp32 registers.
+//
+// Operands. q and k are K-major (D contiguous) in shared memory, 128-byte
+// swizzled as in the fp32 kernel; a row of 64 bf16 is one atom, a k16 step
+// moves the descriptor 32 bytes inside it, and D = 32 is staged zero-padded
+// to 64 columns. For 16-bit types wgmma takes an MN-major B (the transpose
+// bit), so v is staged as it lies in memory: key rows of 64 columns, 8-key
+// groups 1024 B apart (SBO), 64-column atoms BKV * 128 B apart (LBO). The
+// fp32 S accumulator of an m64n64 wgmma, converted pairwise to bf16x2, is the
+// A fragment of the following k16 product as it stands (registers 4i..4i+3
+// of column block i: rows g and g + 8 at columns 8i + 2t, 8i + 2t + 1), so P
+// stays in registers.
+//
+// Work and memory. One block (one warpgroup) per 64-row query tile of one
+// (batch, head); 64-key tiles of k and v in a two-stage cp.async ring, the
+// next tile loading while the current one is multiplied; q staged once. Rows
+// past L and, under the causal mask, tiles past the block's last query are
+// not loaded (cp.async zero-fills rows past L, whose logits are -inf). What
+// bounds it on an H100: at the towers' shapes the bytes (q, k, v read and o
+// written once, 8 B per (token, head, dim) element) at 3.35 TB/s, about
+// 0.046 ms at (128, 197, 12, 64), against 0.023 ms for the three bf16
+// products at 989 TFLOP/s. This first version is written for correctness:
+// no persistence, no warp specialisation, one warpgroup a block.
+
+// MN-major 16-bit operand in 128-byte-swizzled rows of 64 values: 8-row
+// (K) groups 1024 B apart (SBO), 64-column atoms `lbo` bytes apart (LBO).
+__device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) { return *reinterpret_cast<uint32_t*>(&x); }
+
+// d (64 x 64 fp32) += A (64 x 16) . B (64 x 16)^T, bf16, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" LIST32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC16(0), ACC16(16)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x N fp32) += A (64 x 16, bf16x2 register fragment) . B (16 x N), B bf16
+// MN-major in shared memory (transpose bit set). Fragment of warp w, lane
+// 4g + t: a0 = A[16w + g][2t, 2t + 1], a1 = A[16w + g + 8][2t, 2t + 1],
+// a2 = A[16w + g][2t + 8, 2t + 9], a3 = A[16w + g + 8][2t + 8, 2t + 9].
+template <int N>
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                              uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_bf16<64>(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" LIST32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC16(0), ACC16(16)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_bf16<128>(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" LIST64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC16(0), ACC16(16), ACC16(32), ACC16(48)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+template <int D>
+struct Bf16Tiles {
+  static constexpr int DP = D < 64 ? 64 : D;  // staged head dim: D = 32 is zero-padded to one 64-column atom
+  static constexpr int BKV = 64;              // keys per tile
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BKV * DP * 2;                   // one of k, v
+  static constexpr int SMEM = Q_BYTES + 4 * KV_BYTES + 1024;      // q, two stages of k and v, + slack to align
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int L, int H,
+                            long long stride_b, long long stride_l, float scale, int causal) {
+  using T = Bf16Tiles<D>;
+  constexpr int DP = T::DP;
+  constexpr int BKV = T::BKV;
+  constexpr int NS = BKV / 2;  // S accumulators a thread
+  constexpr int NO = DP / 2;   // O accumulators a thread
+  constexpr int CH = DP / 8;   // 16-byte chunks of a staged row
+  static_assert(BKV == BQ, "q and k tiles share their k-step offsets");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms are 1024-aligned
+  auto sk = [&](int st) { return sq + T::Q_BYTES + st * 2 * T::KV_BYTES; };
+  auto sv = [&](int st) { return sk(st) + T::KV_BYTES; };
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_qt = (L + BQ - 1) / BQ;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x - bh * n_qt) * BQ;
+  const int b = bh / H, h = bh - b * H;
+  const long long in = static_cast<long long>(b) * stride_b + static_cast<long long>(h) * D;
+  const int stride = static_cast<int>(stride_l);  // the wrapper keeps (L + 64) * stride_l below 2^31
+
+  // Stage rows row0 .. row0 + 63 of q, k or v at dst: chunk c of row r at
+  // atom c / 8, chunk (c % 8) ^ (r % 8) of the row's 128 bytes. Rows past L
+  // and the padding columns of D = 32 are zero-filled.
+  auto stage = [&](const __nv_bfloat16* src, int row0, uint32_t dst) {
+#pragma unroll
+    for (int i = 0; i < 64 * CH / THREADS; ++i) {
+      const int id = tid + i * THREADS;
+      const int r = id / CH, c = id % CH;
+      const bool ok = row0 + r < L && c < D / 8;
+      const __nv_bfloat16* p = src + in + (ok ? (row0 + r) * stride + c * 8 : 0);
+      cp_async16(dst + (c >> 3) * 64 * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4), p, ok ? 16 : 0);
+    }
+  };
+
+  const int kv_end = causal ? min(L, q0 + BQ) : L;
+  const int n_tiles = (kv_end + BKV - 1) / BKV;
+  stage(q, q0, sq);
+  stage(k, 0, sk(0));
+  stage(v, 0, sv(0));
+  cp_async_commit();
+
+  const uint64_t dq = smem_desc(sq);
+  // This thread's rows of the tile: r0 (S registers 4i, 4i+1) and r0 + 8
+  // (4i+2, 4i+3), at columns 8i + 2t and 8i + 2t + 1.
+  const int r0 = q0 + warp * 16 + g;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BKV;
+    const int st = kt & 1;
+    // the other stage was released by the barrier that ended the last tile
+    if (kt + 1 < n_tiles) {
+      stage(k, k0 + BKV, sk(st ^ 1));
+      stage(v, k0 + BKV, sv(st ^ 1));
+    }
+    cp_async_commit();
+    cp_async_wait<1>();      // tile kt (and q) has landed; tile kt + 1 may be in flight
+    fence_async_barrier();   // cp.async writes -> wgmma reads, for every thread's chunks
+
+    // S = q . k^T
+    float s[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    const uint64_t dk = smem_desc(sk(st));
+    fence_operands(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = ((ks >> 2) * 64 * 128 + (ks & 3) * 32) >> 4;
+      wgmma_ss_bf16(s, dq + off, dk + off);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_operands(s);
+
+    // Scale in fp32, mask, online softmax; the row max is a quad max.
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] *= scale;
+    if (k0 + BKV > L || (causal && k0 + BKV - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const int row = r0 + ((i & 2) ? 8 : 0);
+        if (col >= L || (causal && col > row)) s[i] = -CUDART_INF_F;
+      }
+    }
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float alpha[2], nb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // every row sees key 0 in the first tile, so m_new is finite; the
+      // guard keeps a fully masked row at zero weight instead of NaN
+      const float base = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[r] = ex2((m[r] - base) * LOG2E);
+      nb[r] = -base * LOG2E;
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+    // P in bf16x2 pairs (registers 2j, 2j + 1 of S: row (j & 1) of the pair
+    // of rows), split into hi and lo
+    uint32_t p_hi[NS / 2], p_lo[NS / 2];
+#pragma unroll
+    for (int j = 0; j < NS / 2; ++j) {
+      const int r = j & 1;
+      const float a = ex2(fmaf(s[2 * j], LOG2E, nb[r]));
+      const float c = ex2(fmaf(s[2 * j + 1], LOG2E, nb[r]));
+      l[r] += a;
+      l[r] += c;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
+      p_hi[j] = bf16x2_bits(hi);
+      p_lo[j] = bf16x2_bits(__floats2bfloat162_rn(a - __low2float(hi), c - __high2float(hi)));
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // O += p_hi . v + p_lo . v (keys past L have weight 0 and v rows of 0)
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BKV / 16; ++ks) {
+      const uint64_t dv = smem_desc_mn(sv(st) + ks * 2048, BKV * 128);
+      wgmma_rs_bf16<DP>(acc, p_hi[4 * ks], p_hi[4 * ks + 1], p_hi[4 * ks + 2], p_hi[4 * ks + 3], dv);
+      wgmma_rs_bf16<DP>(acc, p_lo[4 * ks], p_lo[4 * ks + 1], p_lo[4 * ks + 2], p_lo[4 * ks + 3], dv);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_operands(acc);
+    fence_operands(p_hi);
+    fence_operands(p_lo);
+    __syncthreads();  // every warp is done with this stage before the next tile's loads refill it
+  }
+
+  const long long row_stride = static_cast<long long>(H) * D;
+  const long long out0 = (static_cast<long long>(b) * L * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    const float inv = 1.f / (sum + __shfl_xor_sync(0xffffffffu, sum, 2));
+    const int row = r0 + 8 * r;
+    if (row >= L) continue;
+    __nv_bfloat16* const out = o + out0 + row * row_stride + 2 * t;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * i) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int L, int H, long long stride_b,
+                long long stride_l, float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = Bf16Tiles<D>::SMEM;
+  const cudaError_t e =
+      cudaFuncSetAttribute(flash_attention_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_items = B * H * ((L + BQ - 1) / BQ);  // the wrapper keeps it below 2^31
+  flash_attention_bf16_kernel<D><<<n_items, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), L, H, stride_b, stride_l, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Shapes are checked by the Python wrapper (lemon_tpu_torch/ops/attention.py):
@@ -517,6 +762,20 @@ extern "C" int lemon_flash_attention(const float* q, const float* k, const float
       return narrow ? launch<64, 32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st)
                     : launch<64, 64>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
     case 128: return launch<128, 32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16 kernel: the same contract with bf16 q, k, v and o, strides and
+// pointers 16-byte aligned (strides multiples of 8 elements).
+extern "C" int lemon_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int L, int H,
+                                          int D, long long stride_b, long long stride_l, float scale, int causal,
+                                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_bf16<32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
+    case 64: return launch_bf16<64>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
+    case 128: return launch_bf16<128>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

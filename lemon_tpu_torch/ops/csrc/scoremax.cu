@@ -50,7 +50,11 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace lemon_hopper;
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -181,33 +185,6 @@ constexpr int TILE_BYTES = 128 * HK * 2;   // 128 rows of 128 B
 constexpr int STAGE_BYTES = 4 * TILE_BYTES;  // q_hi, q_lo, db_hi, db_lo
 constexpr int HIGH_SMEM = HSTAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1024 B
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// K-major operand in 128-byte-swizzled rows of 128 B: 8-row groups 1024 B
-// apart (SBO), the leading offset unused by this layout, swizzle mode 1.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (64 x 128 fp32, wgmma accumulator layout) += A (64 x 16) . B (128 x 16)^T
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
@@ -280,8 +257,7 @@ scores_high_kernel(const __nv_bfloat16* __restrict__ q_hi, const __nv_bfloat16* 
   }
   for (int kt = 0; kt < n_k; ++kt) {
     cp_async_wait<HSTAGES - 2>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async writes -> wgmma reads
-    __syncthreads();  // every thread's stage kt has landed; slot (kt-1) % HSTAGES is free
+    fence_async_barrier();  // every thread's stage kt has landed and is visible to wgmma; slot (kt-1) % HSTAGES is free
     if (kt + HSTAGES - 1 < n_k) load_stage(kt + HSTAGES - 1, (kt + HSTAGES - 1) % HSTAGES);
     cp_async_commit();
 
@@ -292,7 +268,7 @@ scores_high_kernel(const __nv_bfloat16* __restrict__ q_hi, const __nv_bfloat16* 
     const uint32_t b_lo = st + 3 * TILE_BYTES;
     fence_operands(acc);
     fence_operands(acc_x);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HK / 16; ++kk) {
       const uint32_t o = kk * 32;  // 16 bf16 further along K, inside the swizzle atom
@@ -300,8 +276,8 @@ scores_high_kernel(const __nv_bfloat16* __restrict__ q_hi, const __nv_bfloat16* 
       wgmma_m64n128k16(acc_x, smem_desc(a_hi + o), smem_desc(b_lo + o));
       wgmma_m64n128k16(acc_x, smem_desc(a_lo + o), smem_desc(b_hi + o));
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_commit();
+    wgmma_wait();
     fence_operands(acc);
     fence_operands(acc_x);
   }

@@ -7,6 +7,9 @@ channel, followed by crop and normalise. The weight matrices replicate PIL's
 bicubic convolution exactly (half-pixel centres, antialias support widening
 on downscale, per-row normalisation), and PIL's uint8 rounding between the
 two passes is emulated, so outputs match PIL within its fixed-point rounding.
+The bf16 fast path (``pil_rounding=False, precision="default"``) drops the
+rounding emulation and rounds the products' operands to bf16, as the TPU's
+one-pass DEFAULT precision does.
 """
 
 from __future__ import annotations
@@ -72,12 +75,30 @@ def _round_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
 
 
-def preprocess_device(images_u8, size: int = 224, device=None, mean=CLIP_MEAN, std=CLIP_STD) -> torch.Tensor:
+def _resize_product(eq: str, a: torch.Tensor, x: torch.Tensor, precision: str) -> torch.Tensor:
+    """One resize pass at a JAX matmul precision, on any device: 'highest'
+    is fp32; 'default' is the TPU's one bf16 pass (operands rounded to bf16,
+    products exact and summed in fp32)."""
+    if precision == "highest":
+        return torch.einsum(eq, a, x)
+    if precision == "default":
+        return torch.einsum(eq, a.bfloat16().float(), x.bfloat16().float())
+    raise ValueError(f"precision must be 'highest' or 'default' (the JAX package's 'high' has no caller), got {precision!r}")
+
+
+def preprocess_device(images_u8, size: int = 224, device=None, mean=CLIP_MEAN, std=CLIP_STD,
+                      pil_rounding: bool = True, precision: str = "highest") -> torch.Tensor:
     """(B, H, W, 3) uint8 images (numpy or tensor) -> (B, size, size, 3)
     float32 NHWC on ``device``. ``device=None`` keeps a tensor on its own
     device and sends anything else to the current CUDA card
     (``resolve_device("cuda")``, which raises without one); pass
-    ``torch.device("cpu")`` to preprocess on the CPU."""
+    ``torch.device("cpu")`` to preprocess on the CPU.
+
+    ``pil_rounding=False`` skips the uint8 intermediate emulation.
+    ``precision`` is the matmul precision of the two resize passes, as in
+    lemon_tpu/ops/image.py:125-159: 'highest' (fp32, the PIL-parity
+    default) or 'default' (one bf16 pass: the bf16 fast path's choice;
+    uint8 pixels are exact in bf16)."""
     if device is None and not isinstance(images_u8, torch.Tensor):
         device = resolve_device("cuda")
     x = torch.as_tensor(images_u8)
@@ -89,8 +110,12 @@ def preprocess_device(images_u8, size: int = 224, device=None, mean=CLIP_MEAN, s
     a_w = torch.from_numpy(resize_matrix(w, out_w)).to(x.device)
     x = x.float()
     # PIL resamples horizontally first and stores a uint8 intermediate.
-    x = _round_u8(torch.einsum("ow,bhwc->bhoc", a_w, x))
-    x = _round_u8(torch.einsum("oh,bhwc->bowc", a_h, x))
+    x = _resize_product("ow,bhwc->bhoc", a_w, x, precision)
+    if pil_rounding:
+        x = _round_u8(x)
+    x = _resize_product("oh,bhwc->bowc", a_h, x, precision)
+    if pil_rounding:
+        x = _round_u8(x)
     top, left = center_crop_bounds(out_h, out_w, size)
     x = x[:, max(top, 0) : max(top, 0) + size, max(left, 0) : max(left, 0) + size, :]
     mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=x.device)

@@ -7,7 +7,10 @@ inputs in the (B, L, H, D) layout, at tests/test_attention.py's bar (2e-5,
 fp32 with another summation order). The towers under
 ``attention_impl="flash"`` are held to the JAX towers under ``'pallas'`` on a
 narrow ViT-B/16-shaped config with the same weights (``from_flax_params``),
-at the towers' bar (1e-4). On the CPU the wrapper takes the plain version;
+at the towers' bar (1e-4). On bf16 inputs both plain versions (the
+upcast reference and the bf16 kernel's split scheme) are held to the JAX
+kernel and reference on bf16 inputs within one bf16 ulp. On the CPU the
+wrapper takes the plain version;
 the CUDA kernel is checked against it on the card (marked ``cuda``). The
 JAX towers (flax) are imported inside the tests that use them, so the
 ``cuda`` tests also collect where only jax is installed.
@@ -75,6 +78,58 @@ def test_split_tf32_plain_is_the_kernels_split():
     hi, lo = attention.split_tf32_plain(y)
     assert ((y - hi).abs() <= y.abs() * 2.0**-11).all()
     assert ((y - hi - lo).abs() <= y.abs() * 2.0**-22).all()
+
+
+def _bf16_qkv(b, l, h, d, seed):
+    """bf16 q, k, v as torch tensors and as numpy fp32 holding the same values."""
+    ts = [torch.from_numpy(x).bfloat16() for x in _qkv(b, l, h, d, seed)]
+    return ts, [t.float().numpy() for t in ts]
+
+
+def _one_bf16_ulp(ref: np.ndarray) -> np.ndarray:
+    """One bf16 ulp of each element of ``ref`` (8 significant bits), taken at
+    no less than 2^-8 of the tensor's largest magnitude: closer to zero the
+    two fp32 computations' own rounding (~1e-7 absolute) is more than one
+    ulp of the element."""
+    mag = np.maximum(np.abs(ref), np.abs(ref).max() * 2.0**-8)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+def _within_one_ulp(out, ref) -> bool:
+    out, ref = (np.asarray(x, np.float32) for x in (out, ref))
+    return bool((np.abs(out - ref) <= _one_bf16_ulp(ref)).all())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("l", [33, 77])
+def test_bf16_plains_match_jax_within_one_ulp(l, d, causal):
+    """The JAX kernel upcasts bf16 q, k, v, accumulates in fp32 and writes
+    bf16 (lemon_tpu/ops/attention.py:42, 48-49, 144): the port's plain
+    version and the bf16 kernel's scheme (S of the bf16 values in fp32, P
+    split into bf16 hi + lo) both land within one bf16 ulp of it."""
+    (q, k, v), arrays = _bf16_qkv(2, l, 2, d, seed=200 + l + d)
+    ours = attention.flash_attention(q, k, v, causal=causal)
+    emu = attention.flash_attention_bf16_plain(q, k, v, causal=causal)
+    assert ours.dtype == emu.dtype == torch.bfloat16 and ours.shape == (2, l, 2, d)
+    assert torch.equal(ours, attention.flash_attention_plain(q, k, v, causal=causal))  # the CPU takes the plain version
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in arrays)
+    for ref in (jax_flash(jq, jk, jv, causal=causal, interpret=True), reference_attention(jq, jk, jv, causal=causal)):
+        assert ref.dtype == jnp.bfloat16
+        for out in (ours, emu):
+            assert _within_one_ulp(out.float().numpy(), np.asarray(ref, np.float32))
+
+
+def test_bf16_split_scheme_is_closer_than_one_bf16_product():
+    """Why P . V takes two bf16 products: P rounded to bf16 alone misses the
+    one-ulp bar that the split meets."""
+    (q, k, v), _ = _bf16_qkv(2, 197, 4, 64, seed=7)
+    ref = attention.flash_attention_plain(q, k, v).float().numpy()
+    assert _within_one_ulp(attention.flash_attention_bf16_plain(q, k, v).float().numpy(), ref)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    p = torch.softmax(torch.einsum("blhd,bmhd->bhlm", qf, kf) * 64**-0.5, dim=-1)
+    single = torch.einsum("bhlm,bmhd->blhd", p.bfloat16().float(), vf).bfloat16().float().numpy()
+    assert not _within_one_ulp(single, ref)
 
 
 def _jax_cfg(cfg: ClipConfig):
@@ -184,4 +239,26 @@ def test_kernel_matches_plain_on_the_card(cuda_device, shape):
     ref = attention.flash_attention_plain(q, k, v, causal)
     assert (out - ref).abs().max().item() <= 2e-5
     assert (out - attention.flash_attention_3xtf32_plain(q, k, v, causal)).abs().max().item() <= 2e-5
+    assert torch.equal(out, attention.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # the towers' shapes, then odd ones and the other head dims
+    (128, 197, 12, 64, False), (128, 256, 8, 64, True), (128, 50, 12, 64, False), (128, 77, 8, 64, True),
+    (3, 33, 2, 32, True), (2, 200, 3, 128, False), (4, 1, 1, 64, True), (2, 197, 24, 32, False),
+    (2, 256, 4, 128, True), (3, 70, 2, 128, True), (2, 130, 1, 32, True),
+])
+def test_bf16_kernel_within_one_ulp_on_the_card(cuda_device, shape):
+    b, l, h, d, causal = shape
+    g = torch.Generator(device=cuda_device).manual_seed(l)
+    x = torch.randn(b, l, 3 * h * d, device=cuda_device, generator=g).bfloat16()
+    q, k, v = (t.reshape(b, l, h, d) for t in x.split(h * d, dim=-1))  # strided, as in the towers
+    before, before_bf16 = attention.flash_attention.launches, attention.flash_attention.launches_bf16
+    out = attention.flash_attention(q, k, v, causal)
+    assert attention.flash_attention.launches == before + 1
+    assert attention.flash_attention.launches_bf16 == before_bf16 + 1
+    assert out.dtype == torch.bfloat16 and out.is_contiguous()
+    for ref in (attention.flash_attention_plain(q, k, v, causal), attention.flash_attention_bf16_plain(q, k, v, causal)):
+        assert _within_one_ulp(out.float().cpu().numpy(), ref.float().cpu().numpy())
     assert torch.equal(out, attention.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal))
