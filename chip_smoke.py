@@ -66,7 +66,20 @@ imports nothing of JAX. Phases, each printed on its own lines:
     per-row cosine at least 0.999 to the card's. In the int8 modes the first
     W8A8 projection of the card's forward is held on its own input to the
     same layer on the CPU (quantised activations, int32 products and output
-    bit for bit), and every W8A8 layer must have run its int8 product.
+    bit for bit), and every W8A8 layer must have run its int8 product;
+14. the probe kernels P1-P4 against their plain versions on the card at the
+    probes' shapes, each timed beside its plain version and its library
+    call where one exists: P4 (``tiled_matmul``) at 4096^3, int8 exact
+    (``torch._int_mm``) and bf16 within one bf16 ulp (bf16 ``torch.matmul``);
+    P3 (``block_maxima``) at q 8192 against 131072 rows and P2
+    (``scores_blockmax_t``) at 4096 against 65536 with n_valid < T, at both
+    precisions, within 1e-5 of the plain version and bit-equal to K1's
+    block maxima (and P2's scores to K1's); P1 (``topk_colids``) at
+    (8192, 6528) k=51 with ties and -inf rows, values and ids exact
+    (``torch.topk``). Then each probe program's ``main()`` once in-process
+    (``lemon_tpu_torch.benchmarks``), every kernel count set to 0 just
+    before it and read just after; each P kernel must have run in its
+    probe.
 
 The switches: TF32 off for fp32 products and convolutions, and cuBLAS's
 reduced-precision reductions of bf16 products off, as the CLI sets them
@@ -74,9 +87,9 @@ reduced-precision reductions of bf16 products off, as the CLI sets them
 
 Every kernel line prints its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
-operations over the peak rate of their type (989 TFLOP/s bf16 and 495 TFLOP/s
-TF32 on the tensor cores, 67 TFLOP/s fp32), and the share of the bound that
-the kernel reaches. K3's lines also print the fp32 bound of its products on
+operations over the peak rate of their type (989 TFLOP/s bf16, 1979 TOP/s
+int8 and 495 TFLOP/s TF32 on the tensor cores, 67 TFLOP/s fp32), and the
+share of the bound that the kernel reaches. K3's lines also print the fp32 bound of its products on
 the CUDA cores, the bound of the kernel it replaced.
 The second-to-last line is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -111,9 +124,14 @@ K2_SHAPES = ((125, 6), (768, 6), (640, 5), (6528, 51), (1024, 200))
 # (W, k, rows) where the two K2 variants are compared: their crossover on
 # tie-heavy rows, and k=51 on rows of distinct (Gaussian) values
 K2_CROSSOVER = ((1024, 16, "ties"), (1024, 32, "ties"), (640, 51, "ties"), (6528, 51, "gaussian"))
-# H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s, bf16 and TF32 tensor-core and fp32 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s, bf16, TF32 and int8 tensor-core and fp32 (FL)OP/s
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "int8": 1979e12}
+PROBES = ("probe_pallas_int8", "probe_knn_decomp", "probe_scoremax2", "probe_knn_select3")
+# the probes' shapes: P4's M = K = N; P3's and P2's (queries, columns, n_valid); P1's (rows, width, k)
+P4_SIZE = 4096
+P3_P2_SHAPES = (("P3", 8192, 131072, None), ("P2", 4096, 65536, 65000))
+P1_SHAPE = (8192, 6528, 51)
 
 
 def fail(msg: str) -> None:
@@ -126,24 +144,12 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def paired_ms(torch, kernel, plain, iters: int):
     """(kernel ms, plain ms), measured in turns: plain, kernel, kernel, plain."""
-    p1 = cuda_ms(torch, plain, iters)
-    k1 = cuda_ms(torch, kernel, iters)
-    k2 = cuda_ms(torch, kernel, iters)
-    p2 = cuda_ms(torch, plain, iters)
+    p1 = cuda_ms(plain, iters)
+    k1 = cuda_ms(kernel, iters)
+    k2 = cuda_ms(kernel, iters)
+    p2 = cuda_ms(plain, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -219,7 +225,7 @@ def phase_k1(torch, scoremax, device):
                   f"{bound_text(bnd, ms)}", flush=True)
             check(err <= K1_TOL and berr <= K1_TOL, f"K1 {metric}/{precision}: error {err} > {K1_TOL}")
             worst = max(worst, err, berr)
-    mm_ms = cuda_ms(torch, lambda: torch.matmul(q, db.T), 10)
+    mm_ms = cuda_ms(lambda: torch.matmul(q, db.T), 10)
     print(f"K1 reference: torch.matmul(q, db.T) alone (cuBLAS SGEMM, TF32 off) {mm_ms:.3f} ms", flush=True)
     return worst, times
 
@@ -249,8 +255,8 @@ def phase_k2(torch, topk, device):
         fin = torch.isfinite(v0)
         worst = max(worst, (v - v0)[fin].abs().max().item())
         ms, plain_ms = paired_ms(torch, lambda: topk.topk(x, k), lambda: topk.topk_plain(x, k), 20)
-        sort_ms = cuda_ms(torch, lambda: torch.sort(x, dim=1, descending=True, stable=True), 20)
-        by_variant = {m: cuda_ms(torch, lambda: topk.topk(x, k, m), 20) for m in variants[1:]}
+        sort_ms = cuda_ms(lambda: torch.sort(x, dim=1, descending=True, stable=True), 20)
+        by_variant = {m: cuda_ms(lambda: topk.topk(x, k, m), 20) for m in variants[1:]}
         bnd = bound(4 * b * w + 12 * b * k, b * w, "fp32")
         times[(w, k)] = (ms, plain_ms, sort_ms, bnd)
         print(f"K2 topk (8192, {w}) k={k}: values and indices exact ({', '.join(variants)}); kernel {ms:.4f} ms, "
@@ -265,7 +271,7 @@ def phase_k2(torch, topk, device):
             torch.cuda.synchronize()
             check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)),
                   f"K2 ({w}, k={k}, {rows}) {variant}: differs from the plain version")
-            by_variant[variant] = cuda_ms(torch, lambda: topk.topk(x, k, variant), 20)
+            by_variant[variant] = cuda_ms(lambda: topk.topk(x, k, variant), 20)
         print(f"K2 variants (8192, {w}) k={k}, {rows} rows: exact; "
               + ", ".join(f"{m} {t:.4f} ms" for m, t in by_variant.items()), flush=True)
     return worst, times
@@ -304,7 +310,7 @@ def phase_k3(torch, attention, device):
         emu_err = (out - emu).abs().max().item()
         ms, plain_ms = paired_ms(torch, lambda: attention.flash_attention(q, k, v, causal),
                                  lambda: attention.flash_attention_plain(q, k, v, causal), 20)
-        sdpa_ms = cuda_ms(torch, sdpa, 20)
+        sdpa_ms = cuda_ms(sdpa, 20)
         pairs = l * (l + 1) // 2 if causal else l * l  # the query-key pairs the mask keeps
         n_bytes, n_ops = 4 * 4 * b * l * h * d, 4 * b * h * d * pairs
         bnd = bound(n_bytes, 3 * n_ops, "tf32")  # three TF32 products
@@ -345,7 +351,7 @@ def phase_k3_bf16(torch, attention, device):
         emu_ulps, _ = one_bf16_ulp_err(torch, out, emu)
         ms, plain_ms = paired_ms(torch, lambda: attention.flash_attention(q, k, v, causal),
                                  lambda: attention.flash_attention_plain(q, k, v, causal), 20)
-        sdpa_ms = cuda_ms(torch, sdpa, 20)
+        sdpa_ms = cuda_ms(sdpa, 20)
         pairs = l * (l + 1) // 2 if causal else l * l
         # q, k, v, o in bf16; the kernel's three bf16 products (S, p_hi.V, p_lo.V), 2*b*h*d*pairs operations each
         bnd = bound(2 * 4 * b * l * h * d, 3 * 2 * b * h * d * pairs, "bf16")
@@ -381,7 +387,7 @@ def phase_k4(torch, scoremax, select, topk, blockmax_select, device):
         check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)), f"K4 k={k}: differs from the plain version")
         ms, plain_ms = paired_ms(torch, lambda: select.fused_gather_topk(sb, ids, k),
                                  lambda: select.fused_gather_topk_plain(sb, ids, k), 20)
-        tail_ms = cuda_ms(torch, lambda: select.gather_then_topk(sb, ids, k, topk.topk), 20)
+        tail_ms = cuda_ms(lambda: select.gather_then_topk(sb, ids, k, topk.topk), 20)
         bnd = bound(4 * b * k * 128 + 8 * b * k + 12 * b * k, b * k * 128, "fp32")
         times[k] = (ms, plain_ms, tail_ms, bnd)
         print(f"K4 fused_gather_topk (8192, 1024 blocks) k={k}: values and ids exact; kernel {ms:.3f} ms, "
@@ -702,6 +708,120 @@ def int8_layer_check(torch, card_model, cpu_model, pixels) -> int:
     return n_card
 
 
+def phase_probe_kernels(torch, scoremax, select, matmul, device):
+    """P1-P4 against their plain versions at the probes' shapes. Returns
+    {kernel: (max_abs_err, ms, plain ms, bound, library ms)}."""
+    out = {}
+    g = torch.Generator(device=device).manual_seed(14)
+    m = k = n = P4_SIZE
+    for name, dtype in (("tiled_matmul_int8", torch.int8), ("tiled_matmul_bf16", torch.bfloat16)):
+        if dtype == torch.int8:
+            a = torch.randint(-64, 64, (m, k), generator=g, device=device, dtype=torch.int8)
+            w = torch.randint(-64, 64, (n, k), generator=g, device=device, dtype=torch.int8)
+            lib = lambda: torch._int_mm(a, w.t())  # noqa: E731
+        else:
+            a = torch.randn(m, k, generator=g, device=device).bfloat16()
+            w = (torch.randn(n, k, generator=g, device=device) * k**-0.5).bfloat16()
+            lib = lambda: torch.matmul(a, w.t())  # noqa: E731
+        c, c0 = matmul.tiled_matmul(a, w), matmul.tiled_matmul_plain(a, w)
+        torch.cuda.synchronize()
+        if dtype == torch.int8:
+            check(bool(torch.equal(c, c0)), f"P4 int8 {m}^3: differs from the plain version")
+            check(bool(torch.equal(lib(), c0)), f"P4 int8 {m}^3: torch._int_mm differs from the plain version")
+            err, what = 0.0, "int32 output exact"
+        else:
+            ulps, err = one_bf16_ulp_err(torch, c, c0)
+            check(ulps <= 1, f"P4 bf16 {m}^3: {ulps} bf16 ulp > 1")
+            what = f"{ulps:.3f} bf16 ulp of the plain version (max_abs_err {err:.3e}, tol 1 ulp)"
+        ms, plain_ms = paired_ms(torch, lambda: matmul.tiled_matmul(a, w), lambda: matmul.tiled_matmul_plain(a, w), 10)
+        lib_ms = cuda_ms(lib, 10)
+        size = a.element_size()
+        bnd = bound(size * (m * k + n * k) + (4 if dtype == torch.int8 else 2) * m * n, 2 * m * n * k,
+                    "int8" if dtype == torch.int8 else "bf16")
+        out[name] = (err, ms, plain_ms, bnd, lib_ms)
+        print(f"P4 {name} {m}^3: {what}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"({'torch._int_mm' if dtype == torch.int8 else 'torch.matmul bf16'}) {lib_ms:.4f} ms; "
+              f"{bound_text(bnd, ms)}", flush=True)
+        del a, w, c, c0
+
+    for label, b, t, n_valid in P3_P2_SHAPES:
+        gen = torch.Generator().manual_seed(15)
+        q, db = unit_rows(torch, gen, b, 512, device), unit_rows(torch, gen, t, 512, device)
+        for precision in ("high", "highest"):
+            high = precision == "high"
+            s1, bm1 = scoremax.scores_blockmax(q, db, "ip", None, 0, n_valid, precision)
+            if label == "P3":
+                name = "block_maxima"
+                bm = scoremax.block_maxima(q, db, precision)
+                bm0 = scoremax.block_maxima_plain(q, db, precision)
+                kernel = lambda: scoremax.block_maxima(q, db, precision)  # noqa: E731
+                plain = lambda: scoremax.block_maxima_plain(q, db, precision)  # noqa: E731
+                torch.cuda.synchronize()
+                check(bool(torch.equal(bm, bm1)), f"P3 {precision}: block maxima differ from K1's")
+                err = (bm - bm0).abs().max().item()
+                n_bytes = 4 * (b * 512 + t * 512 + b * t // 128)
+            else:
+                name = "scores_blockmax_t"
+                s2, bt = scoremax.scores_blockmax_t(q, db, 0, n_valid, precision)
+                s0, bt0 = scoremax.scores_blockmax_t_plain(q, db, 0, n_valid, precision)
+                kernel = lambda: scoremax.scores_blockmax_t(q, db, 0, n_valid, precision)  # noqa: E731
+                plain = lambda: scoremax.scores_blockmax_t_plain(q, db, 0, n_valid, precision)  # noqa: E731
+                torch.cuda.synchronize()
+                check(bool(torch.equal(s2, s1)) and bool(torch.equal(bt.T, bm1)),
+                      f"P2 {precision}: scores or block maxima differ from K1's")
+                check(bool(torch.isneginf(s2[:, n_valid:]).all()), f"P2 {precision}: columns >= n_valid not -inf")
+                fin = torch.isfinite(s0)
+                err = max((s2 - s0)[fin].abs().max().item(), (bt - bt0).abs().max().item())
+                n_bytes = 4 * (b * 512 + t * 512 + b * t + b * t // 128)
+                del s2, bt, s0, bt0
+            check(bool(torch.equal(bm1, s1.view(b, -1, 128).amax(2))), f"{label} {precision}: K1's bmax != strip max")
+            del s1, bm1
+            check(err <= K1_TOL, f"{label} {precision}: error {err} > {K1_TOL}")
+            ms, plain_ms = paired_ms(torch, kernel, plain, 3)
+            k1_ms = cuda_ms(lambda: scoremax.scores_blockmax(q, db, "ip", None, 0, n_valid, precision), 3)
+            bnd = bound(n_bytes, (3 if high else 1) * 2 * b * t * 512, "bf16" if high else "fp32")
+            out[(name, precision)] = (err, ms, plain_ms, bnd, None)
+            print(f"{label} {name} {precision} ({b}x512 . {t}x512): max_abs_err {err:.3e} (tol {K1_TOL}), "
+                  f"{'maxima' if label == 'P3' else 'scores and maxima'} bit-equal to K1's; kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms, K1 at this shape {k1_ms:.3f} ms; {bound_text(bnd, ms)}", flush=True)
+        del q, db
+
+    b, w, kk = P1_SHAPE
+    x = topk_inputs(torch, torch.Generator().manual_seed(16), b, w, device)
+    blocks = torch.rand(b, 1024, generator=g, device=device).argsort(dim=1)[:, : w // 128].sort(dim=1).values  # of 1024
+    cid = (blocks.to(torch.int32)[:, :, None] * 128 + torch.arange(128, device=device, dtype=torch.int32)).view(b, w)
+    v, i = select.topk_colids(x, cid, kk)
+    v0, i0 = select.topk_colids_plain(x, cid, kk)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)), f"P1 ({b}, {w}) k={kk}: differs from the plain version")
+    ms, plain_ms = paired_ms(torch, lambda: select.topk_colids(x, cid, kk), lambda: select.topk_colids_plain(x, cid, kk), 20)
+    lib_ms = cuda_ms(lambda: torch.topk(x, kk), 20)
+    bnd = bound(8 * b * w + 8 * b * kk, b * w, "fp32")
+    out["topk_colids"] = (0.0, ms, plain_ms, bnd, lib_ms)
+    print(f"P1 topk_colids ({b}, {w}) k={kk}: values and ids exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.topk {lib_ms:.4f} ms; {bound_text(bnd, ms)}", flush=True)
+    return out
+
+
+def phase_probes(torch, counters):
+    """Each probe program's ``main()`` once, with every kernel count set to
+    0 just before it and read just after: {probe: {kernel: launches}}."""
+    import importlib
+
+    paths = {}
+    for name in PROBES:
+        mod = importlib.import_module(f"lemon_tpu_torch.benchmarks.{name}")
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        mod.main()
+        torch.cuda.synchronize()
+        paths[name] = {kernel: getattr(fn, attr) for kernel, (fn, attr) in counters.items()}
+        print(f"{name}: main() in {time.perf_counter() - t0:.2f} s; kernel launches "
+              f"{ {k: v for k, v in paths[name].items() if v} }", flush=True)
+    return paths
+
+
 def print_side_by_side(what: str, fp32: dict, bf16: dict) -> None:
     print(f"{what} phase timing (s), fp32 | bf16: "
           + json.dumps({k: [round(fp32.get(k, 0.0), 4), round(bf16.get(k, 0.0), 4)] for k in {**fp32, **bf16}}),
@@ -713,10 +833,12 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
+    global cuda_ms  # the probes' timer: the phases call it once the port is on the path
     sys.path.insert(0, str(ROOT))
     try:
+        from lemon_tpu_torch.benchmarks._timing import cuda_ms
         from lemon_tpu_torch.knn.index import ExactKnnIndex, _blockmax_select
-        from lemon_tpu_torch.ops import _build, attention, scoremax, select, topk
+        from lemon_tpu_torch.ops import _build, attention, matmul, scoremax, select, topk
     except ImportError as e:
         fail(f"cannot import lemon_tpu_torch from {ROOT}: {e}")
     device = torch.device("cuda", 0)
@@ -750,9 +872,30 @@ def main() -> None:
     b16_bf16, b16_bf16_timing, _ = phase_vit_b16_flash(torch, scoremax, topk, attention, device, "bf16", b16_embeddings)
     print_side_by_side("ViT-B/16 flash detection", b16_timing, b16_bf16_timing)
     phase_int8(torch, device)
+    p_times = phase_probe_kernels(torch, scoremax, select, matmul, device)
+    # (function, attribute) of every kernel's count; the split ones are
+    # reassembled below
+    counters = {"scores_blockmax": (scoremax.scores_blockmax, "launches"), "topk": (topk.topk, "launches"),
+                "flash_attention": (attention.flash_attention, "launches"),
+                "flash_attention_bf16": (attention.flash_attention, "launches_bf16"),
+                "fused_gather_topk": (select.fused_gather_topk, "launches"),
+                "tiled_matmul": (matmul.tiled_matmul, "launches"),
+                "tiled_matmul_int8": (matmul.tiled_matmul, "launches_int8"),
+                "block_maxima": (scoremax.block_maxima, "launches"),
+                "scores_blockmax_t": (scoremax.scores_blockmax_t, "launches"),
+                "topk_colids": (select.topk_colids, "launches")}
+    probes = phase_probes(torch, counters)
+    for counts in probes.values():
+        counts["flash_attention"] -= counts["flash_attention_bf16"]
+        counts["tiled_matmul_bf16"] = counts.pop("tiled_matmul") - counts["tiled_matmul_int8"]
+    for kernel, probe in (("tiled_matmul_int8", "probe_pallas_int8"), ("tiled_matmul_bf16", "probe_pallas_int8"),
+                          ("block_maxima", "probe_knn_decomp"), ("scores_blockmax_t", "probe_scoremax2"),
+                          ("topk_colids", "probe_knn_select3")):
+        check(probes[probe][kernel] > 0, f"{probe}: {kernel} was not launched: {probes[probe]}")
 
     main_paths = {"run_lemon_vit_b32": b32, "run_lemon_vit_b32_bf16": b32_bf16, "detect_vit_b16_flash": b16,
-                  "detect_vit_b16_flash_bf16": b16_bf16}
+                  "detect_vit_b16_flash_bf16": b16_bf16, "knn_select_fused_probe": {"fused_gather_topk": k4_launches},
+                  **probes}
 
     def launches(name):
         paths = {path: counts.get(name, 0) for path, counts in main_paths.items()}
@@ -782,9 +925,20 @@ def main() -> None:
          "replaces": "lemon_tpu/ops/attention.py:101", **launches("flash_attention_bf16"),
          **numbers(k3b_err, k3b_ms, k3b_plain, k3b_bound, k3b_sdpa)},
         {"name": "fused_gather_topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/select.cu",
-         "replaces": "lemon_tpu/ops/select.py:138", "launches": k4_launches,
-         "launches_by_path": {"knn_select_fused_probe": k4_launches},
+         "replaces": "lemon_tpu/ops/select.py:138", **launches("fused_gather_topk"),
          **numbers(0.0, k4_ms, k4_plain, k4_bound, None)},
+        *({"name": name, "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/matmul.cu",
+           "replaces": "benchmarks/probe_pallas_int8.py:53", **launches(name), **numbers(*p_times[name])}
+          for name in ("tiled_matmul_int8", "tiled_matmul_bf16")),
+        {"name": "block_maxima", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
+         "replaces": "benchmarks/probe_knn_decomp.py:95", **launches("block_maxima"),
+         **numbers(*p_times[("block_maxima", "high")])},  # the search's precision, as K1
+        {"name": "scores_blockmax_t", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
+         "replaces": "benchmarks/probe_scoremax2.py:61", **launches("scores_blockmax_t"),
+         **numbers(*p_times[("scores_blockmax_t", "high")])},
+        {"name": "topk_colids", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/topk.cu",
+         "replaces": "benchmarks/probe_knn_select3.py:89", "also_replaces": "benchmarks/probe_knn_select3.py:163",
+         **launches("topk_colids"), **numbers(*p_times["topk_colids"])},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -5,11 +5,12 @@ stays the reference; each module here names the counterpart it mirrors.
 
 - ``lemon_tpu_torch.core``    — device selection, run-output contract, phase timing
 - ``lemon_tpu_torch.data``    — dataset registry, label/caption noise, splits
-- ``lemon_tpu_torch.ops``     — image preprocessing and the two kNN CUDA kernels
+- ``lemon_tpu_torch.ops``     — image preprocessing and the CUDA kernels (K1-K4, P1-P4)
 - ``lemon_tpu_torch.models``  — CLIP towers, weight loaders, batched encoder
 - ``lemon_tpu_torch.knn``     — exact nearest-neighbour index
 - ``lemon_tpu_torch.scoring`` — LEMoN score, hyperparameter fit, metrics
 - ``lemon_tpu_torch.cli``     — ``run_lemon`` entry point
+- ``lemon_tpu_torch.benchmarks`` — the probe programs of P1-P4, on the card
 
 The package imports ``torch`` and never ``jax``, ``flax`` or ``optax``.
 """

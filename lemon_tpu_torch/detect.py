@@ -43,6 +43,7 @@ from lemon_tpu_torch.scoring.optimize import default_grid, maximize_metric
 from lemon_tpu_torch.scoring.thresholds import optimize_f1_efficient
 
 COMPONENT_CHUNK = 16384
+FLT_MAX = float(np.finfo(np.float32).max)
 
 
 @dataclasses.dataclass
@@ -222,6 +223,15 @@ def build_neighbor_logs(cfg: DetectionConfig, encoder: ClipEncoder, splits: Dict
         if sname == "train":
             D_n, I_n = train_split_exclusion(D_n, I_n, None, in_compr)
             D_m, I_m = train_split_exclusion(D_m, I_m, None, in_compr)
+        if cfg.use_discrete_for_text:
+            # the JAX package raises under this flag (lemon_tpu/detect.py:361),
+            # so padding slots (k above the comparison set) take FAISS's
+            # finite padding score, -FLT_MAX ('ip'; FLT_MAX for 'l2'), in
+            # place of the search's -inf. D_n stays un-negated below, so every
+            # tau_1 > 0 overflows its weight; tau_1 (shared by D_n and D_m) = 0
+            # is then the one finite candidate, and there exp(-0 * inf) would
+            # be NaN. Without the flag both keep the -inf pad, as in JAX.
+            D_n, D_m = (np.where(np.isinf(D), np.copysign(FLT_MAX, D), D).astype(D.dtype) for D in (D_n, D_m))
 
         with timer.phase("components"):
             fn = _components_cosine if cfg.dist_type == "cosine" else _components_euclidean
@@ -237,7 +247,10 @@ def build_neighbor_logs(cfg: DetectionConfig, encoder: ClipEncoder, splits: Dict
             d1, dists_n, dists_m, dtr_n, dtr_m = [torch.cat([p[j] for p in parts]).cpu().numpy() for j in range(5)]
 
         if cfg.use_discrete_for_text:
-            dists_n = 1.0 - (compr_text_arr[I_n] == np.asarray(noisy_texts)[:, None]).astype(np.float64)
+            # the padding id n_valid reads the last row, as the components
+            # do (FAISS's -1, which numpy reads as the last row)
+            nb_text = compr_text_arr[np.minimum(I_n, len(compr_text_arr) - 1)]
+            dists_n = 1.0 - (nb_text == np.asarray(noisy_texts)[:, None]).astype(np.float64)
         if label_embs is not None:
             d1 = _d1_normalized(cfg, img, label_embs, noisy_labels)
 

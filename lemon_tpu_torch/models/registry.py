@@ -58,11 +58,12 @@ def checkpoint_path(name: str) -> Optional[Path]:
     return None
 
 
-def checkpoint_fingerprint(ckpt: Optional[Path], seed: int) -> str:
-    """Weights identity for cache keys: the seed for a random init, else the
+def checkpoint_fingerprint(ckpt: Optional[Path], seed: int, cfg: ClipConfig) -> str:
+    """Weights identity for cache keys: the seed and the model's config for a
+    random init (one seed gives every model other weights), else the
     resolved path + mtime + size."""
     if ckpt is None:
-        return f"random:{seed}"
+        return f"random:{seed}:{cfg!r}"
     st = ckpt.stat()
     return f"{ckpt.resolve()}:{st.st_mtime_ns}:{st.st_size}"
 
@@ -108,4 +109,4 @@ def create_encoder(name: str, device: torch.device, seed: int = 0, batch_size: i
             f"(set LEMON_TPU_CKPT_{name.upper()}); using random init (seed {seed})"
         )
     print(f"[lemon_tpu_torch] precision: {precision}")
-    return ClipEncoder(model, device, batch_size=batch_size, weights_fingerprint=checkpoint_fingerprint(ckpt, seed))
+    return ClipEncoder(model, device, batch_size=batch_size, weights_fingerprint=checkpoint_fingerprint(ckpt, seed, cfg))

@@ -38,12 +38,17 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # x, hi, lo, N, D, Dp, stream
     "lemon_split_bf16": [_P, _P, _P, _L, _I, _I, _P],
-    # q_hi, q_lo, db_hi, db_lo, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, l2, stream
-    "lemon_scores_blockmax_high": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
-    # q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, l2, stream
-    "lemon_scores_blockmax_highest": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
+    # q_hi, q_lo, db_hi, db_lo, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, l2, out, stream
+    "lemon_scores_blockmax_high": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
+    # q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, l2, out, stream
+    "lemon_scores_blockmax_highest": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
     # x, vals, idx, B, W, k, variant, stream
     "lemon_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, cid, vals, ids, B, W, k, variant, stream
+    "lemon_topk_colids": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # a, w, c, M, N, K, stream
+    "lemon_matmul_int8": [_P, _P, _P, _I, _I, _I, _P],
+    "lemon_matmul_bf16": [_P, _P, _P, _I, _I, _I, _P],
     # q, k, v, o, B, L, H, D, stride_b, stride_l, scale, causal, stream
     "lemon_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, ctypes.c_float, _I, _P],
     "lemon_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, ctypes.c_float, _I, _P],

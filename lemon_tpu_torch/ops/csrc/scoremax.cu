@@ -43,6 +43,20 @@
 // columns of D at a time (the next slice loaded into registers during the
 // current one's products), 8 x 4 accumulators per thread, the strip max a
 // warp shuffle reduction.
+//
+// Two probes' kernels are template flags (Out) of both kernels, 'ip' only:
+// - P3, Out::kMaxOnly, replaces benchmarks/probe_knn_decomp.py `_bmax_kernel`
+//   (launched by `bmax_only`, :95): the block maxima alone, no mask and no
+//   store of s. Against K1 it prices the store of s: at q 8192 against a
+//   131072-row tile that is 4.3 GB (1.28 ms at 3.35 TB/s), while P3 moves
+//   0.3 GB and is bound by its products (3.34 ms 'high', 16.4 ms 'highest').
+// - P2, Out::kTransposed, replaces benchmarks/probe_scoremax2.py `_kernel_t`
+//   (launched by `fused_t`, :61): K1 with the block maxima written
+//   transposed, (T/128, B). On the TPU that dodged a lane-store rule; here it
+//   only asks which layout suits the block top-k, so the writes are the
+//   row-major kernel's with the other index.
+// The summation order is the same in every variant, so P3's maxima and P2's
+// scores equal K1's bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,7 +81,18 @@ constexpr int THREADS = 256;
 constexpr int ROWS = BM / (THREADS / 32);  // 8 rows per warp
 constexpr int COLS = BN / 32;              // 4 columns per lane, strided by 32
 
-template <bool L2>
+// What a kernel writes: K1's s and row-major block maxima, P3's block maxima
+// alone, or P2's s and transposed block maxima.
+enum class Out { kScoresRowMax, kMaxOnly, kTransposed };
+
+// bmax index of (row, strip): (B, T/128), or (T/128, B) for P2
+template <Out OUT>
+__device__ __forceinline__ long long bmax_at(int row, int strip, int B, int n_strips) {
+  return OUT == Out::kTransposed ? static_cast<long long>(strip) * B + row
+                                 : static_cast<long long>(row) * n_strips + strip;
+}
+
+template <bool L2, Out OUT>
 __global__ void __launch_bounds__(THREADS)
 scores_highest_kernel(const float* __restrict__ q, const float* __restrict__ db, const float* __restrict__ qsq,
                       const float* __restrict__ dbsq, float* __restrict__ s, float* __restrict__ bmax, int B, int T,
@@ -141,12 +166,12 @@ scores_highest_kernel(const float* __restrict__ q, const float* __restrict__ db,
       float v = acc[i][j];
       if (L2) v = -(((row_ok ? qsq[gr] : 0.f) - 2.f * v) + dbsq[c]);
       if (start + c >= n_valid) v = -CUDART_INF_F;
-      if (row_ok) s[(long long)gr * T + c] = v;
+      if (OUT != Out::kMaxOnly && row_ok) s[(long long)gr * T + c] = v;
       m = fmaxf(m, v);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
-    if (lane == 0 && row_ok) bmax[(long long)gr * n_strips + blockIdx.x] = m;
+    if (lane == 0 && row_ok) bmax[bmax_at<OUT>(gr, blockIdx.x, B, n_strips)] = m;
   }
 }
 
@@ -185,31 +210,7 @@ constexpr int TILE_BYTES = 128 * HK * 2;   // 128 rows of 128 B
 constexpr int STAGE_BYTES = 4 * TILE_BYTES;  // q_hi, q_lo, db_hi, db_lo
 constexpr int HIGH_SMEM = HSTAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1024 B
 
-// d (64 x 128 fp32, wgmma accumulator layout) += A (64 x 16) . B (128 x 16)^T
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-template <bool L2>
+template <bool L2, Out OUT>
 __global__ void __launch_bounds__(HTHREADS, 1)
 scores_high_kernel(const __nv_bfloat16* __restrict__ q_hi, const __nv_bfloat16* __restrict__ q_lo,
                    const __nv_bfloat16* __restrict__ db_hi, const __nv_bfloat16* __restrict__ db_lo,
@@ -304,12 +305,13 @@ scores_high_kernel(const __nv_bfloat16* __restrict__ q_hi, const __nv_bfloat16* 
       }
       if (start + c >= n_valid) v0 = -CUDART_INF_F;
       if (start + c + 1 >= n_valid) v1 = -CUDART_INF_F;
-      if (row_ok) *reinterpret_cast<float2*>(s + static_cast<long long>(gr) * T + c) = make_float2(v0, v1);
+      if (OUT != Out::kMaxOnly && row_ok)
+        *reinterpret_cast<float2*>(s + static_cast<long long>(gr) * T + c) = make_float2(v0, v1);
       m = fmaxf(m, fmaxf(v0, v1));
     }
     m = fmaxf(m, __shfl_xor_sync(FULL, m, 1));
     m = fmaxf(m, __shfl_xor_sync(FULL, m, 2));
-    if ((lane & 3) == 0 && row_ok) bmax[static_cast<long long>(gr) * n_strips + blockIdx.x] = m;
+    if ((lane & 3) == 0 && row_ok) bmax[bmax_at<OUT>(gr, blockIdx.x, B, n_strips)] = m;
   }
 }
 
@@ -328,39 +330,59 @@ extern "C" int lemon_split_bf16(const float* x, void* hi, void* lo, long long N,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+template <bool L2, Out OUT>
+int launch_high(const __nv_bfloat16* qh, const __nv_bfloat16* ql, const __nv_bfloat16* dh, const __nv_bfloat16* dl,
+                const float* qsq, const float* dbsq, float* s, float* bmax, int B, int T, int Dp, long long start,
+                long long n_valid, cudaStream_t st) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(scores_high_kernel<L2, OUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, HIGH_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(T / HN, (B + HM - 1) / HM);
+  scores_high_kernel<L2, OUT><<<grid, HTHREADS, HIGH_SMEM, st>>>(qh, ql, dh, dl, qsq, dbsq, s, bmax, B, T, Dp, start,
+                                                                 n_valid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool L2, Out OUT>
+int launch_highest(const float* q, const float* db, const float* qsq, const float* dbsq, float* s, float* bmax, int B,
+                   int T, int D, long long start, long long n_valid, cudaStream_t st) {
+  const dim3 grid(T / BN, (B + BM - 1) / BM);
+  scores_highest_kernel<L2, OUT><<<grid, THREADS, 0, st>>>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // 'high' from the split operands: T a multiple of 128, 0 < B <= 65535 * 128,
 // Dp a multiple of 64. qsq (B,) and dbsq (T,) are read only when l2 != 0.
+// out: 0 K1 (s, bmax (B, T/128)), 1 P3 (bmax only; s is not touched),
+// 2 P2 (s, bmax (T/128, B)); 1 and 2 take 'ip' only.
 extern "C" int lemon_scores_blockmax_high(const void* q_hi, const void* q_lo, const void* db_hi, const void* db_lo,
                                           const float* qsq, const float* dbsq, float* s, float* bmax, int B, int T,
-                                          int Dp, long long start, long long n_valid, int l2, void* stream) {
+                                          int Dp, long long start, long long n_valid, int l2, int out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(T / HN, (B + HM - 1) / HM);
   const auto* qh = static_cast<const __nv_bfloat16*>(q_hi);
   const auto* ql = static_cast<const __nv_bfloat16*>(q_lo);
   const auto* dh = static_cast<const __nv_bfloat16*>(db_hi);
   const auto* dl = static_cast<const __nv_bfloat16*>(db_lo);
-  cudaError_t e;
-  if (l2) {
-    e = cudaFuncSetAttribute(scores_high_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, HIGH_SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    scores_high_kernel<true><<<grid, HTHREADS, HIGH_SMEM, st>>>(qh, ql, dh, dl, qsq, dbsq, s, bmax, B, T, Dp, start,
-                                                                n_valid);
-  } else {
-    e = cudaFuncSetAttribute(scores_high_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, HIGH_SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    scores_high_kernel<false><<<grid, HTHREADS, HIGH_SMEM, st>>>(qh, ql, dh, dl, qsq, dbsq, s, bmax, B, T, Dp, start,
-                                                                 n_valid);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (l2 && out != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (l2) return launch_high<true, Out::kScoresRowMax>(qh, ql, dh, dl, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, st);
+  if (out == 1) return launch_high<false, Out::kMaxOnly>(qh, ql, dh, dl, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, st);
+  if (out == 2)
+    return launch_high<false, Out::kTransposed>(qh, ql, dh, dl, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, st);
+  return launch_high<false, Out::kScoresRowMax>(qh, ql, dh, dl, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, st);
 }
 
-// 'highest': T a multiple of 128 and 0 < B <= 65535 * 64.
+// 'highest': T a multiple of 128 and 0 < B <= 65535 * 64; out as for 'high'.
 extern "C" int lemon_scores_blockmax_highest(const float* q, const float* db, const float* qsq, const float* dbsq,
                                              float* s, float* bmax, int B, int T, int D, long long start,
-                                             long long n_valid, int l2, void* stream) {
+                                             long long n_valid, int l2, int out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(T / BN, (B + BM - 1) / BM);
-  if (l2) scores_highest_kernel<true><<<grid, THREADS, 0, st>>>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid);
-  else scores_highest_kernel<false><<<grid, THREADS, 0, st>>>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid);
-  return static_cast<int>(cudaGetLastError());
+  if (l2 && out != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (l2) return launch_highest<true, Out::kScoresRowMax>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, st);
+  if (out == 1) return launch_highest<false, Out::kMaxOnly>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, st);
+  if (out == 2) return launch_highest<false, Out::kTransposed>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, st);
+  return launch_highest<false, Out::kScoresRowMax>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, st);
 }

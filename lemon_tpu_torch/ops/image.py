@@ -75,15 +75,27 @@ def _round_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
 
 
+def _split_bf16(x: torch.Tensor):
+    """(hi, lo) as fp32: hi = bf16(x), lo = bf16(x - hi), both rounded to
+    nearest even (ops/scoremax.split_bf16_plain without its padding)."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
 def _resize_product(eq: str, a: torch.Tensor, x: torch.Tensor, precision: str) -> torch.Tensor:
     """One resize pass at a JAX matmul precision, on any device: 'highest'
-    is fp32; 'default' is the TPU's one bf16 pass (operands rounded to bf16,
-    products exact and summed in fp32)."""
+    is fp32; 'high' is bf16x3, the three bf16 products of K1 'high',
+    ``hi.hi + (hi.lo + lo.hi)`` with fp32 sums; 'default' is the TPU's one
+    bf16 pass (operands rounded to bf16, products exact and summed in
+    fp32)."""
     if precision == "highest":
         return torch.einsum(eq, a, x)
+    if precision == "high":
+        (a_hi, a_lo), (x_hi, x_lo) = _split_bf16(a), _split_bf16(x)
+        return torch.einsum(eq, a_hi, x_hi) + (torch.einsum(eq, a_hi, x_lo) + torch.einsum(eq, a_lo, x_hi))
     if precision == "default":
         return torch.einsum(eq, a.bfloat16().float(), x.bfloat16().float())
-    raise ValueError(f"precision must be 'highest' or 'default' (the JAX package's 'high' has no caller), got {precision!r}")
+    raise ValueError(f"precision must be 'highest', 'high' or 'default', got {precision!r}")
 
 
 def preprocess_device(images_u8, size: int = 224, device=None, mean=CLIP_MEAN, std=CLIP_STD,
@@ -97,8 +109,9 @@ def preprocess_device(images_u8, size: int = 224, device=None, mean=CLIP_MEAN, s
     ``pil_rounding=False`` skips the uint8 intermediate emulation.
     ``precision`` is the matmul precision of the two resize passes, as in
     lemon_tpu/ops/image.py:125-159: 'highest' (fp32, the PIL-parity
-    default) or 'default' (one bf16 pass: the bf16 fast path's choice;
-    uint8 pixels are exact in bf16)."""
+    default), 'high' (bf16x3: three bf16 products with fp32 sums) or
+    'default' (one bf16 pass: the bf16 fast path's choice; uint8 pixels are
+    exact in bf16)."""
     if device is None and not isinstance(images_u8, torch.Tensor):
         device = resolve_device("cuda")
     x = torch.as_tensor(images_u8)

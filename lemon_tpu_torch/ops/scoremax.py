@@ -7,6 +7,9 @@ blockmax prefilter input). The CUDA kernels ``csrc/scoremax.cu`` emit both
 in one pass over the score tile: ``high`` (bf16x3) on the tensor cores with
 ``wgmma``, after a split pass that writes the bf16 hi/lo operands
 (:func:`split_bf16`); ``highest`` (exact fp32 products) on the CUDA cores.
+Two probe kernels are the same kernels with another output:
+:func:`block_maxima` (P3, no store of s) and :func:`scores_blockmax_t` (P2,
+the block maxima transposed).
 
 Score semantics follow ``lemon_tpu/knn/index.py:_scores_block``: 'ip' is the
 inner product; 'l2' keeps the op order ``-((|q|^2 - 2 ip) + |x|^2)``, the
@@ -90,36 +93,93 @@ def scores_blockmax(q, db, metric="ip", db_sqnorm=None, start=0, n_valid=None, p
     _check(q, db, metric, db_sqnorm, precision)
     if q.device.type == "cpu":
         return scores_blockmax_plain(q, db, metric, db_sqnorm, start, n_valid, precision)
-    if q.device.type != "cuda":
-        raise ValueError(f"scores_blockmax: unsupported device {q.device}")
-    b, d = q.shape
-    t = db.shape[0]
-    if b > 65535 * 64:
-        raise ValueError(f"scores_blockmax: {b} query rows exceed the launch grid")
-    n_valid = t + start if n_valid is None else n_valid
-    s = torch.empty((b, t), dtype=torch.float32, device=q.device)
-    bmax = torch.empty((b, t // LANES), dtype=torch.float32, device=q.device)
-    qsq = (q * q).sum(1) if metric == "l2" else None
-    norms = (None if qsq is None else qsq.data_ptr(), None if db_sqnorm is None else db_sqnorm.data_ptr())
-    tail = (s.data_ptr(), bmax.data_ptr(), b, t)
-    lib = _build.library()
-    if precision == "high":
-        (q_hi, q_lo), (db_hi, db_lo) = split_bf16(q), split_bf16(db)
-        code = lib.lemon_scores_blockmax_high(
-            q_hi.data_ptr(), q_lo.data_ptr(), db_hi.data_ptr(), db_lo.data_ptr(), *norms, *tail,
-            q_hi.shape[1], int(start), int(n_valid), int(metric == "l2"), _build.stream_handle(q),
-        )
-    else:
-        code = lib.lemon_scores_blockmax_highest(
-            q.data_ptr(), db.data_ptr(), *norms, *tail, d, int(start), int(n_valid), int(metric == "l2"),
-            _build.stream_handle(q),
-        )
-    _build.check(code, "scores_blockmax")
+    s, bmax = _launch("scores_blockmax", q, db, metric, db_sqnorm, start, n_valid, precision, _OUT_K1)
     scores_blockmax.launches += 1
     return s, bmax
 
 
 scores_blockmax.launches = 0
+
+
+def block_maxima_plain(q, db, precision="highest"):
+    """Plain PyTorch version of :func:`block_maxima` (any device)."""
+    return scores_blockmax_plain(q, db, "ip", None, 0, None, precision)[1]
+
+
+def block_maxima(q, db, precision="highest"):
+    """The (B, T/128) block maxima of ``q . db^T`` alone (P3: no mask, no
+    score block stored), for ``q`` (B, D) and ``db`` (T, D) as in
+    :func:`scores_blockmax` ('ip'). Port of ``bmax_only``
+    (benchmarks/probe_knn_decomp.py:95): against K1 it prices K1's store
+    of s. CPU tensors take the plain version; CUDA tensors launch K1's
+    kernel without its store (``block_maxima.launches``)."""
+    _check(q, db, "ip", None, precision)
+    if q.device.type == "cpu":
+        return block_maxima_plain(q, db, precision)
+    _, bmax = _launch("block_maxima", q, db, "ip", None, 0, None, precision, _OUT_MAX_ONLY)
+    block_maxima.launches += 1
+    return bmax
+
+
+block_maxima.launches = 0
+
+
+def scores_blockmax_t_plain(q, db, start=0, n_valid=None, precision="highest"):
+    """Plain PyTorch version of :func:`scores_blockmax_t` (any device)."""
+    s, bmax = scores_blockmax_plain(q, db, "ip", None, start, n_valid, precision)
+    return s, bmax.T.contiguous()
+
+
+def scores_blockmax_t(q, db, start=0, n_valid=None, precision="highest"):
+    """K1 ('ip') with the block maxima written transposed (P2): (scores
+    (B, T), block maxima (T/128, B)). Port of ``fused_t``
+    (benchmarks/probe_scoremax2.py:61); masked columns are ``-inf`` as in
+    K1 (JAX writes ``MASKED``). CPU tensors take the plain version; CUDA
+    tensors launch K1's kernel with the transposed maxima
+    (``scores_blockmax_t.launches``)."""
+    _check(q, db, "ip", None, precision)
+    if q.device.type == "cpu":
+        return scores_blockmax_t_plain(q, db, start, n_valid, precision)
+    s, bmax_t = _launch("scores_blockmax_t", q, db, "ip", None, start, n_valid, precision, _OUT_TRANSPOSED)
+    scores_blockmax_t.launches += 1
+    return s, bmax_t
+
+
+scores_blockmax_t.launches = 0
+
+# what the kernels write (csrc/scoremax.cu, `Out`)
+_OUT_K1, _OUT_MAX_ONLY, _OUT_TRANSPOSED = 0, 1, 2
+
+
+def _launch(name, q, db, metric, db_sqnorm, start, n_valid, precision, out):
+    """One launch of K1's kernels writing ``out``: (s, bmax), s None for P3."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    b, d = q.shape
+    t = db.shape[0]
+    if b > 65535 * 64:
+        raise ValueError(f"{name}: {b} query rows exceed the launch grid")
+    s = None if out == _OUT_MAX_ONLY else torch.empty((b, t), dtype=torch.float32, device=q.device)
+    shape = (t // LANES, b) if out == _OUT_TRANSPOSED else (b, t // LANES)
+    bmax = torch.empty(shape, dtype=torch.float32, device=q.device)
+    n_valid = t + start if n_valid is None else n_valid
+    qsq = (q * q).sum(1) if metric == "l2" else None
+    norms = (None if qsq is None else qsq.data_ptr(), None if db_sqnorm is None else db_sqnorm.data_ptr())
+    tail = (None if s is None else s.data_ptr(), bmax.data_ptr(), b, t)
+    lib = _build.library()
+    if precision == "high":
+        (q_hi, q_lo), (db_hi, db_lo) = split_bf16(q), split_bf16(db)
+        code = lib.lemon_scores_blockmax_high(
+            q_hi.data_ptr(), q_lo.data_ptr(), db_hi.data_ptr(), db_lo.data_ptr(), *norms, *tail,
+            q_hi.shape[1], int(start), int(n_valid), int(metric == "l2"), out, _build.stream_handle(q),
+        )
+    else:
+        code = lib.lemon_scores_blockmax_highest(
+            q.data_ptr(), db.data_ptr(), *norms, *tail, d, int(start), int(n_valid), int(metric == "l2"), out,
+            _build.stream_handle(q),
+        )
+    _build.check(code, name)
+    return s, bmax
 
 
 def _check(q, db, metric, db_sqnorm, precision) -> None:

@@ -11,6 +11,11 @@ runs the unfused tail :func:`gather_then_topk` with K2. Unlike the JAX
 function, masked columns arrive and leave as ``-inf``: the port's K1 writes
 ``-inf`` and a CUDA gather has no ``0 * -inf`` hazard, so there is no finite
 ``MASKED`` sentinel.
+
+P1, :func:`topk_colids`, is the row top-k of candidates that arrive with a
+global column id each (``topk_colids``/``topk_pair`` of
+``benchmarks/probe_knn_select3.py``): K2's kernel (``csrc/topk.cu``) reads
+the id of each chosen entry, so no index is reconstructed.
 """
 
 from __future__ import annotations
@@ -80,3 +85,50 @@ def _check(sb: torch.Tensor, block_ids: torch.Tensor, k: int) -> None:
         raise ValueError("fused_gather_topk: sb and block_ids must be on one device")
     if not 0 < b < 2**31 or nb * LANES >= 2**31:
         raise ValueError(f"fused_gather_topk: unsupported shape {tuple(sb.shape)}")
+
+
+def topk_colids_plain(x: torch.Tensor, cid: torch.Tensor, k: int):
+    """Plain PyTorch version of :func:`topk_colids` (any device)."""
+    _check_colids(x, cid, k)
+    vals, pos = topk_plain(x, k)
+    return vals, cid.gather(1, pos)
+
+
+def topk_colids(x: torch.Tensor, cid: torch.Tensor, k: int):
+    """(values (B, k) float32, ids (B, k) int32) of the k largest entries of
+    each row of ``x`` (B, W) contiguous float32, where ``cid`` (B, W)
+    contiguous int32 is each entry's global id, ascending along each row
+    (sorted block ids x 128 + lane). Values descend, ties go to the lowest
+    id, and ``-inf`` entries come out as ``-inf`` with the lowest remaining
+    ids, as in ``topk_colids`` and ``topk_pair`` of
+    benchmarks/probe_knn_select3.py (:89, :163). CPU tensors take the plain
+    version; CUDA tensors launch K2's kernel, its variant picked by (W, k),
+    with the id read (``topk_colids.launches``)."""
+    _check_colids(x, cid, k)
+    if x.device.type == "cpu":
+        return topk_colids_plain(x, cid, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"topk_colids: unsupported device {x.device}")
+    b, w = x.shape
+    vals = torch.empty((b, k), dtype=torch.float32, device=x.device)
+    ids = torch.empty((b, k), dtype=torch.int32, device=x.device)
+    code = _build.library().lemon_topk_colids(
+        x.data_ptr(), cid.data_ptr(), vals.data_ptr(), ids.data_ptr(), b, w, k, _build.stream_handle(x)
+    )
+    _build.check(code, "topk_colids")
+    topk_colids.launches += 1
+    return vals, ids
+
+
+topk_colids.launches = 0
+
+
+def _check_colids(x: torch.Tensor, cid: torch.Tensor, k: int) -> None:
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"topk_colids: need a contiguous 2-D float32 x, got {x.dtype} {tuple(x.shape)}")
+    if cid.shape != x.shape or cid.dtype != torch.int32 or not cid.is_contiguous() or cid.device != x.device:
+        raise ValueError(f"topk_colids: need a contiguous int32 cid of shape {tuple(x.shape)} on x's device, "
+                         f"got {cid.dtype} {tuple(cid.shape)}")
+    b, w = x.shape
+    if not 0 < k <= w or not 0 < b < 2**31:
+        raise ValueError(f"topk_colids: need 0 < k <= W={w} and B > 0, got k={k}, B={b}")

@@ -138,6 +138,20 @@ def test_default_run_matches_jax_neighbour_logs(tmp_path, monkeypatch, tiny_npz)
     assert np.isfinite(agg["val"]["AUROC"]) and np.isfinite(agg["test"]["AUROC"])
 
 
+def test_k_above_the_comparison_set_matches_jax_cli(tmp_path, monkeypatch, tiny_npz):
+    """``--knn_k 60`` on 60 pairs, without the discrete flag: the padding
+    slots of both searches keep the index's -inf score (+inf once negated),
+    as in the JAX package, and every component agrees with its run. The
+    padding ids differ (a handled divergence: the port pins each to
+    n_valid), so JAX's are pinned the same way before the comparison."""
+    out, jax_ids, torch_ids = _run_both(tmp_path, monkeypatch, tiny_npz,
+                                        ["--knn_precision", "highest", "--synthetic_n", "60", "--knn_k", "60"])
+    n_valid = 48  # the train split, the comparison set
+    _assert_logs_match(out, [np.minimum(a, n_valid) for a in jax_ids], torch_ids)
+    for col in ("D_n", "D_m"):
+        d = np.stack(out["torch"]["df"][col].to_list())
+        assert np.isposinf(d).any(axis=1).all() and not np.isneginf(d).any(), col
+
 def test_knn_k_above_128_matches_jax_cli(tmp_path, monkeypatch, tiny_npz):
     """``--knn_k 150``: the train split searches 151 neighbours. The JAX
     package takes lax.top_k above k = 128, the port keeps K2. The two
@@ -263,3 +277,49 @@ def test_device_grid_matches_jax():
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
     f1 = grid_best_f1_device(NeighborLogs(**arrays), arrays["is_mislabel"], gm, device="cpu")
     np.testing.assert_allclose(f1, jax_best(JaxLogs(**arrays), arrays["is_mislabel"], gm), rtol=0, atol=1e-6)
+
+
+DISCRETE_ARGV = ["--platform", "cpu", "--dataset", "synthetic_caption", "--synthetic_n", "60", "--noise_type",
+                 "random", "--clip_model", "tiny", "--knn_k", "60", "--use_discrete_for_text"]
+
+
+def test_discrete_text_with_k_above_the_comparison_set_completes(tmp_path):
+    """k + 1 = 61 neighbours of a 48-row comparison set: the padding slots
+    must not stop the run (the JAX CLI raises IndexError here)."""
+    from lemon_tpu_torch.cli.run_lemon import main
+
+    main(["--output_dir", str(tmp_path), *DISCRETE_ARGV])
+    assert (tmp_path / "done").exists()
+    scores = pd.read_csv(tmp_path / "know_val_labels_scores.csv")["pred_score"].to_numpy()
+    assert len(scores) == 60 and np.isfinite(scores).all()
+
+
+def test_discrete_text_padding_slots_read_the_last_row():
+    """At a padding slot (id n_valid) the discrete text distance
+    is that of the comparison set's last row: FAISS pads with id -1, which
+    numpy reads as the last row. This holds the port to that rule; the JAX
+    package has no output to compare with."""
+    import torch
+
+    from lemon_tpu_torch import detect
+    from lemon_tpu_torch.core.profiling import PhaseTimer
+    from lemon_tpu_torch.data.datasets import get_dataset
+    from lemon_tpu_torch.models.registry import create_encoder
+
+    cfg = detect.DetectionConfig(dataset="synthetic_caption", noise_type="random", clip_model="tiny", knn_k=60,
+                                 synthetic_n=60, use_discrete_for_text=True, platform="cpu")
+    cpu = torch.device("cpu")
+    splits = dict(zip(("train", "val", "test"), get_dataset(
+        cfg.dataset, cfg.data_seed, noise_level=cfg.noise_level, noise_type=cfg.noise_type, synthetic_n=60)))
+    encoder = create_encoder("tiny", cpu, seed=cfg.seed)
+    logs = detect.build_neighbor_logs(cfg, encoder, splits, None, PhaseTimer(cpu))
+    last = list(splits["train"].sentence)[-1]  # the comparison set is the whole train split
+    noisy = np.concatenate([np.asarray(splits[s].sentence) for s in ("train", "val", "test")])
+    # under --use_discrete_for_text D_n keeps the score's sign, and a
+    # padding slot carries FAISS's padding score -FLT_MAX (D_m's is negated)
+    pad = logs.D_n == np.finfo(np.float32).min
+    assert np.isfinite(logs.D_n).all() and np.isfinite(logs.D_m).all()
+    np.testing.assert_array_equal(logs.D_m == np.finfo(np.float32).max, pad)
+    assert pad.any(axis=1).all()  # every row has padding slots: 60 > 48 rows
+    want = 1.0 - (noisy == last).astype(np.float64)
+    np.testing.assert_array_equal(logs.dists_n[pad], np.broadcast_to(want[:, None], pad.shape)[pad])

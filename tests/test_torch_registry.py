@@ -10,6 +10,7 @@ field (the port's ``attention_impl="plain"`` is the JAX ``'xla'``).
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +25,7 @@ from lemon_tpu_torch.models import registry
 from lemon_tpu_torch.models.clip import ClipConfig, ClipModel
 from lemon_tpu_torch.models.loader import detect_and_convert, openai_config_from_state_dict
 
+REPO_ROOT = Path(__file__).resolve().parents[1]
 NEW_NAMES = ["chexzero", "mimic_clip_from_scratch_random", "mimic_clip_from_scratch_cat", "cc3m_clip_from_scratch"]
 # ViT-B/16 geometry at narrow width: 64 px in 16 px patches, context 24
 OPENAI_CFG = ClipConfig(
@@ -157,3 +159,29 @@ def test_from_scratch_presets():
     assert b16.image_resolution // b16.vision_patch_size == 14  # 196 patches + CLS = 197 tokens
     assert ClipConfig.vit_b16(768, 77) == registry.MODEL_CONFIGS["cc3m_clip_from_scratch"]
     assert _jax_fields(b16) == {k: getattr(jclip.ClipConfig.from_scratch_mimic(), k) for k in _jax_fields(b16)}
+
+
+def test_random_init_cache_key_folds_in_the_model(monkeypatch):
+    """Without a checkpoint, two models with one seed are two sets of
+    weights, so their --embedding_cache keys differ; one model twice is one
+    key."""
+    from lemon_tpu_torch.data.datasets import synthetic_captioning
+
+    monkeypatch.setattr(registry, "checkpoint_path", lambda name: None)
+    split = synthetic_captioning(40, data_seed=0)[0]
+    texts = list(split.sentence)
+    cpu = torch.device("cpu")
+    key = lambda name: registry.create_encoder(name, cpu, seed=0).cache_key(split, texts)  # noqa: E731
+    tiny = key("tiny")
+    assert key("huggingface_clip") != tiny
+    assert key("tiny") == tiny
+
+
+def test_checkpoint_fingerprint_is_the_file():
+    cfg = registry.MODEL_CONFIGS["tiny"]
+    a, b = (registry.checkpoint_fingerprint(None, 0, registry.MODEL_CONFIGS[n]) for n in ("tiny", "huggingface_clip"))
+    assert a != b and a == registry.checkpoint_fingerprint(None, 0, cfg)
+    assert registry.checkpoint_fingerprint(None, 1, cfg) != a
+    path = REPO_ROOT / "pyproject.toml"
+    st = path.stat()
+    assert registry.checkpoint_fingerprint(path, 0, cfg) == f"{path.resolve()}:{st.st_mtime_ns}:{st.st_size}"
