@@ -47,8 +47,9 @@ imports nothing of JAX. Phases, each printed on its own lines:
    K1, K2 and K3 launched by that run;
 10. phase 6 again with ``LEMON_TPU_PRECISION=bf16`` (the variable is set for
     the call and restored after it), its phase times beside the fp32 run's;
-11. K3 on bf16 inputs (the bf16 kernel) at the shapes of phase 7, as bf16
-    views of a fused QKV tensor: every element within one bf16 ulp of
+11. K3 on bf16 inputs (the bf16 kernel: TMA into a two-stage mbarrier ring,
+    one self-fed warpgroup a block, persistent) at the shapes of phase 7, as
+    bf16 views of a fused QKV tensor: every element within one bf16 ulp of
     ``flash_attention_plain`` and of ``flash_attention_bf16_plain`` (the
     kernel's split scheme), its time, the plain version's and bf16
     ``scaled_dot_product_attention``'s with its backend;
@@ -69,8 +70,10 @@ imports nothing of JAX. Phases, each printed on its own lines:
     bit for bit), and every W8A8 layer must have run its int8 product;
 14. the probe kernels P1-P4 against their plain versions on the card at the
     probes' shapes, each timed beside its plain version and its library
-    call where one exists: P4 (``tiled_matmul``) at 4096^3, int8 exact
-    (``torch._int_mm``) and bf16 within one bf16 ulp (bf16 ``torch.matmul``);
+    call where one exists: P4 (``tiled_matmul``: a producer warpgroup feeding
+    two consumer warpgroups through a TMA ring, persistent) at 4096^3, int8
+    exact (``torch._int_mm``) and bf16 within one bf16 ulp (bf16
+    ``torch.matmul``);
     P3 (``block_maxima``) at q 8192 against 131072 rows and P2
     (``scores_blockmax_t``) at 4096 against 65536 with n_valid < T, at both
     precisions, within 1e-5 of the plain version and bit-equal to K1's
@@ -922,14 +925,16 @@ def main() -> None:
          "replaces": "lemon_tpu/ops/attention.py:101", **launches("flash_attention"),
          **numbers(k3_err, k3_ms, k3_plain, k3_bound, k3_sdpa)},
         {"name": "flash_attention_bf16", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/attention.cu",
+         "kernel": "flash_attention_bf16_kernel<D, TAIL> (TMA ring, one self-fed warpgroup a block, persistent)",
          "replaces": "lemon_tpu/ops/attention.py:101", **launches("flash_attention_bf16"),
          **numbers(k3b_err, k3b_ms, k3b_plain, k3b_bound, k3b_sdpa)},
         {"name": "fused_gather_topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/select.cu",
          "replaces": "lemon_tpu/ops/select.py:138", **launches("fused_gather_topk"),
          **numbers(0.0, k4_ms, k4_plain, k4_bound, None)},
         *({"name": name, "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/matmul.cu",
+           "kernel": f"matmul_kernel<{mma}> (producer warpgroup, TMA ring, two m64n256 consumers, persistent)",
            "replaces": "benchmarks/probe_pallas_int8.py:53", **launches(name), **numbers(*p_times[name])}
-          for name in ("tiled_matmul_int8", "tiled_matmul_bf16")),
+          for name, mma in (("tiled_matmul_int8", "Int8Mma"), ("tiled_matmul_bf16", "Bf16Mma"))),
         {"name": "block_maxima", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
          "replaces": "benchmarks/probe_knn_decomp.py:95", **launches("block_maxima"),
          **numbers(*p_times[("block_maxima", "high")])},  # the search's precision, as K1

@@ -91,7 +91,9 @@ def flash_attention_bf16_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     bf16 values is exact in fp32), scaled by ``D**-0.5`` in fp32, the
     unnormalised probabilities P split into bf16 ``p_hi + p_lo``, and
     ``(p_hi . v + p_lo . v) / sum(P)`` in fp32, rounded to bf16 once. It
-    differs from the kernel only in the order of the sums."""
+    differs from the kernel only in the order of the sums and in an fp32
+    rounding of the exponent (the kernel scales inside it, as
+    ``2^(s * scale * log2 e - m * scale * log2 e)``)."""
     _check(q, k, v)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_bf16_plain: needs bf16 inputs, got {q.dtype}")

@@ -65,6 +65,7 @@
 
 #include <cstdint>
 #include <numeric>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -472,10 +473,12 @@ int launch(const float* q, const float* k, const float* v, float* o, int B, int 
 //
 //   o[b, i, h] = bf16( sum_j softmax_j(scale * (q[b, i, h] . k[b, j, h])) v[b, j, h] )
 //
-// - S = q . k^T is one wgmma.mma_async.m64n64k16.f32.bf16.bf16 product: the
+// - S = q . k^T is one wgmma.mma_async.m64nNk16.f32.bf16.bf16 product: the
 //   product of two bf16 values is exact in fp32, so S is the fp32 dot of the
-//   upcast values up to the order of the sums. scale = D^-0.5 multiplies S in
-//   fp32 (the TPU kernel scales q first; the two differ by one fp32 rounding).
+//   upcast values up to the order of the sums. scale = D^-0.5 enters in fp32
+//   with the exponent: p = 2^(s * scale * log2(e) - m * scale * log2(e)) for
+//   the row max m of S (the TPU kernel scales q first, the plain versions S;
+//   each differs from this by an fp32 rounding or two).
 // - O += P . V is two bf16 products, p_hi . v + p_lo . v, with the fp32
 //   probabilities split into bf16 p_hi = bf16(p) and p_lo = bf16(p - p_hi)
 //   (|p - p_hi - p_lo| <= 2^-17 p); v is exact in bf16. One product with P
@@ -483,26 +486,50 @@ int launch(const float* q, const float* k, const float* v, float* o, int B, int 
 // - Running max, normaliser and accumulator stay in fp32 registers.
 //
 // Operands. q and k are K-major (D contiguous) in shared memory, 128-byte
-// swizzled as in the fp32 kernel; a row of 64 bf16 is one atom, a k16 step
-// moves the descriptor 32 bytes inside it, and D = 32 is staged zero-padded
-// to 64 columns. For 16-bit types wgmma takes an MN-major B (the transpose
-// bit), so v is staged as it lies in memory: key rows of 64 columns, 8-key
-// groups 1024 B apart (SBO), 64-column atoms BKV * 128 B apart (LBO). The
-// fp32 S accumulator of an m64n64 wgmma, converted pairwise to bf16x2, is the
-// A fragment of the following k16 product as it stands (registers 4i..4i+3
-// of column block i: rows g and g + 8 at columns 8i + 2t, 8i + 2t + 1), so P
-// stays in registers.
+// swizzled as TMA writes them: a row of 64 bf16 is one atom, a k16 step
+// moves the descriptor 32 bytes inside it, and D = 128 is two atoms (64 rows
+// * 128 B apart). For 16-bit types wgmma takes an MN-major B (the transpose
+// bit), so v is used as it lies in memory: key rows of 64 columns, 8-key
+// groups 1024 B apart (SBO), 64-column atoms 64 * 128 B apart (LBO). The
+// fp32 S accumulator, converted pairwise to bf16x2, is the A fragment of the
+// following k16 product as it stands (registers 4i..4i+3 of column block i:
+// rows g and g + 8 at columns 8i + 2t, 8i + 2t + 1), so P stays in registers.
 //
-// Work and memory. One block (one warpgroup) per 64-row query tile of one
-// (batch, head); 64-key tiles of k and v in a two-stage cp.async ring, the
-// next tile loading while the current one is multiplied; q staged once. Rows
-// past L and, under the causal mask, tiles past the block's last query are
-// not loaded (cp.async zero-fills rows past L, whose logits are -inf). What
-// bounds it on an H100: at the towers' shapes the bytes (q, k, v read and o
-// written once, 8 B per (token, head, dim) element) at 3.35 TB/s, about
-// 0.046 ms at (128, 197, 12, 64), against 0.023 ms for the three bf16
-// products at 989 TFLOP/s. This first version is written for correctness:
-// no persistence, no warp specialisation, one warpgroup a block.
+// What bounds it on an H100. By the bytes alone (q, k, v read and o written
+// once, 8 B per (token, head, dim) element, at 3.35 TB/s) 0.046 ms at
+// (128, 197, 12, 64), against 0.023 ms for the three bf16 products at
+// 989 TFLOP/s. But a tile of 64 queries meets its keys in a short chain, S
+// -> softmax -> P . V, 4 tiles long at L = 197, and the chain's latency sets
+// the pace unless several chains run on each SM and the softmax overlaps the
+// products. Padding adds to the work: 197 rows are 256 in 64-row tiles.
+//
+// Work and memory. A work item is one 64-row query tile of one (batch, head),
+// and a block is one warpgroup with a pipeline of its own: its lead thread
+// loads the item's q and the 64-key K and V tiles by TMA (4-D (D, H, L, B)
+// tensor maps with the wrapper's strides; rows past L load as zeros and get
+// -inf logits) into a two-stage ring whose "full" mbarriers the whole
+// warpgroup waits on. The loads run ahead of the products across items: a
+// stage is refilled as soon as the P . V that read it has completed, and the
+// next item's q is loaded once the item's last S has read the current one.
+// The grid is persistent: four blocks an SM at D <= 64 (128 registers and
+// 50 KB of shared memory each; two at D = 128), each taking every n-th item,
+// n coprime to the query tiles of a head, causal heads from their longest
+// tile down. S of key tile j is issued with P . V of tile j - 1, and tile
+// j's softmax runs while that P . V is in flight. An unmasked item's last
+// key tile is only as wide as the keys past the last full tile, rounded up
+// to 16 (the kernel's TAIL: 16 at L = 197, so 208 keys meet the queries,
+// not 256). O is normalised in registers, written swizzled to a shared tile
+// and stored by TMA (rows past L are clipped). D = 32 loads as a 64-column
+// box whose upper half lies past D: TMA zero-fills it, the products see zero
+// columns, and the store clips them.
+//
+// Why no producer warp. The warp-specialised layout of hopper.cuh (a
+// producer warp or warpgroup, two consumer warpgroups on 128-row items)
+// measured slower than the first version of this kernel at the towers'
+// shapes: one block an SM runs only two chains, and a second block leaves
+// each thread 96 registers (nine warps a block put five on one of the SM's
+// four register files), too few for the overlapped softmax. Four self-fed
+// warpgroups an SM hold 128 registers each.
 
 // MN-major 16-bit operand in 128-byte-swizzled rows of 64 values: 8-row
 // (K) groups 1024 B apart (SBO), 64-column atoms `lbo` bytes apart (LBO).
@@ -513,8 +540,41 @@ __device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t lbo) {
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) { return *reinterpret_cast<uint32_t*>(&x); }
 
-// d (64 x 64 fp32) += A (64 x 16) . B (64 x 16)^T, bf16, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+// d (64 x N fp32, the first N / 2 of a thread's 32 registers) += A (64 x 16)
+// . B (N x 16)^T, bf16, both K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_bf16<16>(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : ACC4(0), ACC4(4)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_bf16<32>(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" LIST16 "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : ACC16(0)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_bf16<48>(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {" LIST16 ", %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : ACC16(0), ACC4(16), ACC4(20)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_bf16<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" LIST32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
@@ -552,190 +612,311 @@ __device__ __forceinline__ void wgmma_rs_bf16<128>(float (&d)[64], uint32_t a0, 
 
 template <int D>
 struct Bf16Tiles {
-  static constexpr int DP = D < 64 ? 64 : D;  // staged head dim: D = 32 is zero-padded to one 64-column atom
+  static constexpr int DP = D < 64 ? 64 : D;  // staged head dim: D = 32 is zero-filled to one 64-column atom
+  static constexpr int ATOMS = DP / 64;
   static constexpr int BKV = 64;              // keys per tile
-  static constexpr int Q_BYTES = BQ * DP * 2;
-  static constexpr int KV_BYTES = BKV * DP * 2;                   // one of k, v
-  static constexpr int SMEM = Q_BYTES + 4 * KV_BYTES + 1024;      // q, two stages of k and v, + slack to align
+  static constexpr int STAGES = 2;            // K/V tiles in flight
+  static constexpr int TILE_BYTES = 64 * DP * 2;  // 64 rows of q, k, v or o
+  static constexpr int RING_OFF = 2 * TILE_BYTES;  // after q and the o tile
+  static constexpr int BAR_OFF = RING_OFF + STAGES * 2 * TILE_BYTES;  // q_full, full[STAGES]
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + STAGES) + 1024;      // + slack to align to 1024 B
+  // four blocks an SM at D <= 64 (50 KB of shared memory, 128 registers a
+  // thread), two at D = 128
+  static constexpr int MIN_BLOCKS = DP == 64 ? 4 : 2;
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int L, int H,
-                            long long stride_b, long long stride_l, float scale, int causal) {
+template <int D, int TAIL>
+__global__ void __launch_bounds__(THREADS, Bf16Tiles<D>::MIN_BLOCKS)
+flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
+                            int B, int L, int H, float scale, int causal) {
   using T = Bf16Tiles<D>;
   constexpr int DP = T::DP;
   constexpr int BKV = T::BKV;
+  constexpr int STAGES = T::STAGES;
   constexpr int NS = BKV / 2;  // S accumulators a thread
   constexpr int NO = DP / 2;   // O accumulators a thread
-  constexpr int CH = DP / 8;   // 16-byte chunks of a staged row
-  static_assert(BKV == BQ, "q and k tiles share their k-step offsets");
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms are 1024-aligned
-  auto sk = [&](int st) { return sq + T::Q_BYTES + st * 2 * T::KV_BYTES; };
-  auto sv = [&](int st) { return sk(st) + T::KV_BYTES; };
+  unsigned char* const base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sq = smem_u32(base);
+  unsigned char* const o_tile = base + T::TILE_BYTES;
+  auto k_tile = [&](int s) { return sq + T::RING_OFF + s * 2 * T::TILE_BYTES; };
+  auto v_tile = [&](int s) { return k_tile(s) + T::TILE_BYTES; };
+  const uint32_t q_full = sq + T::BAR_OFF;
+  auto full = [&](int s) { return sq + T::BAR_OFF + 8 * (1 + s); };
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const bool lead = tid == 0;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int n_qt = (L + BQ - 1) / BQ;
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x - bh * n_qt) * BQ;
-  const int b = bh / H, h = bh - b * H;
-  const long long in = static_cast<long long>(b) * stride_b + static_cast<long long>(h) * D;
-  const int stride = static_cast<int>(stride_l);  // the wrapper keeps (L + 64) * stride_l below 2^31
+  const int n_items = B * H * n_qt;
+  const float sl2 = scale * LOG2E;
 
-  // Stage rows row0 .. row0 + 63 of q, k or v at dst: chunk c of row r at
-  // atom c / 8, chunk (c % 8) ^ (r % 8) of the row's 128 bytes. Rows past L
-  // and the padding columns of D = 32 are zero-filled.
-  auto stage = [&](const __nv_bfloat16* src, int row0, uint32_t dst) {
+  // Item `it`: the 64-row query tile q0 of (b, h); the query tiles of a head
+  // are neighbours in the order, so the blocks in flight share its k and v
+  // in L2. Its key tiles: all of L, or under the causal mask those up to its
+  // last row; causal heads go from their last (longest) query tile down, so
+  // that the grid ends on short items.
+  struct Item {
+    int b, h, q0, n_kv;
+  };
+  auto item_at = [&](int it) {
+    const int bh = it / n_qt;
+    const int qt = it - bh * n_qt;
+    const int b = bh / H, h = bh - b * H, q0 = (causal ? n_qt - 1 - qt : qt) * BQ;
+    return Item{b, h, q0, ((causal ? min(L, q0 + BQ) : L) + BKV - 1) / BKV};
+  };
+
+  // The lead thread's loads run ahead of the products by the ring's depth,
+  // across items: `ld` is the next key tile to load (item, tile).
+  int ld_it = blockIdx.x, ld_j = 0, ld_count = 0;
+  Item ld_item = item_at(ld_it);
+  auto load_q = [&](const Item& it) {
+    mbar_arrive_expect_tx(q_full, T::TILE_BYTES);
 #pragma unroll
-    for (int i = 0; i < 64 * CH / THREADS; ++i) {
-      const int id = tid + i * THREADS;
-      const int r = id / CH, c = id % CH;
-      const bool ok = row0 + r < L && c < D / 8;
-      const __nv_bfloat16* p = src + in + (ok ? (row0 + r) * stride + c * 8 : 0);
-      cp_async16(dst + (c >> 3) * 64 * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4), p, ok ? 16 : 0);
+    for (int a = 0; a < T::ATOMS; ++a) tma_load_4d(sq + a * 64 * 128, &map_q, q_full, 64 * a, it.h, it.q0, it.b);
+  };
+  auto load_next_tile = [&]() {
+    if (ld_it >= n_items) return;
+    const int st = ld_count % STAGES;
+    mbar_arrive_expect_tx(full(st), 2 * T::TILE_BYTES);
+#pragma unroll
+    for (int a = 0; a < T::ATOMS; ++a) {
+      tma_load_4d(k_tile(st) + a * 64 * 128, &map_k, full(st), 64 * a, ld_item.h, ld_j * BKV, ld_item.b);
+      tma_load_4d(v_tile(st) + a * 64 * 128, &map_v, full(st), 64 * a, ld_item.h, ld_j * BKV, ld_item.b);
+    }
+    ++ld_count;
+    if (++ld_j == ld_item.n_kv) {
+      ld_j = 0;
+      ld_it += gridDim.x;
+      if (ld_it < n_items) ld_item = item_at(ld_it);
     }
   };
 
-  const int kv_end = causal ? min(L, q0 + BQ) : L;
-  const int n_tiles = (kv_end + BKV - 1) / BKV;
-  stage(q, q0, sq);
-  stage(k, 0, sk(0));
-  stage(v, 0, sv(0));
-  cp_async_commit();
+  if (lead) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(full(s), 1);
+    fence_mbar_init();
+    load_q(ld_item);  // the grid has no more blocks than items
+    for (int s = 0; s < STAGES; ++s) load_next_tile();
+  }
+  __syncthreads();
 
   const uint64_t dq = smem_desc(sq);
-  // This thread's rows of the tile: r0 (S registers 4i, 4i+1) and r0 + 8
-  // (4i+2, 4i+3), at columns 8i + 2t and 8i + 2t + 1.
-  const int r0 = q0 + warp * 16 + g;
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-  float acc[NO];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float o[NO];
+  float s[NS];
+  uint32_t p_hi[NS / 2], p_lo[NS / 2];
+  float m[2], l[2];
+  int cons = 0;  // key tiles consumed by this block
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BKV;
-    const int st = kt & 1;
-    // the other stage was released by the barrier that ended the last tile
-    if (kt + 1 < n_tiles) {
-      stage(k, k0 + BKV, sk(st ^ 1));
-      stage(v, k0 + BKV, sv(st ^ 1));
-    }
-    cp_async_commit();
-    cp_async_wait<1>();      // tile kt (and q) has landed; tile kt + 1 may be in flight
-    fence_async_barrier();   // cp.async writes -> wgmma reads, for every thread's chunks
-
-    // S = q . k^T
-    float s[NS];
+  // A tile's products and softmax take its width W (keys: 64, or TAIL for
+  // the last tile of an unmasked item) as a compile-time constant.
+  using Full = std::integral_constant<int, BKV>;
+  using Tail = std::integral_constant<int, TAIL>;
+  // S = q . k^T of the tile in stage `st`
+  auto issue_s = [&](int st, auto w) {
+    constexpr int W = decltype(w)::value;
+    const uint64_t dk = smem_desc(k_tile(st));
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = 0.f;
-    const uint64_t dk = smem_desc(sk(st));
     fence_operands(s);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
       const uint32_t off = ((ks >> 2) * 64 * 128 + (ks & 3) * 32) >> 4;
-      wgmma_ss_bf16(s, dq + off, dk + off);
+      wgmma_ss_bf16<W>(s, dq + off, dk + off);
     }
     wgmma_commit();
-    wgmma_wait();
-    fence_operands(s);
-
-    // Scale in fp32, mask, online softmax; the row max is a quad max.
-#pragma unroll
-    for (int i = 0; i < NS; ++i) s[i] *= scale;
-    if (k0 + BKV > L || (causal && k0 + BKV - 1 > q0)) {
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        const int row = r0 + ((i & 2) ? 8 : 0);
-        if (col >= L || (causal && col > row)) s[i] = -CUDART_INF_F;
-      }
-    }
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    float alpha[2], nb[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      // every row sees key 0 in the first tile, so m_new is finite; the
-      // guard keeps a fully masked row at zero weight instead of NaN
-      const float base = m_new == -CUDART_INF_F ? 0.f : m_new;
-      alpha[r] = ex2((m[r] - base) * LOG2E);
-      nb[r] = -base * LOG2E;
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-    // P in bf16x2 pairs (registers 2j, 2j + 1 of S: row (j & 1) of the pair
-    // of rows), split into hi and lo
-    uint32_t p_hi[NS / 2], p_lo[NS / 2];
-#pragma unroll
-    for (int j = 0; j < NS / 2; ++j) {
-      const int r = j & 1;
-      const float a = ex2(fmaf(s[2 * j], LOG2E, nb[r]));
-      const float c = ex2(fmaf(s[2 * j + 1], LOG2E, nb[r]));
-      l[r] += a;
-      l[r] += c;
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
-      p_hi[j] = bf16x2_bits(hi);
-      p_lo[j] = bf16x2_bits(__floats2bfloat162_rn(a - __low2float(hi), c - __high2float(hi)));
-    }
-#pragma unroll
-    for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
-
-    // O += p_hi . v + p_lo . v (keys past L have weight 0 and v rows of 0)
-    fence_operands(acc);
+  };
+  // O += p_hi . v + p_lo . v of the tile in stage `st` (keys past L have
+  // weight 0 and v rows of 0)
+  auto issue_pv = [&](int st, auto w) {
+    constexpr int W = decltype(w)::value;
+    fence_operands(o);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < BKV / 16; ++ks) {
-      const uint64_t dv = smem_desc_mn(sv(st) + ks * 2048, BKV * 128);
-      wgmma_rs_bf16<DP>(acc, p_hi[4 * ks], p_hi[4 * ks + 1], p_hi[4 * ks + 2], p_hi[4 * ks + 3], dv);
-      wgmma_rs_bf16<DP>(acc, p_lo[4 * ks], p_lo[4 * ks + 1], p_lo[4 * ks + 2], p_lo[4 * ks + 3], dv);
+    for (int ks = 0; ks < W / 16; ++ks) {
+      const uint64_t dv = smem_desc_mn(v_tile(st) + ks * 2048, BKV * 128);
+      wgmma_rs_bf16<DP>(o, p_hi[4 * ks], p_hi[4 * ks + 1], p_hi[4 * ks + 2], p_hi[4 * ks + 3], dv);
+      wgmma_rs_bf16<DP>(o, p_lo[4 * ks], p_lo[4 * ks + 1], p_lo[4 * ks + 2], p_lo[4 * ks + 3], dv);
     }
     wgmma_commit();
-    wgmma_wait();
-    fence_operands(acc);
+  };
+
+  int n = 0;  // items of this block so far
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++n) {
+    const Item cur = item_at(it);
+    // This thread's rows: r0 (S registers 4i, 4i+1) and r0 + 8 (4i+2, 4i+3),
+    // at columns 8i + 2t and 8i + 2t + 1.
+    const int r0 = cur.q0 + warp * 16 + g;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+    m[0] = m[1] = -CUDART_INF_F;
+    l[0] = l[1] = 0.f;
+
+    // Mask, online softmax of scale * S (keys k0 .. k0 + W): s becomes the
+    // unnormalised P; the row max is a quad max. Returns O's rescaling.
+    auto softmax = [&](int k0, float (&alpha)[2], auto w) {
+      constexpr int W = decltype(w)::value;
+#pragma unroll
+      if (k0 + W > L || (causal && k0 + W - 1 > cur.q0)) {
+#pragma unroll
+        for (int i = 0; i < W / 2; ++i) {
+          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const int row = r0 + ((i & 2) ? 8 : 0);
+          if (col >= L || (causal && col > row)) s[i] = -CUDART_INF_F;
+        }
+      }
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float nb[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        // every row sees key 0 in the first tile, so m_new is finite; the
+        // guard keeps a fully masked row at zero weight instead of NaN
+        const float mb = m_new == -CUDART_INF_F ? 0.f : m_new;
+        alpha[r] = ex2((m[r] - mb) * sl2);
+        nb[r] = -mb * sl2;
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < W / 4; ++j) {
+        const int r = j & 1;
+        s[2 * j] = ex2(fmaf(s[2 * j], sl2, nb[r]));
+        s[2 * j + 1] = ex2(fmaf(s[2 * j + 1], sl2, nb[r]));
+        l[r] += s[2 * j];
+        l[r] += s[2 * j + 1];
+      }
+    };
+    // P in bf16x2 pairs (registers 2j, 2j + 1 of S: row (j & 1) of the pair
+    // of rows), split into hi and lo
+    auto split_p = [&](auto w) {
+      constexpr int W = decltype(w)::value;
+#pragma unroll
+      for (int j = 0; j < W / 4; ++j) {
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(s[2 * j], s[2 * j + 1]);
+        p_hi[j] = bf16x2_bits(hi);
+        p_lo[j] = bf16x2_bits(__floats2bfloat162_rn(s[2 * j] - __low2float(hi), s[2 * j + 1] - __high2float(hi)));
+      }
+    };
+    // Once the item's last S has read q: the next item's q
+    auto load_next_q = [&]() {
+      if (lead && it + static_cast<int>(gridDim.x) < n_items) load_q(item_at(it + gridDim.x));
+    };
+
+    // Key tile j (from 1) of width W: S of tile j is issued, then P . V of
+    // tile j - 1 (full width), and both run during tile j's softmax.
+    float alpha[2];
+    int st = 0, prev = 0;
+    auto step = [&](int j, auto w) {
+      st = cons % STAGES;
+      mbar_wait(full(st), (cons / STAGES) & 1);
+      issue_s(st, w);
+      issue_pv(prev, Full{});
+      wgmma_wait<1>();
+      fence_operands(s);
+      if (j == cur.n_kv - 1) load_next_q();
+      softmax(j * BKV, alpha, w);
+      wgmma_wait<0>();
+      fence_operands(o);
+      fence_operands(p_hi);
+      fence_operands(p_lo);
+      if (lead) load_next_tile();  // into the stage P . V has just released
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+      split_p(w);
+      prev = st;
+      ++cons;
+    };
+
+    // Tile 0 is full width: TAIL < 64 only where an item has several tiles.
+    mbar_wait(q_full, n & 1);
+    st = cons % STAGES;
+    mbar_wait(full(st), (cons / STAGES) & 1);
+    issue_s(st, Full{});
+    wgmma_wait<0>();
+    fence_operands(s);
+    if (cur.n_kv == 1) load_next_q();
+    softmax(0, alpha, Full{});
+    split_p(Full{});
+    prev = st;
+    ++cons;
+    for (int j = 1; j < cur.n_kv - 1; ++j) step(j, Full{});
+    if (cur.n_kv > 1) step(cur.n_kv - 1, Tail{});
+    issue_pv(prev, Tail{});
+    wgmma_wait<0>();
+    fence_operands(o);
     fence_operands(p_hi);
     fence_operands(p_lo);
-    __syncthreads();  // every warp is done with this stage before the next tile's loads refill it
-  }
+    if (lead) load_next_tile();
 
-  const long long row_stride = static_cast<long long>(H) * D;
-  const long long out0 = (static_cast<long long>(b) * L * H + h) * D;
+    // Epilogue: O normalised, written swizzled into the o tile once the last
+    // item's store has read it, stored by TMA (rows past L are clipped)
+    float inv[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float sum = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
-    const float inv = 1.f / (sum + __shfl_xor_sync(0xffffffffu, sum, 2));
-    const int row = r0 + 8 * r;
-    if (row >= L) continue;
-    __nv_bfloat16* const out = o + out0 + row * row_stride + 2 * t;
+    for (int r = 0; r < 2; ++r) {
+      const float sum = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+      inv[r] = 1.f / (sum + __shfl_xor_sync(0xffffffffu, sum, 2));
+    }
+    if (lead) bulk_wait_read<0>();
+    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * i) =
-          __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+    for (int i = 0; i < DP / 8; ++i) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;
+        *reinterpret_cast<__nv_bfloat162*>(o_tile + (i >> 3) * 64 * 128 + row * 128 + ((((i & 7) ^ (row & 7))) << 4) +
+                                           4 * t) = __floats2bfloat162_rn(o[4 * i + 2 * r] * inv[r],
+                                                                          o[4 * i + 2 * r + 1] * inv[r]);
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (lead) {
+#pragma unroll
+      for (int a = 0; a < T::ATOMS; ++a)
+        tma_store_4d(&map_o, smem_u32(o_tile) + a * 64 * 128, 64 * a, cur.h, cur.q0, cur.b);
+      bulk_commit();
+    }
   }
+  if (lead) bulk_wait_all();
 }
 
-template <int D>
+template <int D, int TAIL>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int L, int H, long long stride_b,
                 long long stride_l, float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = Bf16Tiles<D>::SMEM;
-  const cudaError_t e =
-      cudaFuncSetAttribute(flash_attention_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_items = B * H * ((L + BQ - 1) / BQ);  // the wrapper keeps it below 2^31
-  flash_attention_bf16_kernel<D><<<n_items, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), L, H, stride_b, stride_l, scale, causal);
+  using T = Bf16Tiles<D>;
+  // (D, H, L, B) views: the inputs with the wrapper's strides, o contiguous;
+  // boxes of 64 columns (D = 32: half past D) by 64 rows
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t in_strides[3] = {2ull * D, 2ull * stride_l, 2ull * stride_b};
+  const cuuint64_t out_strides[3] = {2ull * D, 2ull * H * D, 2ull * L * H * D};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  CUtensorMap map_q, map_k, map_v, map_o;
+  int e = encode_tensor_map(&map_q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, q, dims, in_strides, box);
+  if (e == 0) e = encode_tensor_map(&map_k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, k, dims, in_strides, box);
+  if (e == 0) e = encode_tensor_map(&map_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, v, dims, in_strides, box);
+  if (e == 0) e = encode_tensor_map(&map_o, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, o, dims, out_strides, box);
+  int sms = 0;
+  static int cached[64] = {};
+  if (e == 0)
+    e = prepare_launch(reinterpret_cast<const void*>(flash_attention_bf16_kernel<D, TAIL>), T::SMEM, cached, &sms);
+  if (e != 0) return e;
+  const int n_qt = (L + BQ - 1) / BQ;
+  const int n_items = B * H * n_qt;  // the wrapper keeps it below 2^31
+  // A block takes every n_blocks-th item; n_blocks coprime to the query
+  // tiles of a head spreads causal items of all lengths evenly.
+  int n_blocks = min(n_items, T::MIN_BLOCKS * sms);
+  while (n_blocks > 1 && std::gcd(n_blocks, n_qt) != 1) --n_blocks;
+  flash_attention_bf16_kernel<D, TAIL><<<n_blocks, THREADS, T::SMEM, stream>>>(map_q, map_k, map_v, map_o, B, L, H,
+                                                                               scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -767,15 +948,22 @@ extern "C" int lemon_flash_attention(const float* q, const float* k, const float
 }
 
 // The bf16 kernel: the same contract with bf16 q, k, v and o, strides and
-// pointers 16-byte aligned (strides multiples of 8 elements).
+// pointers 16-byte aligned (strides multiples of 8 elements), as TMA needs
+// them. Also returns the first error of the tensor maps' encoding.
 extern "C" int lemon_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int L, int H,
                                           int D, long long stride_b, long long stride_l, float scale, int causal,
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch_bf16<32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
-    case 64: return launch_bf16<64>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
-    case 128: return launch_bf16<128>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
+  // The width of an unmasked item's last key tile: the keys past the last
+  // full tile, rounded up to a k16 step (L = 197: 16, not 64).
+  const int tail = causal || L <= 64 || L % 64 == 0 ? 64 : (L % 64 + 15) / 16 * 16;
+  switch (D * 4 + tail / 16 - 1) {
+#define LEMON_K3_BF16(d, w) \
+  case d * 4 + w / 16 - 1: return launch_bf16<d, w>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
+    LEMON_K3_BF16(32, 16) LEMON_K3_BF16(32, 32) LEMON_K3_BF16(32, 48) LEMON_K3_BF16(32, 64)
+    LEMON_K3_BF16(64, 16) LEMON_K3_BF16(64, 32) LEMON_K3_BF16(64, 48) LEMON_K3_BF16(64, 64)
+    LEMON_K3_BF16(128, 16) LEMON_K3_BF16(128, 32) LEMON_K3_BF16(128, 48) LEMON_K3_BF16(128, 64)
+#undef LEMON_K3_BF16
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

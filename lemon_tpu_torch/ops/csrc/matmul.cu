@@ -8,28 +8,35 @@
 // type pairs:
 //   int8 x int8 -> int32, int32 accumulators (exact while |sums| < 2^31);
 //   bf16 x bf16 -> bf16, fp32 accumulators rounded once to nearest even.
-// M and N are multiples of 128 and K a multiple of 64; a K whose bytes are
-// not a whole 128-byte stage (int8 at K = 64 mod 128) is zero-filled.
+// M and N are multiples of 128 and K a multiple of 64.
 //
 // Why w and not the probe's (K, N) b. Integer wgmma (`.s32.s8.s8`, k32)
 // takes both operands K-major only; a (K, N) b would have to be transposed
 // byte by byte in shared memory. The port keeps its weights (N, K) already,
 // so both type pairs take w = b^T, and the probe transposes its constant
-// weights once, outside its timed chains. Both then stage alike: 128 rows of
-// 128 bytes an operand per stage (64 bf16 or 128 int8 values of K), and a
-// wgmma step reads 32 bytes of each row (k16 bf16, k32 int8).
+// weights once, outside its timed chains. Both then stage alike: rows of 128
+// bytes of K a stage (64 bf16 or 128 int8 values), and a wgmma step reads 32
+// bytes of each row (k16 bf16, k32 int8).
 //
-// Design: a 128 x 128 output tile per block of two warpgroups (one 64-row
-// half each), all 256 threads streaming a 3-stage ring of a and w tiles with
-// cp.async into 128-byte-swizzled shared memory (32 KB a stage, 97 KB a
-// block, two blocks an SM), each warpgroup running 4 wgmma m64n128 steps a
-// stage from K1 `high`'s descriptors (scoremax.cu, hopper.cuh). The epilogue
-// writes each thread's accumulator pairs (int2, or a bf16x2 rounded once).
-// What bounds it on an H100 at the probe's 4096^3: operations, 137 G of them,
-// 0.069 ms at 1979 TOP/s int8 and 0.139 ms at 989 TFLOP/s bf16, against
-// 34 MB of inputs and 67 MB (int32) or 34 MB (bf16) of output, 0.03 ms. This
-// first version is written for correctness: no TMA, no warp specialisation,
-// no persistence, no overlap of a tile's epilogue with the next one's loads.
+// What bounds it on an H100 at the probe's 4096^3: operations, 137 G of
+// them, 0.069 ms at 1979 TOP/s int8 and 0.139 ms at 989 TFLOP/s bf16, against
+// 34 MB of inputs and 67 MB (int32) or 34 MB (bf16) of output, 0.03 ms. So
+// the tensor cores must never wait: on loads, on the wait for the previous
+// product, or on the epilogue.
+//
+// Design: the warp-specialised pipeline of hopper.cuh. An output tile is
+// 128 x 256; each consumer warpgroup runs wgmma m64n256 on its 64 rows (half
+// the shared-memory reads per product of m64n128). The producer's one thread
+// loads each 128-byte K slice of a (128 rows, 16 KB) and w (256 rows, 32 KB)
+// by TMA into a ring of 4 stages (192 KB). A consumer keeps one wgmma group
+// in flight (wait_group 1) and hands the stage before it back to the
+// producer. The grid is persistent, one block an SM over the tiles in
+// grouped order (8 row tiles share each w column tile while it is in L2).
+// The epilogue writes 64 x 128-byte chunks of the accumulators into two
+// swizzled buffers a warpgroup and stores them by TMA, while the producer
+// already loads the next tile. TMA zero-fills what lies past K (int8 at
+// K = 64 mod 128) and past N (w rows of a last column tile when
+// N = 128 mod 256), and clips the store there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,153 +49,231 @@ namespace {
 
 using namespace lemon_hopper;
 
-constexpr int TM = 128;                      // rows of a block's output tile: 2 warpgroups x 64
-constexpr int TN = 128;                      // columns of a block's output tile
+constexpr int TM = 128;                      // rows of an output tile: 2 consumer warpgroups x 64
+constexpr int TN = 256;                      // columns of an output tile
 constexpr int TKB = 128;                     // bytes of K a stage: one 128-byte swizzle atom
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
-constexpr int TILE_BYTES = 128 * TKB;        // 128 rows of 128 B
-constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // a, w
-constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1024 B
+constexpr int STAGES = 4;
+constexpr int GROUP_M = 8;                   // row tiles a group of the tile order spans
+constexpr int A_BYTES = TM * TKB;            // 16 KB
+constexpr int W_BYTES = TN * TKB;            // 32 KB
+constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
+constexpr int CHUNK_BYTES = 64 * 128;        // an epilogue buffer: 64 rows of 128 B
+constexpr int EPI_OFF = STAGES * STAGE_BYTES;            // two buffers for each consumer warpgroup
+constexpr int BAR_OFF = EPI_OFF + 2 * 2 * CHUNK_BYTES;   // full[STAGES], empty[STAGES]
+constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;    // + slack to align to 1024 B
 
-// d (64 x 128 s32, wgmma accumulator layout) += A (64 x 32) . B (128 x 32)^T,
-// int8, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+#define MM_ACC_LIST                                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "    \
+  "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "     \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, "     \
+  "%59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "     \
+  "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, "     \
+  "%97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, "        \
+  "%113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+#define MM_OP4(c, i) c(d[i]), c(d[(i) + 1]), c(d[(i) + 2]), c(d[(i) + 3])
+#define MM_OP16(c, i) MM_OP4(c, i), MM_OP4(c, (i) + 4), MM_OP4(c, (i) + 8), MM_OP4(c, (i) + 12)
+#define MM_OP64(c, i) MM_OP16(c, i), MM_OP16(c, (i) + 16), MM_OP16(c, (i) + 32), MM_OP16(c, (i) + 48)
+#define MM_OP128(c) MM_OP64(c, 0), MM_OP64(c, 64)
+
+// d (64 x 256, wgmma accumulator layout) += A (64 x 32 B) . B (256 x 32 B)^T,
+// both K-major in shared memory: bf16 k16 into fp32, int8 k32 into s32.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " MM_ACC_LIST ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : MM_OP128("+f")
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// The two type pairs: operand, accumulator and output types, one wgmma step
-// (32 bytes of K), and the store of two neighbouring outputs.
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " MM_ACC_LIST ", %128, %129, p;\n}\n"
+      : MM_OP128("+r")
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// The two type pairs: operand, accumulator and output types with their TMA
+// types, one wgmma step (32 bytes of K), and the store of two neighbouring
+// outputs to shared memory.
 struct Int8Mma {
   using In = int8_t;
   using Acc = int;
   using Out = int;
-  __device__ static void mma(Acc (&d)[64], uint64_t a, uint64_t b) { wgmma_m64n128k32_s8(d, a, b); }
-  __device__ static void store2(Out* p, Acc v0, Acc v1) { *reinterpret_cast<int2*>(p) = make_int2(v0, v1); }
+  static constexpr CUtensorMapDataType IN_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr CUtensorMapDataType OUT_TYPE = CU_TENSOR_MAP_DATA_TYPE_INT32;
+  __device__ static void mma(Acc (&d)[128], uint64_t a, uint64_t b) { wgmma_m64n256k32_s8(d, a, b); }
+  __device__ static void store2(unsigned char* p, Acc v0, Acc v1) { *reinterpret_cast<int2*>(p) = make_int2(v0, v1); }
 };
 
 struct Bf16Mma {
   using In = __nv_bfloat16;
   using Acc = float;
   using Out = __nv_bfloat16;
-  __device__ static void mma(Acc (&d)[64], uint64_t a, uint64_t b) { wgmma_m64n128k16(d, a, b); }
-  __device__ static void store2(Out* p, Acc v0, Acc v1) {
+  static constexpr CUtensorMapDataType IN_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr CUtensorMapDataType OUT_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ static void mma(Acc (&d)[128], uint64_t a, uint64_t b) { wgmma_m64n256k16(d, a, b); }
+  __device__ static void store2(unsigned char* p, Acc v0, Acc v1) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
   }
 };
 
+// Tile `tile` of the grouped order: GROUP_M row tiles walk the column tiles
+// together, so the blocks in flight share their w tiles (and a tiles) in L2.
+__device__ __forceinline__ void tile_at(int tile, int n_m, int n_n, int& tm, int& tn) {
+  const int per_group = GROUP_M * n_n;
+  const int group = tile / per_group;
+  const int first = group * GROUP_M;
+  const int rows = min(n_m - first, GROUP_M);
+  const int in_group = tile - group * per_group;
+  tm = first + in_group % rows;
+  tn = in_group / rows;
+}
+
 template <typename Mma>
-__global__ void __launch_bounds__(THREADS, 2)
-matmul_kernel(const typename Mma::In* __restrict__ a, const typename Mma::In* __restrict__ w,
-              typename Mma::Out* __restrict__ c, int N, int K) {
+__global__ void __launch_bounds__(PIPE_THREADS, 1)
+matmul_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+              const __grid_constant__ CUtensorMap map_c, int M, int N, int K) {
+  constexpr int KE = TKB / sizeof(typename Mma::In);   // elements of K a stage
+  constexpr int CW = 128 / sizeof(typename Mma::Out);  // output columns of a 128-byte epilogue chunk
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms are 1024-aligned
-  const int tid = threadIdx.x;
-  const int wg = tid >> 7;
-  const int warp = (tid >> 5) & 3;
-  const int lane = tid & 31;
-  const long long row0 = static_cast<long long>(blockIdx.y) * TM;
-  const long long col0 = static_cast<long long>(blockIdx.x) * TN;
-  const long long kbytes = static_cast<long long>(K) * sizeof(typename Mma::In);
-  const int n_k = static_cast<int>((kbytes + TKB - 1) / TKB);
-  const auto* a_bytes = reinterpret_cast<const unsigned char*>(a);
-  const auto* w_bytes = reinterpret_cast<const unsigned char*>(w);
+  unsigned char* const base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t ring = smem_u32(base);
+  auto full = [&](int s) { return ring + BAR_OFF + 8 * s; };
+  auto empty = [&](int s) { return ring + BAR_OFF + 8 * (STAGES + s); };
 
-  // Stage `kt` of a and w into ring slot `slot`: 128 rows x 8 chunks of 16 B
-  // an operand, chunk j of row r stored at chunk j ^ (r % 8) (the 128-byte
-  // swizzle); chunks past K read as zeros.
-  auto load_stage = [&](int kt, int slot) {
-    const uint32_t st = ring + slot * STAGE_BYTES;
-#pragma unroll
-    for (int i = 0; i < 128 * 8 / THREADS; ++i) {
-      const int id = tid + i * THREADS;
-      const int r = id >> 3, j = id & 7;
-      const uint32_t off = r * 128 + ((j ^ (r & 7)) << 4);
-      const long long kb = static_cast<long long>(kt) * TKB + j * 16;
-      const bool ok = kb < kbytes;
-      const long long k_off = ok ? kb : 0;
-      cp_async16(st + off, a_bytes + (row0 + r) * kbytes + k_off, ok ? 16 : 0);
-      cp_async16(st + TILE_BYTES + off, w_bytes + (col0 + r) * kbytes + k_off, ok ? 16 : 0);
+  const int n_m = M / TM, n_n = (N + TN - 1) / TN;
+  const int n_tiles = n_m * n_n;
+  const int n_k = (K + KE - 1) / KE;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);  // one arrival from each consumer warpgroup
     }
-  };
-
-  typename Mma::Acc acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0;
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < n_k) load_stage(st, st);
-    cp_async_commit();
+    fence_mbar_init();
   }
-  for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    fence_async_barrier();  // every thread's stage kt has landed and is visible to wgmma; slot (kt-1) % STAGES is free
-    if (kt + STAGES - 1 < n_k) load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-    cp_async_commit();
+  __syncthreads();
 
-    const uint32_t st = ring + (kt % STAGES) * STAGE_BYTES;
-    const uint32_t a_s = st + wg * 64 * 128;  // this warpgroup's 64 rows of a
-    const uint32_t w_s = st + TILE_BYTES;
-    fence_operands(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < TKB / 32; ++kk) {
-      const uint32_t o = kk * 32;  // 32 bytes further along K, inside the swizzle atom
-      Mma::mma(acc, smem_desc(a_s + o), smem_desc(w_s + o));
+  if (wg == 0) {
+    // The producer: one thread keeps the ring full, across tiles.
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      RingPos<STAGES> pos;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        int tm, tn;
+        tile_at(tile, n_m, n_n, tm, tn);
+        for (int kt = 0; kt < n_k; ++kt) {
+          mbar_wait(empty(pos.stage), pos.phase ^ 1);
+          const uint32_t st = ring + pos.stage * STAGE_BYTES;
+          mbar_arrive_expect_tx(full(pos.stage), STAGE_BYTES);
+          tma_load_2d(st, &map_a, full(pos.stage), kt * KE, tm * TM);
+          tma_load_2d(st + A_BYTES, &map_w, full(pos.stage), kt * KE, tn * TN);
+          pos.advance();
+        }
+      }
     }
-    wgmma_commit();
-    wgmma_wait();
-    fence_operands(acc);
-  }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = wg - 1;  // this consumer's 64 rows of the tile
+    const int tid = threadIdx.x & 127;
+    const bool lead = tid == 0;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    unsigned char* const epi = base + EPI_OFF + cw * 2 * CHUNK_BYTES;
+    RingPos<STAGES> pos;
+    int n_stores = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      int tm, tn;
+      tile_at(tile, n_m, n_n, tm, tn);
+      typename Mma::Acc acc[128];
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0;
+      int prev = 0;
+      for (int kt = 0; kt < n_k; ++kt) {
+        mbar_wait(full(pos.stage), pos.phase);
+        const uint32_t a_s = ring + pos.stage * STAGE_BYTES + cw * 64 * 128;
+        const uint32_t w_s = ring + pos.stage * STAGE_BYTES + A_BYTES;
+        fence_operands(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TKB / 32; ++kk) Mma::mma(acc, smem_desc(a_s + 32 * kk), smem_desc(w_s + 32 * kk));
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: hand it back
+        fence_operands(acc);
+        if (kt > 0 && lead) mbar_arrive(empty(prev));
+        prev = pos.stage;
+        pos.advance();
+      }
+      wgmma_wait<0>();
+      fence_operands(acc);
+      if (lead) mbar_arrive(empty(prev));
 
-  // Accumulator layout (m64nNk*): warp w of the warpgroup holds rows
-  // 16w + lane/4 (registers 4i, 4i+1) and 16w + lane/4 + 8 (4i+2, 4i+3), at
-  // columns 8i + 2(lane%4) and the next one.
-  const long long r_base = row0 + wg * 64 + warp * 16 + (lane >> 2);
+      // Epilogue, by 128-byte column chunks. Accumulator layout (m64nNk*):
+      // warp w holds rows 16w + g (registers 4i, 4i+1) and 16w + g + 8
+      // (4i+2, 4i+3) at columns 8i + 2t and the next one. A chunk goes into
+      // the buffer whose last store has finished reading it, swizzled as the
+      // store's tensor map expects; the store clips columns past N.
+      const int row0 = tm * TM + cw * 64;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    typename Mma::Out* out = c + (r_base + 8 * h) * N + col0 + 2 * (lane & 3);
+      for (int c = 0; c < TN / CW; ++c) {
+        const int col0 = tn * TN + c * CW;
+        if (col0 >= N) break;
+        unsigned char* const buf = epi + (n_stores & 1) * CHUNK_BYTES;
+        if (lead) bulk_wait_read<1>();
+        named_sync(1 + cw, 128);
 #pragma unroll
-    for (int i = 0; i < TN / 8; ++i) Mma::store2(out + 8 * i, acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+        for (int ib = 0; ib < CW / 8; ++ib) {
+          const int i = c * (CW / 8) + ib;
+          const int byte = (8 * ib + 2 * t) * static_cast<int>(sizeof(typename Mma::Out));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + g + 8 * h;
+            Mma::store2(buf + r * 128 + ((((byte >> 4) ^ (r & 7))) << 4) + (byte & 15), acc[4 * i + 2 * h],
+                        acc[4 * i + 2 * h + 1]);
+          }
+        }
+        fence_proxy_async();
+        named_sync(1 + cw, 128);
+        if (lead) {
+          tma_store_2d(&map_c, smem_u32(buf), col0, row0);
+          bulk_commit();
+        }
+        ++n_stores;
+      }
+    }
+    if (lead) bulk_wait_all();
   }
 }
 
 template <typename Mma>
 int launch(const void* a, const void* w, void* c, int M, int N, int K, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(matmul_kernel<Mma>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(N / TN, M / TM);
-  matmul_kernel<Mma><<<grid, THREADS, SMEM, stream>>>(static_cast<const typename Mma::In*>(a),
-                                                      static_cast<const typename Mma::In*>(w),
-                                                      static_cast<typename Mma::Out*>(c), N, K);
+  constexpr cuuint64_t in_bytes = sizeof(typename Mma::In), out_bytes = sizeof(typename Mma::Out);
+  CUtensorMap map_a, map_w, map_c;
+  const cuuint64_t dims_a[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t dims_w[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(N)};
+  const cuuint64_t dims_c[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(M)};
+  const cuuint64_t row_in[1] = {K * in_bytes}, row_out[1] = {N * out_bytes};
+  const cuuint32_t box_a[2] = {TKB / in_bytes, TM}, box_w[2] = {TKB / in_bytes, TN}, box_c[2] = {128 / out_bytes, 64};
+  int e = encode_tensor_map(&map_a, Mma::IN_TYPE, 2, a, dims_a, row_in, box_a);
+  if (e == 0) e = encode_tensor_map(&map_w, Mma::IN_TYPE, 2, w, dims_w, row_in, box_w);
+  if (e == 0) e = encode_tensor_map(&map_c, Mma::OUT_TYPE, 2, c, dims_c, row_out, box_c);
+  int sms = 0;
+  static int cached[64] = {};
+  if (e == 0) e = prepare_launch(reinterpret_cast<const void*>(matmul_kernel<Mma>), SMEM, cached, &sms);
+  if (e != 0) return e;
+  const int n_tiles = (M / TM) * ((N + TN - 1) / TN);
+  matmul_kernel<Mma><<<n_tiles < sms ? n_tiles : sms, PIPE_THREADS, SMEM, stream>>>(map_a, map_w, map_c, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Shapes are checked by the Python wrapper (lemon_tpu_torch/ops/matmul.py):
-// M and N multiples of 128 (M / 128 <= 65535), K a multiple of 64. Each
-// returns the launch's error code.
+// M and N multiples of 128 (M / 128 <= 65535), K a multiple of 64, pointers
+// 16-byte aligned. Each returns the first error of the tensor maps' encoding
+// or of the launch.
 
 // c (M, N) int32 = a (M, K) int8 . w (N, K)^T int8
 extern "C" int lemon_matmul_int8(const void* a, const void* w, void* c, int M, int N, int K, void* stream) {

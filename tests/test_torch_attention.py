@@ -248,6 +248,11 @@ def test_kernel_matches_plain_on_the_card(cuda_device, shape):
     (128, 197, 12, 64, False), (128, 256, 8, 64, True), (128, 50, 12, 64, False), (128, 77, 8, 64, True),
     (3, 33, 2, 32, True), (2, 200, 3, 128, False), (4, 1, 1, 64, True), (2, 197, 24, 32, False),
     (2, 256, 4, 128, True), (3, 70, 2, 128, True), (2, 130, 1, 32, True),
+    # more items than the persistent grid has blocks; causal items past the
+    # first key tile; L = 1 at the other head dims; unmasked last key tiles of
+    # 48 and 32 keys
+    (300, 197, 12, 64, False), (5, 100, 3, 64, True), (3, 1, 2, 32, False), (2, 1, 2, 128, True),
+    (2, 100, 2, 64, False), (3, 90, 2, 128, False),
 ])
 def test_bf16_kernel_within_one_ulp_on_the_card(cuda_device, shape):
     b, l, h, d, causal = shape

@@ -252,7 +252,9 @@ def test_probe_raises_without_a_card(monkeypatch, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
-@pytest.mark.parametrize("mkn", [(128, 64, 128), (256, 192, 384), (512, 4096, 256)])
+@pytest.mark.parametrize("mkn", [(128, 64, 128), (256, 192, 384), (512, 4096, 256),
+                                 # N = 128 mod 256 over several waves; more tiles than SMs
+                                 (2048, 512, 4224), (4096, 256, 4096)])
 def test_p4_kernel_matches_plain_on_the_card(cuda_device, dtype, mkn):
     m, k, n = mkn
     a, w = _to_torch_mm(*_mm_inputs(m, k, n, dtype, seed=sum(mkn)), dtype, cuda_device)
