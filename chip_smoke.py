@@ -46,7 +46,8 @@ imports nothing of JAX. Phases, each printed on its own lines:
    ``detect.select_and_evaluate``): finite scores, test AUROC above 0.5, and
    K1, K2 and K3 launched by that run;
 10. phase 6 again with ``LEMON_TPU_PRECISION=bf16`` (the variable is set for
-    the call and restored after it), its phase times beside the fp32 run's;
+    the call and restored after it) and ``--embedding_cache`` in an emptied
+    directory, its phase times beside the fp32 run's;
 11. K3 on bf16 inputs (the bf16 kernel: TMA into a two-stage mbarrier ring,
     one self-fed warpgroup a block, persistent) at the shapes of phase 7, as
     bf16 views of a fused QKV tensor: every element within one bf16 ulp of
@@ -82,7 +83,28 @@ imports nothing of JAX. Phases, each printed on its own lines:
     (``torch.topk``). Then each probe program's ``main()`` once in-process
     (``lemon_tpu_torch.benchmarks``), every kernel count set to 0 just
     before it and read just after; each P kernel must have run in its
-    probe.
+    probe;
+15. the warm repeat: phase 10's argv again in the same process. It must
+    build no encoder, upload no embedding and render no pixel
+    (``detect._cached_encoder.builds``, ``detect._device_embs.misses``,
+    ``LazyRenderUint8Store.renders``), and its scores csv and every res.pkl
+    column must be bit-identical to phase 10's; cold and warm phase times
+    side by side. Then the same argv under ``LEMON_TPU_PRECISION=fp32`` must
+    miss both caches;
+16. ``synthetic_caption_stream`` at 62500 pairs in bf16 from an emptied
+    ``LEMON_TPU_DATA_ROOT``: the run writes the ``.npy`` shards, its train
+    split is the 50000-row comparison-set limit, the native shard gather
+    runs (``NativeShardGather.gathers``), 2048 train rows read through the
+    store equal the ram backing's bit for bit, scores are finite and K1 and
+    K2 launch; the shard write time, the phase times and the host memory
+    (VmRSS sampled every 50 ms through the run, ``resource.getrusage``);
+17. the new encoders at full width, random init, 2000 synthetic caption
+    pairs each: ``rn50`` (ModifiedResNet, embed 1024) in fp32 and bf16 and
+    ``biomed_clip`` (timm ViT-B/16 + PubMedBERT at context 256) in fp32,
+    through the CLI: finite scores, test AUROC above 0.5, K1 and K2
+    launched, and the first 64 pairs embedded on the card against the same
+    port code on the CPU from the card's weights (per-row cosine at least
+    0.9999 in fp32, 0.999 in bf16).
 
 The switches: TF32 off for fp32 products and convolutions, and cuBLAS's
 reduced-precision reductions of bf16 products off, as the CLI sets them
@@ -447,28 +469,34 @@ def phase_knn(torch, scoremax, topk, ExactKnnIndex, device):
               f"({t_search:.3f} s; plain whole-row sort {t_plain:.3f} s, host clock incl. copy-out)", flush=True)
 
 
-def phase_run_lemon(torch, scoremax, topk, precision: str = "fp32"):
-    """``run_lemon`` in-process with ``LEMON_TPU_PRECISION=precision`` set
-    for the call; (kernel launches, phase timing)."""
+RUNS = ROOT / "build" / "chip_smoke"
+B32_ARGV = ["--dataset", "synthetic_caption", "--synthetic_n", "20000", "--knn_k", "5", "--clip_model",
+            "huggingface_clip", "--noise_type", "random"]
+COMPONENTS = ("d_1", "dists_n", "D_n", "dists_tr_n", "dists_m", "D_m", "dists_tr_m")
+
+
+def run_cli(scoremax, topk, argv, env):
+    """``run_lemon(argv)`` in-process with the environment ``env`` set for the
+    call and restored after it, K1's and K2's counts set to 0 just before it.
+    Returns (kernel launches, wall seconds, what the call wrote to out.txt)."""
     from lemon_tpu_torch.cli.run_lemon import main as run_lemon
 
-    out = ROOT / "build" / "chip_smoke" / f"run_lemon_{precision}"
-    shutil.rmtree(out, ignore_errors=True)
-    argv = ["--output_dir", str(out), "--dataset", "synthetic_caption", "--synthetic_n", "20000",
-            "--knn_k", "5", "--clip_model", "huggingface_clip", "--noise_type", "random"]
+    log_file = Path(argv[argv.index("--output_dir") + 1]) / "out.txt"
+    offset = log_file.stat().st_size if log_file.exists() else 0
     stdout, stderr = sys.stdout, sys.stderr
-    saved = os.environ.get("LEMON_TPU_PRECISION")
-    os.environ["LEMON_TPU_PRECISION"] = precision
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     scoremax.scores_blockmax.launches = 0
     topk.topk.launches = 0
     t0 = time.perf_counter()
     try:
         run_lemon(argv)
     finally:
-        if saved is None:
-            del os.environ["LEMON_TPU_PRECISION"]
-        else:
-            os.environ["LEMON_TPU_PRECISION"] = saved
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         tees = (sys.stdout, sys.stderr)
         sys.stdout, sys.stderr = stdout, stderr
         for tee in tees:
@@ -476,27 +504,49 @@ def phase_run_lemon(torch, scoremax, topk, precision: str = "fp32"):
                 tee.close()
     wall = time.perf_counter() - t0
     launches = {"scores_blockmax": scoremax.scores_blockmax.launches, "topk": topk.topk.launches}
+    return launches, wall, log_file.read_bytes()[offset:].decode()
 
-    for name in ("res.pkl", "know_val_labels_scores.csv", "done"):
-        check((out / name).exists(), f"run_lemon: {name} missing")
+
+def read_run(out, n: int, label: str, log: str):
+    """A run_lemon output directory held to the output contract: the files,
+    ``n`` finite scores, finite components, test AUROC above 0.5. Returns
+    (res.pkl, the scores csv's bytes, AUROC by split, phase timing)."""
     import numpy as np
     import pandas as pd
 
+    for name in ("res.pkl", "know_val_labels_scores.csv", "done"):
+        check((out / name).exists(), f"{label}: {name} missing")
+    csv = (out / "know_val_labels_scores.csv").read_bytes()
     scores = pd.read_csv(out / "know_val_labels_scores.csv")["pred_score"].to_numpy()
     with open(out / "res.pkl", "rb") as f:
         res = pickle.load(f)
     df = res["df"]
-    check(len(scores) == 20000 and np.isfinite(scores).all(), "run_lemon: non-finite or missing pred_score")
-    for col in ("d_1", "dists_n", "D_n", "dists_tr_n", "dists_m", "D_m", "dists_tr_m"):
+    check(len(scores) == n and np.isfinite(scores).all(), f"{label}: non-finite or missing pred_score")
+    for col in COMPONENTS:
         vals = np.stack(df[col].to_list()) if col != "d_1" else df[col].to_numpy()
-        check(bool(np.isfinite(vals).all()), f"run_lemon: non-finite {col}")
+        check(bool(np.isfinite(vals).all()), f"{label}: non-finite {col}")
     agg = res["agg_results"]["know_val_labels"]
     auroc = {s: float(agg[s]["AUROC"]) for s in ("train", "val", "test")}
     timing = {}
-    log = (out / "out.txt").read_text()
     for line in log.splitlines():
         if line.startswith("Phase timing: "):
             timing = ast.literal_eval(line.removeprefix("Phase timing: "))
+    check(bool(timing), f"{label}: no phase timing in its log")
+    check(auroc["test"] > 0.5, f"{label}: test AUROC {auroc['test']} <= 0.5")
+    return res, csv, auroc, timing
+
+
+def phase_run_lemon(torch, scoremax, topk, precision: str = "fp32", embedding_cache=None):
+    """``run_lemon`` in-process with ``LEMON_TPU_PRECISION=precision`` set
+    for the call (and ``--embedding_cache`` when given); (kernel launches,
+    phase timing, the run: argv, res.pkl, scores csv bytes)."""
+    out = RUNS / f"run_lemon_{precision}"
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--output_dir", str(out), *B32_ARGV]
+    if embedding_cache is not None:
+        argv += ["--embedding_cache", str(embedding_cache)]
+    launches, wall, log = run_cli(scoremax, topk, argv, {"LEMON_TPU_PRECISION": precision})
+    res, csv, auroc, timing = read_run(out, 20000, f"run_lemon {precision}", log)
     check("precision: Precision(" in log and (precision == "fp32") == ("compute_dtype=torch.float32" in log),
           f"run_lemon {precision}: the run did not take the mode")
     print(f"run_lemon {precision} synthetic_caption n=20000 k=5 huggingface_clip (ViT-B/32, random init): "
@@ -504,9 +554,190 @@ def phase_run_lemon(torch, scoremax, topk, precision: str = "fp32"):
     print(f"run_lemon {precision} phase timing (s): " + json.dumps({k: round(v, 4) for k, v in timing.items()}),
           flush=True)
     print(f"run_lemon {precision} kernel launches: {launches}", flush=True)
-    check(auroc["test"] > 0.5, f"run_lemon {precision}: test AUROC {auroc['test']} <= 0.5")
     check(all(n > 0 for n in launches.values()), f"run_lemon {precision}: a kernel was not launched: {launches}")
-    return launches, timing
+    return launches, timing, {"argv": argv, "res": res, "csv": csv, "wall": wall}
+
+
+def cache_counts():
+    from lemon_tpu_torch import detect
+    from lemon_tpu_torch.data.streaming import LazyRenderUint8Store
+
+    return {"encoder_builds": detect._cached_encoder.builds, "embedding_uploads": detect._device_embs.misses,
+            "embedding_hits": detect._device_embs.hits, "renders": LazyRenderUint8Store.renders}
+
+
+def phase_warm_repeat(torch, scoremax, topk, cold, cold_timing):
+    """Phase 15: phase 10's argv (bf16, ``--embedding_cache``) again in the
+    same process. The warm call builds no encoder, uploads no embedding and
+    renders no pixel, and its scores and every res.pkl column are
+    bit-identical to the cold call's; then the same argv in fp32 misses both
+    caches. Returns {path: kernel launches}."""
+    before = cache_counts()
+    launches, wall, log = run_cli(scoremax, topk, cold["argv"], {"LEMON_TPU_PRECISION": "bf16"})
+    after = cache_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    res, csv, auroc, timing = read_run(Path(cold["argv"][1]), 20000, "warm repeat", log)
+    print(f"warm repeat (bf16, --embedding_cache, same argv, same process): wall {wall:.2f} s against the cold "
+          f"{cold['wall']:.2f} s; caches {delta}; AUROC {auroc}", flush=True)
+    print_side_by_side("run_lemon ViT-B/32 bf16", cold_timing, timing, ("cold", "warm"))
+    print(f"warm repeat kernel launches: {launches}", flush=True)
+    check(delta["encoder_builds"] == 0 and delta["embedding_uploads"] == 0 and delta["renders"] == 0,
+          f"warm repeat: a cache missed: {delta}")
+    check("encoder cache hit" in log and "precision: Precision(" in log, "warm repeat: no encoder cache hit logged")
+    check(csv == cold["csv"], "warm repeat: the scores csv differs from the cold call's")
+    df0, df1 = cold["res"]["df"], res["df"]
+    check(list(df0.columns) == list(df1.columns), "warm repeat: res.pkl columns differ")
+    for col in df0.columns:
+        a, b = df0[col].to_list(), df1[col].to_list()
+        same = len(a) == len(b) and all(
+            (x.tobytes() == y.tobytes()) if hasattr(x, "tobytes") else (x == y or (x != x and y != y))
+            for x, y in zip(a, b))
+        check(same, f"warm repeat: res.pkl column {col} differs from the cold call's")
+    check(res["agg_results"] == cold["res"]["agg_results"], "warm repeat: agg_results differ")
+    check(all(n > 0 for n in launches.values()), f"warm repeat: a kernel was not launched: {launches}")
+    print(f"warm repeat: pred_score and all {len(df0.columns)} res.pkl columns bit-identical to the cold call's",
+          flush=True)
+
+    before = cache_counts()
+    fp32_launches, wall, log = run_cli(scoremax, topk, cold["argv"], {"LEMON_TPU_PRECISION": "fp32"})
+    after = cache_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    read_run(Path(cold["argv"][1]), 20000, "repeat in fp32", log)
+    print(f"the same argv under LEMON_TPU_PRECISION=fp32: wall {wall:.2f} s; caches {delta}", flush=True)
+    check(delta["encoder_builds"] == 1 and delta["embedding_uploads"] == 3 and delta["embedding_hits"] == 0,
+          f"repeat in fp32: a cache did not miss: {delta}")
+    check("compute_dtype=torch.float32" in log and "encoder cache hit" not in log, "repeat in fp32: wrong mode")
+    return {"run_lemon_vit_b32_bf16_warm": launches, "run_lemon_vit_b32_fp32_after_bf16_cache": fp32_launches}
+
+
+def rss_mib() -> float:
+    """This process's resident set (VmRSS of /proc/self/status), MiB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1024
+    fail("no VmRSS in /proc/self/status")
+
+
+class RssPeak:
+    """The largest VmRSS sampled every 50 ms between ``__enter__`` and
+    ``__exit__`` (the kernel's high-water mark cannot be reset on every
+    host, so a phase's own peak is sampled)."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = rss_mib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, rss_mib())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.end = rss_mib()
+        self.peak = max(self.peak, self.end)
+
+
+def phase_stream(torch, scoremax, topk, n: int = 62500):
+    """Phase 16: ``synthetic_caption_stream`` at 62500 pairs in bf16 from an
+    emptied data root, so the train split is the 50000-row comparison-set
+    limit and the shards are written by the run. The native gather ran; 2048
+    train rows read through the store equal the ram backing's bit for bit.
+    Returns the run's kernel launches."""
+    import numpy as np
+
+    from lemon_tpu_torch.data.datasets import get_dataset
+    from lemon_tpu_torch.data.native_loader import NativeShardGather
+
+    root, out = RUNS / "data_root", RUNS / "stream"
+    for d in (root, out):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = ["--output_dir", str(out), "--dataset", "synthetic_caption_stream", "--synthetic_n", str(n), "--knn_k",
+            "5", "--clip_model", "huggingface_clip", "--noise_type", "random"]
+    import resource
+
+    gathers = NativeShardGather.gathers
+    with RssPeak() as mem:
+        launches, wall, log = run_cli(scoremax, topk, argv, {"LEMON_TPU_PRECISION": "bf16",
+                                                             "LEMON_TPU_DATA_ROOT": str(root)})
+    gathers = NativeShardGather.gathers - gathers
+    _, _, auroc, timing = read_run(out, n, "stream", log)
+    write = [line for line in log.splitlines() if line.startswith("synthetic_caption_stream: wrote")]
+    check(len(write) == 1, "stream: the run did not write its shards")
+    print(f"stream bf16 synthetic_caption_stream n={n} (train = comparison set = {n * 4 // 5}) huggingface_clip: wall "
+          f"{wall:.2f} s; {write[0]}; AUROC {auroc}; native gathers {gathers}", flush=True)
+    print(f"stream bf16 phase timing (s): " + json.dumps({k: round(v, 4) for k, v in timing.items()}), flush=True)
+    print(f"stream host RSS (MiB): {mem.start:.0f} before the run, {mem.end:.0f} after it, {mem.peak:.0f} at its "
+          f"peak (sampled every 50 ms; {mem.peak - mem.start:.0f} above the start); ru_maxrss of the process "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024:.0f}", flush=True)
+    print(f"stream kernel launches: {launches}", flush=True)
+    check(gathers > 0, "stream: the native shard gather did not run")
+    check(all(k > 0 for k in launches.values()), f"stream: a kernel was not launched: {launches}")
+    os.environ["LEMON_TPU_DATA_ROOT"] = str(root)
+    try:
+        stream = get_dataset("synthetic_caption_stream", 0, noise_type="random", synthetic_n=n)[0]
+        ram = get_dataset("synthetic_caption", 0, noise_type="random", synthetic_n=n)[0]
+    finally:
+        del os.environ["LEMON_TPU_DATA_ROOT"]
+    check(len(stream) == n * 4 // 5, f"stream: train split of {len(stream)} rows, not {n * 4 // 5}")
+    ids = np.arange(min(2048, len(stream)))
+    check(bool(np.array_equal(stream.images[ids], ram.images[ids])), "stream: store rows differ from the ram backing")
+    print(f"stream: {len(ids)} train rows read through the shard store bit-equal to the ram backing's", flush=True)
+    return launches
+
+
+def phase_new_encoders(torch, scoremax, topk, n: int = 2000):
+    """Phase 17: random-init detections at full width, 2000 synthetic
+    caption pairs each: rn50 in fp32 and bf16, biomed_clip in fp32. The
+    first 64 pairs embedded on the card agree with the same port code on the
+    CPU from the card's weights. Returns {path: kernel launches}."""
+    import numpy as np
+
+    from lemon_tpu_torch import detect
+    from lemon_tpu_torch.data.datasets import get_dataset
+    from lemon_tpu_torch.models.biomed import BiomedClipModel
+    from lemon_tpu_torch.models.clip import ClipModel
+    from lemon_tpu_torch.models.encoder import ClipEncoder
+
+    n_cpu = 64
+    head = get_dataset("synthetic_caption", 0, noise_type="random", synthetic_n=n)[0].subset(np.arange(n_cpu))
+    texts = list(head.sentence)
+    cpu = torch.device("cpu")
+    paths = {}
+    for name, precision in (("rn50", "fp32"), ("rn50", "bf16"), ("biomed_clip", "fp32")):
+        out = RUNS / f"{name}_{precision}"
+        shutil.rmtree(out, ignore_errors=True)
+        argv = ["--output_dir", str(out), "--dataset", "synthetic_caption", "--synthetic_n", str(n), "--knn_k", "5",
+                "--clip_model", name, "--noise_type", "random"]
+        launches, wall, log = run_cli(scoremax, topk, argv, {"LEMON_TPU_PRECISION": precision})
+        _, _, auroc, timing = read_run(out, n, f"{name} {precision}", log)
+        (enc,) = detect._ENCODER_CACHE.values()
+        model = enc.model
+        twin = BiomedClipModel(model.cfg) if isinstance(model, BiomedClipModel) else ClipModel(model.cfg, model.precision)
+        twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        cpu_enc = ClipEncoder(twin, cpu, batch_size=n_cpu, tokenize_fn=enc._tokenize_fn)
+        with torch.inference_mode():
+            g_img, g_txt = enc.embed_split(head, texts)
+            c_img, c_txt = cpu_enc.embed_split(head, texts)
+        cos = min(row_cos(torch, g_img, c_img), row_cos(torch, g_txt, c_txt))
+        bar = 0.9999 if precision == "fp32" else CARD_CPU_COS
+        print(f"{name} {precision} synthetic_caption n={n} k=5 (random init, full width): wall {wall:.2f} s; "
+              f"AUROC {auroc}; first {n_cpu} pairs card vs CPU per-row cosine (min, mean) {cos} (bar {bar})",
+              flush=True)
+        print(f"{name} {precision} phase timing (s): " + json.dumps({k: round(v, 4) for k, v in timing.items()}),
+              flush=True)
+        print(f"{name} {precision} kernel launches: {launches}", flush=True)
+        check(cos[0] >= bar, f"{name} {precision}: card vs CPU cosine {cos} < {bar}")
+        check(all(k > 0 for k in launches.values()), f"{name} {precision}: a kernel was not launched: {launches}")
+        paths[f"detect_{name}_{precision}"] = launches
+        del enc, model, twin, cpu_enc
+        detect._ENCODER_CACHE.clear()
+    return paths
 
 
 def phase_vit_b16_flash(torch, scoremax, topk, attention, device, precision: str = "fp32", fp32_check=None):
@@ -825,10 +1056,9 @@ def phase_probes(torch, counters):
     return paths
 
 
-def print_side_by_side(what: str, fp32: dict, bf16: dict) -> None:
-    print(f"{what} phase timing (s), fp32 | bf16: "
-          + json.dumps({k: [round(fp32.get(k, 0.0), 4), round(bf16.get(k, 0.0), 4)] for k in {**fp32, **bf16}}),
-          flush=True)
+def print_side_by_side(what: str, a: dict, b: dict, names=("fp32", "bf16")) -> None:
+    print(f"{what} phase timing (s), {names[0]} | {names[1]}: "
+          + json.dumps({k: [round(a.get(k, 0.0), 4), round(b.get(k, 0.0), 4)] for k in {**a, **b}}), flush=True)
 
 
 def main() -> None:
@@ -865,8 +1095,10 @@ def main() -> None:
     k1_err, k1_times = phase_k1(torch, scoremax, device)
     k2_err, k2_times = phase_k2(torch, topk, device)
     phase_knn(torch, scoremax, topk, ExactKnnIndex, device)
-    b32, b32_timing = phase_run_lemon(torch, scoremax, topk)
-    b32_bf16, b32_bf16_timing = phase_run_lemon(torch, scoremax, topk, "bf16")
+    b32, b32_timing, _ = phase_run_lemon(torch, scoremax, topk)
+    embedding_cache = RUNS / "embedding_cache"
+    shutil.rmtree(embedding_cache, ignore_errors=True)
+    b32_bf16, b32_bf16_timing, b32_bf16_run = phase_run_lemon(torch, scoremax, topk, "bf16", embedding_cache)
     print_side_by_side("run_lemon ViT-B/32", b32_timing, b32_bf16_timing)
     k3_err, k3_times = phase_k3(torch, attention, device)
     k3b_err, k3b_times = phase_k3_bf16(torch, attention, device)
@@ -895,10 +1127,13 @@ def main() -> None:
                           ("block_maxima", "probe_knn_decomp"), ("scores_blockmax_t", "probe_scoremax2"),
                           ("topk_colids", "probe_knn_select3")):
         check(probes[probe][kernel] > 0, f"{probe}: {kernel} was not launched: {probes[probe]}")
+    warm = phase_warm_repeat(torch, scoremax, topk, b32_bf16_run, b32_bf16_timing)
+    stream = phase_stream(torch, scoremax, topk)
+    encoders = phase_new_encoders(torch, scoremax, topk)
 
     main_paths = {"run_lemon_vit_b32": b32, "run_lemon_vit_b32_bf16": b32_bf16, "detect_vit_b16_flash": b16,
                   "detect_vit_b16_flash_bf16": b16_bf16, "knn_select_fused_probe": {"fused_gather_topk": k4_launches},
-                  **probes}
+                  **probes, **warm, "run_lemon_stream_62500_bf16": stream, **encoders}
 
     def launches(name):
         paths = {path: counts.get(name, 0) for path, counts in main_paths.items()}

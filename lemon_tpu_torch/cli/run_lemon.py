@@ -9,10 +9,14 @@ Outputs: args.json, out.txt/err.txt, res.pkl, {criteria}_scores.csv, done.
 
 Differences from the JAX CLI: ``--platform`` is ``cuda`` (default) or
 ``cpu`` and a run without a GPU raises unless ``--platform cpu`` is given;
-``--mesh`` and the ``biomed_clip`` model raise ``NotImplementedError``. The
-towers' precision mode comes from ``LEMON_TPU_PRECISION`` (``fp32``, the
-default, ``bf16``, ``int8`` or ``int8_static``), as in the JAX CLI. The towers run the plain attention route, as the
-JAX CLI runs its XLA one: neither CLI has an attention flag.
+``--mesh`` raises ``NotImplementedError``; ``--clip_model`` also takes
+``rn50``, a registry model the JAX CLI does not list. The towers' precision
+mode comes from ``LEMON_TPU_PRECISION`` (``fp32``, the default, ``bf16``,
+``int8`` or ``int8_static``; ``biomed_clip`` runs in fp32), as in the JAX
+CLI. The towers run the plain attention route, as the JAX CLI runs its XLA
+one: neither CLI has an attention flag. Repeated ``main`` calls in one
+process share an encoder and, under ``--embedding_cache``, the device
+embeddings (``detect.py``).
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--normalize_d1", action="store_true")
     p.add_argument("--clip_model", type=str, default="huggingface_clip",
                    choices=["huggingface_clip", "biomed_clip", "mimic_clip_from_scratch_random",
-                            "mimic_clip_from_scratch_cat", "chexzero", "cc3m_clip_from_scratch", "tiny"])
+                            "mimic_clip_from_scratch_cat", "chexzero", "cc3m_clip_from_scratch", "tiny", "rn50"])
     p.add_argument("--knn_k", default=5, type=int)
     p.add_argument("--batch_size", default=128, type=int)
     p.add_argument("--seed", default=0, type=int)

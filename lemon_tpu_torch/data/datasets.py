@@ -6,12 +6,15 @@ Roots resolve through ``LEMON_TPU_DATA_ROOT`` (default ``./data``) and
 ``LEMON_TPU_PATH_<NAME>``, the same variables the JAX package reads, so both
 packages find the same files.
 
-Ported names: the synthetic generators (``synthetic``,
-``synthetic_caption``), CIFAR-10/100 (+ ``_full``) from the standard python
-pickles, and the captioning datasets read through their
-``multimodal_mislabel_split.pkl``. Not ported yet: ``synthetic_caption_stream``
-(disk-sharded store), ``mini_imagenet``/``stanford_cars`` (stratified split)
-and caption clustering.
+Names: the synthetic generators (``synthetic``, ``synthetic_caption``, whose
+images render at the first pixel read, and ``synthetic_caption_stream``,
+whose images are ``.npy`` shards under ``<data_root>/synthetic_stream``),
+CIFAR-10/100 (+ ``_full``) from the standard python pickles, the captioning
+datasets read through their ``multimodal_mislabel_split.pkl``, and
+``mini_imagenet``/``stanford_cars`` through their
+``multimodal_mislabel_split.csv``. An image source is an array or a store of
+:mod:`lemon_tpu_torch.data.streaming`; ``subset`` keeps a store lazy. Not
+ported: ``cifar10c`` and caption clustering.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import pickle
 import queue
 import tarfile
 import threading
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Iterable, Iterator, List, Optional, Tuple
@@ -34,7 +38,8 @@ from lemon_tpu_torch.data.noise import (
     caption_noise_random,
     flip_labels,
 )
-from lemon_tpu_torch.data.splits import split_80_10_10, split_80_20
+from lemon_tpu_torch.data.splits import split_80_10_10, split_80_20, stratified_50_25_25
+from lemon_tpu_torch.data.streaming import LazyRenderUint8Store, ShardedUint8Store, ShardWriter, subset_images
 
 CLF_DATASETS = ("cifar10", "cifar100", "cifar10_full", "cifar100_full", "mini_imagenet", "stanford_cars")
 CAPTION_DATASETS = ("mscoco", "flickr30k", "mimiccxr_caption", "mmimdb", "cc3m")
@@ -55,7 +60,7 @@ class ClassificationSplit:
 
     y_clean: np.ndarray
     y_noisy: np.ndarray
-    images: Optional[np.ndarray] = None  # (N, H, W, 3) uint8
+    images: Optional[np.ndarray] = None  # (N, H, W, 3) uint8, or a store
     paths: Optional[List[str]] = None
 
     def __len__(self) -> int:
@@ -69,7 +74,7 @@ class ClassificationSplit:
         return ClassificationSplit(
             y_clean=self.y_clean[idx],
             y_noisy=self.y_noisy[idx],
-            images=None if self.images is None else self.images[idx],
+            images=subset_images(self.images, idx),
             paths=None if self.paths is None else [self.paths[i] for i in idx],
         )
 
@@ -94,7 +99,7 @@ class CaptioningSplit:
         return CaptioningSplit(
             sentence=self.sentence[idx],
             gold_sentence=self.gold_sentence[idx],
-            images=None if self.images is None else self.images[idx],
+            images=subset_images(self.images, idx),
             paths=None if self.paths is None else [self.paths[i] for i in idx],
         )
 
@@ -239,12 +244,21 @@ def synthetic_classification(n=600, n_classes=10, image_size=32, data_seed=0, no
     return _classification_triplet(images, y, noisy, tr, va, te)
 
 
-def synthetic_captioning(n=400, image_size=32, data_seed=0, noise_level=0.4, flip_type="random"):
-    """Synthetic image-caption pairs with caption-swap noise; the same
-    pixels and captions as lemon_tpu/data/datasets.py:290-379 with the
-    in-memory backing, rendered eagerly."""
+def synthetic_captioning(n=400, image_size=32, data_seed=0, noise_level=0.4, flip_type="random", backing="ram"):
+    """Synthetic image-caption pairs with caption-swap noise; the pixels and
+    captions of lemon_tpu/data/datasets.py:290-383.
+
+    ``backing="ram"``: a :class:`LazyRenderUint8Store` with the JAX
+    package's token, rendered at the first pixel read (a warm run whose
+    embeddings are cached reads none). ``backing="memmap"``: ``.npy`` shards
+    of 8192 rows cached under ``<data_root>/synthetic_stream`` (the JAX
+    package's directory and format, so either package reads the other's),
+    written in chunks on the first call; host memory stays bounded.
+    """
     import pandas as pd
 
+    if backing not in ("ram", "memmap"):
+        raise ValueError(f"backing must be 'ram' or 'memmap', got {backing!r}")
     rng = np.random.default_rng(data_seed)
     n_concepts = 12
     concept = rng.integers(0, n_concepts, n)
@@ -260,13 +274,33 @@ def synthetic_captioning(n=400, image_size=32, data_seed=0, noise_level=0.4, fli
     ])
 
     def gen_chunk(lo: int, hi: int) -> np.ndarray:
-        # per-chunk RNG keyed on the chunk start, as in the JAX package
+        # per-chunk RNG keyed on the chunk start: the same pixels for any
+        # chunking, so the two backings agree bit for bit
         crng = np.random.default_rng((data_seed, lo))
         noise = crng.normal(0, 10, (hi - lo, image_size, image_size, 3))
         return np.clip(templates[concept[lo:hi]] + noise, 0, 255).astype(np.uint8)
 
     chunk = 8192
-    images = np.concatenate([gen_chunk(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)])
+    if backing == "memmap":
+        cache = data_root() / "synthetic_stream" / f"cap_n{n}_s{image_size}_seed{data_seed}"
+        if (cache / "manifest.json").exists():
+            images = ShardedUint8Store.open(cache)
+        else:
+            t0 = time.perf_counter()
+            writer = ShardWriter(cache, shard_rows=chunk)
+            for lo in range(0, n, chunk):
+                writer.append(gen_chunk(lo, min(lo + chunk, n)))
+            images = writer.finish()
+            print(f"synthetic_caption_stream: wrote {n} rows to {cache} in {time.perf_counter() - t0:.2f} s", flush=True)
+        if len(images) != n:
+            raise ValueError(f"{cache} holds {len(images)} rows, expected {n}")
+    else:
+        images = LazyRenderUint8Store(
+            lambda: np.concatenate([gen_chunk(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]),
+            n,
+            (image_size, image_size, 3),
+            token=f"synthetic_captioning:v1:n={n}:size={image_size}:seed={data_seed}",
+        )
     df = pd.DataFrame({"sentence": sentences, "cat_labels": [[int(c)] for c in concept], "nouns_int": [[int(c)] for c in concept]})
     tr, va, te = split_80_10_10(n, data_seed)
     out = []
@@ -281,7 +315,7 @@ def synthetic_captioning(n=400, image_size=32, data_seed=0, noise_level=0.4, fli
         out.append(CaptioningSplit(
             sentence=noised["sentence"].to_numpy(object),
             gold_sentence=noised["gold_sentence"].to_numpy(object),
-            images=images[idx],
+            images=subset_images(images, idx),
         ))
     return tuple(out)
 
@@ -330,12 +364,34 @@ def load_captioning_dataset(name: str, data_seed: int, percent_flips: float, fli
     return tuple(out)
 
 
+def load_large_scale_dataset(name: str, seed: int):
+    """mini_imagenet / stanford_cars with real web noise
+    (lemon_tpu/data/datasets.py:446-467; lib/datasets/utils.py:325-347):
+    ``multimodal_mislabel_split.csv`` (filename or path, label, is_clean),
+    split 50/25/25 stratified on ``is_clean``; the clean label of a noisy
+    row is unknown and encoded as ``label - 1``."""
+    import pandas as pd
+
+    root = dataset_path(name)
+    df = pd.read_csv(root / "multimodal_mislabel_split.csv")
+    if "path" not in df:
+        df["path"] = [str(root / fn) for fn in df["filename"]]
+    out = []
+    for idx in stratified_50_25_25(df["is_clean"].to_numpy(), seed):
+        sub = df.iloc[np.sort(idx)]
+        noisy = sub["label"].to_numpy(np.int64)
+        clean = np.where(sub["is_clean"].to_numpy(bool), noisy, noisy - 1)
+        out.append(ClassificationSplit(y_clean=clean, y_noisy=noisy, paths=list(sub["path"].values)))
+    return tuple(out)
+
+
 def get_dataset(name: str, data_seed: int, noise_level: float = 0.4, noise_type: str = "real", synthetic_n: int = 600):
     """(train, val, test) splits (lib/datasets/utils.py:350-430)."""
-    if name == "synthetic_caption":
+    if name.startswith("synthetic_caption"):
         return synthetic_captioning(
             synthetic_n, data_seed=data_seed, noise_level=noise_level,
             flip_type=noise_type if noise_type in ("random", "noun", "cat") else "random",
+            backing="memmap" if name.endswith("_stream") else "ram",
         )
     if name == "synthetic":
         return synthetic_classification(
@@ -360,4 +416,8 @@ def get_dataset(name: str, data_seed: int, noise_level: float = 0.4, noise_type:
         )
     if name in CAPTION_DATASETS:
         return load_captioning_dataset(name, data_seed, noise_level, noise_type)
+    if name in ("mini_imagenet", "stanford_cars"):
+        if noise_type != "real":
+            raise ValueError(f"{name} carries real web noise: --noise_type must be 'real', got {noise_type!r}")
+        return load_large_scale_dataset(name, data_seed)
     raise NotImplementedError(f"dataset '{name}' is not ported to lemon_tpu_torch yet")

@@ -15,15 +15,25 @@ Semantics notes (as in the JAX package): cosine neighbour scores are negated
 into distances (run_lemon.py:270,286), euclidean ones are squared distances;
 the train split searches k+1 and drops itself per comparison-set membership
 (run_lemon.py:257-263); the 50k comparison subsample is drawn from
-``RandomState(seed)`` (run_lemon.py:122-127). The JAX package's in-process
-device caches (embeddings and encoder) are not ported yet.
+``RandomState(seed)`` (run_lemon.py:122-127).
+
+Two in-process caches serve repeated detections (a sweep over k, seed,
+ablation or hyperparameters; lemon_tpu/detect.py:199-229, :492-520): the
+encoder of the last (model, seed, batch size, checkpoint, precision,
+device), and, under ``--embedding_cache``, up to four (image, text) pairs of
+embeddings on the device, keyed on their content (``ClipEncoder.cache_key``)
+and the device. A warm repeat builds no encoder, uploads no embedding and,
+with a procedural dataset, renders no pixel. A hit hands the same tensors to
+a later run, so nothing downstream writes them in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import pickle
 import time
+from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -31,12 +41,13 @@ import numpy as np
 import torch
 
 from lemon_tpu_torch.core.device import resolve_device
+from lemon_tpu_torch.core.precision import default_precision
 from lemon_tpu_torch.core.profiling import PhaseTimer
 from lemon_tpu_torch.data.datasets import CLF_DATASETS, get_dataset
 from lemon_tpu_torch.data.labels import LABEL_SETS
 from lemon_tpu_torch.knn.index import ExactKnnIndex, train_split_exclusion
 from lemon_tpu_torch.models.encoder import ClipEncoder
-from lemon_tpu_torch.models.registry import create_encoder
+from lemon_tpu_torch.models.registry import checkpoint_path, create_encoder
 from lemon_tpu_torch.scoring.lemon import NeighborLogs, calc_scores, unpack_hparams
 from lemon_tpu_torch.scoring.metrics import eval_metrics
 from lemon_tpu_torch.scoring.optimize import default_grid, maximize_metric
@@ -160,6 +171,35 @@ def _cache_kwargs(cfg, encoder: ClipEncoder, split, texts) -> dict:
     return dict(cache_key=encoder.cache_key(split, texts), cache_dir=Path(cfg.embedding_cache))
 
 
+# (cache_key, device) -> (img, txt) fp32 on the device, least recently used
+# first; four entries hold a detection's comparison set, val and test
+_DEV_EMB_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_DEV_EMB_CACHE_MAX = 4
+
+
+def _device_embs(cache_key: Optional[str], img: np.ndarray, txt: np.ndarray, device: torch.device):
+    """(img, txt) as fp32 tensors on ``device``, uploaded once per key and
+    reused by later detections; without a key, uploaded each call.
+    ``_device_embs.hits`` and ``.misses`` count lookups and uploads."""
+    key = None if cache_key is None else (cache_key, str(device))
+    hit = _DEV_EMB_CACHE.get(key) if key is not None else None
+    if hit is not None:
+        _DEV_EMB_CACHE.move_to_end(key)
+        _device_embs.hits += 1
+        return hit
+    _device_embs.misses += 1
+    hit = tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device) for a in (img, txt))
+    if key is not None:
+        _DEV_EMB_CACHE[key] = hit
+        while len(_DEV_EMB_CACHE) > _DEV_EMB_CACHE_MAX:
+            _DEV_EMB_CACHE.popitem(last=False)
+    return hit
+
+
+_device_embs.hits = 0
+_device_embs.misses = 0
+
+
 def build_neighbor_logs(cfg: DetectionConfig, encoder: ClipEncoder, splits: Dict[str, object], label_set, timer: PhaseTimer) -> NeighborLogs:
     """Embed everything, build the indexes, extract all score components."""
     device = encoder.device
@@ -178,16 +218,16 @@ def build_neighbor_logs(cfg: DetectionConfig, encoder: ClipEncoder, splits: Dict
     in_compr[compr_ids] = True
 
     compr_texts, _, _, _ = _texts_for_split(cfg, compr, label_set)
+    compr_kwargs = _cache_kwargs(cfg, encoder, compr, compr_texts)
     with timer.phase("embed_compr"):
-        img_tr, txt_tr = encoder.embed_split(compr, compr_texts, **_cache_kwargs(cfg, encoder, compr, compr_texts))
+        img_tr, txt_tr = encoder.embed_split(compr, compr_texts, **compr_kwargs)
 
     metric = "ip" if cfg.dist_type == "cosine" else "l2"
     knn_prec = _resolve_knn_precision(cfg)
     index_img = ExactKnnIndex(metric=metric, device=device, tile=cfg.knn_tile or None, precision=knn_prec)
     index_txt = ExactKnnIndex(metric=metric, device=device, tile=cfg.knn_tile or None, precision=knn_prec)
-    # one upload each, shared by the indexes and the component gathers
-    img_tr_dev = torch.from_numpy(np.ascontiguousarray(img_tr, np.float32)).to(device)
-    txt_tr_dev = torch.from_numpy(np.ascontiguousarray(txt_tr, np.float32)).to(device)
+    # one upload each (none on a warm repeat), shared by the indexes and the component gathers
+    img_tr_dev, txt_tr_dev = _device_embs(compr_kwargs.get("cache_key"), img_tr, txt_tr, device)
     index_img.add(img_tr_dev)
     index_txt.add(txt_tr_dev)
     if cfg.dist_type == "cosine":
@@ -211,10 +251,10 @@ def build_neighbor_logs(cfg: DetectionConfig, encoder: ClipEncoder, splits: Dict
             img, txt = img_tr, txt_tr  # same transform -> identical embeddings
             img_q, txt_q = img_tr_dev, txt_tr_dev
         else:
+            split_kwargs = _cache_kwargs(cfg, encoder, split, noisy_texts)
             with timer.phase(f"embed_{sname}"):
-                img, txt = encoder.embed_split(split, noisy_texts, **_cache_kwargs(cfg, encoder, split, noisy_texts))
-            img_q = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(device)
-            txt_q = torch.from_numpy(np.ascontiguousarray(txt, np.float32)).to(device)
+                img, txt = encoder.embed_split(split, noisy_texts, **split_kwargs)
+            img_q, txt_q = _device_embs(split_kwargs.get("cache_key"), img, txt, device)
 
         extra = 1 if sname == "train" else 0
         with timer.phase("knn_search"):
@@ -360,6 +400,35 @@ def select_and_evaluate(cfg: DetectionConfig, logs: NeighborLogs, device: torch.
     return results, df
 
 
+# one entry: the encoder of the last detection
+_ENCODER_CACHE: Dict[tuple, ClipEncoder] = {}
+
+
+def _cached_encoder(cfg: DetectionConfig, device: torch.device) -> ClipEncoder:
+    """The encoder for ``cfg`` on ``device``, built once for the key (model,
+    seed, batch size, checkpoint as given and as the environment resolves
+    it, BiomedCLIP's vocabulary, precision mode, device). A cached
+    ``int8_static`` encoder keeps its calibrated scales, the JAX contract.
+    ``_cached_encoder.builds`` counts the builds."""
+    precision = default_precision()
+    key = (cfg.clip_model, cfg.seed, cfg.batch_size, cfg.checkpoint, str(checkpoint_path(cfg.clip_model)),
+           os.environ.get("LEMON_TPU_BIOMED_VOCAB"), precision, str(device))
+    encoder = _ENCODER_CACHE.get(key)
+    if encoder is None:
+        _ENCODER_CACHE.clear()  # free the previous model before building the next
+        encoder = _ENCODER_CACHE[key] = create_encoder(
+            cfg.clip_model, device, seed=cfg.seed, batch_size=cfg.batch_size, checkpoint=cfg.checkpoint,
+            precision=precision,
+        )
+        _cached_encoder.builds += 1
+    else:
+        print(f"[lemon_tpu_torch] encoder cache hit ({cfg.clip_model}); precision: {encoder.model.precision}")
+    return encoder
+
+
+_cached_encoder.builds = 0
+
+
 def run_detection(cfg: DetectionConfig, out_dir: Optional[Path] = None) -> Dict:
     """The full pipeline; writes the reference's output files when
     ``out_dir`` is given (res.pkl, {criteria}_scores.csv)."""
@@ -380,7 +449,7 @@ def run_detection(cfg: DetectionConfig, out_dir: Optional[Path] = None) -> Dict:
 
     label_set = _labels_for(cfg)
     with timer.phase("load_model"):
-        encoder = create_encoder(cfg.clip_model, device, seed=cfg.seed, batch_size=cfg.batch_size, checkpoint=cfg.checkpoint)
+        encoder = _cached_encoder(cfg, device)
 
     t0 = time.time()
     logs = build_neighbor_logs(cfg, encoder, splits, label_set, timer)

@@ -31,15 +31,19 @@ projections), the operands are upcast and multiplied in fp32. LayerNorm
 weights and the class, position and token embeddings stay fp32 and are cast
 at use, as in JAX.
 
-Inputs keep the JAX layout: pixels are NHWC. Left out: attention packing, a
-TPU layout workaround (the port never packs, so the pooled vision rows are
-``[[0]]`` and the flash route has nothing to turn off), and the ResNet
-tower.
+Inputs keep the JAX layout: pixels are NHWC. A tuple ``vision_layers``
+selects the ModifiedResNet tower (:mod:`lemon_tpu_torch.models.resnet`,
+:834-837), as in the JAX package; ``quick_gelu``, ``vision_patch_bias`` and
+``vision_ln_pre`` carry the timm ViT of BiomedCLIP (GELU, a patch bias, no
+pre-LayerNorm; :57, :75-76). Left out: attention packing, a TPU
+layout workaround (the port never packs, so the pooled vision rows are
+``[[0]]`` and the flash route has nothing to turn off).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Optional
@@ -59,7 +63,9 @@ ATTENTION_IMPLS = ("plain", "flash")
 class ClipConfig:
     embed_dim: int = 512
     image_resolution: int = 224
-    vision_layers: int = 12
+    # an int selects the ViT tower, a 4-tuple of Bottleneck counts the
+    # ModifiedResNet one (chexzero_clip.py:283-303)
+    vision_layers: int | tuple = 12
     vision_width: int = 768
     vision_patch_size: int = 32
     vision_heads: Optional[int] = None  # default: width // 64
@@ -68,6 +74,9 @@ class ClipConfig:
     text_width: int = 512
     text_heads: int = 8
     text_layers: int = 12
+    # QuickGELU (x * sigmoid(1.702 x)), as OpenAI CLIP checkpoints use;
+    # False: exact GELU (timm)
+    quick_gelu: bool = True
     # "plain" | "flash": the counterparts of the JAX package's "xla" |
     # "pallas". "flash" runs both towers' attention through kernel K3.
     attention_impl: str = "plain"
@@ -77,14 +86,24 @@ class ClipConfig:
     pool_last_block: bool = True
     # The same for the text tower's first-EOT row; off as in JAX.
     pool_last_block_text: bool = False
+    # timm-style ViT (BiomedCLIP's trunk): a patch-embedding bias, no ln_pre
+    vision_patch_bias: bool = False
+    vision_ln_pre: bool = True
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {self.attention_impl!r}")
 
     @property
+    def is_resnet(self) -> bool:
+        return isinstance(self.vision_layers, (tuple, list))
+
+    @property
     def v_heads(self) -> int:
-        return self.vision_heads or self.vision_width // 64
+        if self.vision_heads:
+            return self.vision_heads
+        # the ResNet attention pool's heads: width * 32 // 64 (chexzero_clip.py:300)
+        return (self.vision_width * 32 if self.is_resnet else self.vision_width) // 64
 
     @property
     def grid(self) -> int:
@@ -100,6 +119,19 @@ class ClipConfig:
         """ViT-B/16 of the from-scratch MIMIC/CC3M models
         (chexzero_clip.py:458-470: embed 768, context 256)."""
         return ClipConfig(embed_dim=embed_dim, vision_patch_size=16, context_length=context_length)
+
+    @staticmethod
+    def rn50() -> "ClipConfig":
+        """OpenAI CLIP RN50 (ModifiedResNet vision tower)."""
+        return ClipConfig(embed_dim=1024, vision_layers=(3, 4, 6, 3), vision_width=64)
+
+    @staticmethod
+    def tiny_rn() -> "ClipConfig":
+        """Test-scale ModifiedResNet config (full code path, toy sizes)."""
+        return ClipConfig(
+            embed_dim=32, image_resolution=64, vision_layers=(1, 1, 1, 1), vision_width=8,
+            context_length=16, text_width=64, text_heads=2, text_layers=2,
+        )
 
     @staticmethod
     def from_scratch_mimic() -> "ClipConfig":
@@ -130,8 +162,8 @@ class FpLayerNorm(nn.LayerNorm):
     input's dtype; ``dtype`` is the normalise/affine tail's (fp32, or bf16
     on the fast path: the statistics stay fp32)."""
 
-    def __init__(self, width: int, dtype: torch.dtype = torch.float32):
-        super().__init__(width, eps=1e-5)
+    def __init__(self, width: int, dtype: torch.dtype = torch.float32, eps: float = 1e-5):
+        super().__init__(width, eps=eps)
         self.tail_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -347,8 +379,11 @@ class TransformerBlock(nn.Module):
     projections after the attention core run weight-only)."""
 
     def __init__(self, width: int, heads: int, impl: str = "plain", causal: bool = False,
-                 precision: Precision = Precision(), quant: bool = False, pooled: bool = False):
+                 precision: Precision = Precision(), quant: bool = False, pooled: bool = False, quick: bool = True):
         super().__init__()
+        # quick=False: jax.nn.gelu as the JAX towers call it, whose default is
+        # the tanh approximation (timm's ViT uses the exact GELU; ROADMAP queue 3)
+        self.act = quick_gelu if quick else functools.partial(F.gelu, approximate="tanh")
         # fold_ln folds ln_1/ln_2 into qkv/mlp_fc, but not under flash (:566)
         self.fold = precision.fold_ln and impl != "flash"
         self.compute_dtype = precision.compute_dtype
@@ -367,7 +402,7 @@ class TransformerBlock(nn.Module):
         else:
             x = base + self.attn(self.ln_1(x), rows)
             y = self.mlp_fc(self.ln_2(x))
-        return x + self.mlp_proj(quick_gelu(y))
+        return x + self.mlp_proj(self.act(y))
 
 
 class VisionTower(nn.Module):
@@ -381,13 +416,15 @@ class VisionTower(nn.Module):
         p, w, g = cfg.vision_patch_size, cfg.vision_width, cfg.grid
         self.pooled = precision.pool_last_block and cfg.pool_last_block and cfg.attention_impl != "flash"
         self.patch_embed = nn.Linear(p * p * 3, w, bias=False, dtype=cd)
+        # added after the product's cast, as in JAX (:683-685)
+        self.patch_bias = nn.Parameter(torch.zeros(w)) if cfg.vision_patch_bias else None
         self.class_embedding = nn.Parameter(torch.empty(w))
         self.positional_embedding = nn.Parameter(torch.empty(g * g + 1, w))
-        self.ln_pre = FpLayerNorm(w, precision.ln_dtype)
+        self.ln_pre = FpLayerNorm(w, precision.ln_dtype) if cfg.vision_ln_pre else None
         last = cfg.vision_layers - 1
         self.blocks = nn.ModuleList(
             TransformerBlock(w, cfg.v_heads, cfg.attention_impl, precision=precision, quant=precision.matmul_int8,
-                             pooled=self.pooled and i == last)
+                             pooled=self.pooled and i == last, quick=cfg.quick_gelu)
             for i in range(cfg.vision_layers)
         )
         self.ln_post = FpLayerNorm(w)  # fp32 tail in every mode (:732, :741)
@@ -401,8 +438,11 @@ class VisionTower(nn.Module):
         # patch elements in (ph, pw, channel) order, as the JAX tower unfolds them
         x = pixels.to(cd).reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3)
         x = F.linear(x.float(), self.patch_embed.weight.float()).to(cd)
+        if self.patch_bias is not None:
+            x = x + self.patch_bias.to(cd)
         x = torch.cat([self.class_embedding.to(cd).expand(b, 1, w), x], dim=1) + self.positional_embedding.to(cd)
-        x = self.ln_pre(x)
+        if self.ln_pre is not None:
+            x = self.ln_pre(x)
         # the pooled last block computes the CLS row only (exact; :706-717)
         rows = torch.zeros(b, 1, dtype=torch.long, device=x.device) if self.pooled else None
         for i, block in enumerate(self.blocks):
@@ -424,7 +464,7 @@ class TextTower(nn.Module):
         last = cfg.text_layers - 1
         self.blocks = nn.ModuleList(
             TransformerBlock(w, cfg.text_heads, cfg.attention_impl, causal=True, precision=precision,
-                             pooled=self.pooled and i == last)
+                             pooled=self.pooled and i == last, quick=cfg.quick_gelu)
             for i in range(cfg.text_layers)
         )
         self.ln_final = FpLayerNorm(w, precision.ln_dtype)
@@ -457,7 +497,14 @@ class ClipModel(nn.Module):
             raise ValueError("Precision.fold_ln and matmul_int8 are mutually exclusive (as in the JAX package)")
         self.cfg = cfg
         self.precision = precision
-        self.visual = VisionTower(cfg, precision)
+        if cfg.is_resnet:
+            from lemon_tpu_torch.models.resnet import ResNetVisionTower
+
+            if precision.matmul_int8:
+                raise ValueError("the int8 modes cover the ViT towers only (as in the JAX package)")
+            self.visual = ResNetVisionTower(cfg, precision.compute_dtype)
+        else:
+            self.visual = VisionTower(cfg, precision)
         self.text = TextTower(cfg, precision)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
@@ -479,41 +526,57 @@ class ClipModel(nn.Module):
 
 
 def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
-    """flax's ``lecun_normal`` for a torch (out, in) weight: a normal
+    """flax's ``lecun_normal`` for a torch (out, in, ...) weight: a normal
     truncated at two standard deviations, rescaled to variance 1/fan_in."""
-    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
     nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
-@torch.no_grad()
-def init_weights(model: ClipModel, seed: int = 0) -> ClipModel:
-    """Random initialisation with the JAX towers' distributions
-    (lemon_tpu/models/clip.py initialisers). The numbers differ from
-    ``jax.random``'s; tests that need identical weights load a JAX tree
-    through :func:`lemon_tpu_torch.models.convert.from_flax_params`. Every
-    mode gets the same weights from one seed: a bf16 or int8 model loads the
-    state dict of its fp32 twin, as a checkpoint loads (:885-902)."""
-    if model.precision.compute_dtype != torch.float32 or model.precision.matmul_int8:
-        model.load_state_dict(init_weights(ClipModel(model.cfg), seed).state_dict())
-        return model
-    g = torch.Generator().manual_seed(seed)
+def init_layers_(model: nn.Module, generator: torch.Generator) -> None:
+    """The flax defaults of every projection and normalisation of ``model``:
+    ``lecun_normal`` weights and zero biases for linear and convolution
+    layers, LayerNorm at one and zero (batch norms are built at identity)."""
     for module in model.modules():
-        if isinstance(module, nn.Linear):
-            _lecun_normal_(module.weight, g)
+        if isinstance(module, (nn.Linear, nn.Conv2d)):
+            _lecun_normal_(module.weight, generator)
             if module.bias is not None:
                 module.bias.zero_()
         elif isinstance(module, nn.LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
+
+
+@torch.no_grad()
+def init_vit_(v: "VisionTower", generator: torch.Generator) -> None:
+    """A ViT tower's own parameters, after :func:`init_layers_`."""
+    w = v.cfg.vision_width
+    for param in (v.class_embedding, v.positional_embedding, v.proj):
+        param.normal_(0.0, w ** -0.5, generator=generator)
+    if v.patch_bias is not None:
+        v.patch_bias.zero_()
+
+
+@torch.no_grad()
+def init_weights(model: ClipModel, seed: int = 0) -> ClipModel:
+    """Random initialisation with the JAX towers' distributions
+    (lemon_tpu/models/clip.py and resnet.py initialisers). The numbers
+    differ from ``jax.random``'s; tests that need identical weights load a
+    JAX tree through :func:`lemon_tpu_torch.models.convert.from_flax_params`.
+    Every mode gets the same weights from one seed: a bf16 or int8 model
+    loads the state dict of its fp32 twin, as a checkpoint loads (:885-902)."""
+    if model.precision.compute_dtype != torch.float32 or model.precision.matmul_int8:
+        model.load_state_dict(init_weights(ClipModel(model.cfg), seed).state_dict())
+        return model
+    g = torch.Generator().manual_seed(seed)
+    init_layers_(model, g)
     v, t = model.visual, model.text
-    for param, std in (
-        (v.class_embedding, v.cfg.vision_width ** -0.5),
-        (v.positional_embedding, v.cfg.vision_width ** -0.5),
-        (v.proj, v.cfg.vision_width ** -0.5),
-        (t.token_embedding.weight, 0.02),
-        (t.positional_embedding, 0.01),
-        (t.text_projection, model.cfg.text_width ** -0.5),
-    ):
-        param.normal_(0.0, std, generator=g)
+    if model.cfg.is_resnet:
+        pos = v.attnpool.positional_embedding
+        pos.normal_(0.0, pos.shape[1] ** -0.5, generator=g)
+    else:
+        init_vit_(v, g)
+    t.token_embedding.weight.normal_(0.0, 0.02, generator=g)
+    t.positional_embedding.normal_(0.0, 0.01, generator=g)
+    t.text_projection.normal_(0.0, model.cfg.text_width ** -0.5, generator=g)
     model.logit_scale.fill_(math.log(1 / 0.07))
     return model

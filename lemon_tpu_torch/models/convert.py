@@ -1,14 +1,18 @@
-"""The weights bridge: JAX ``ClipModel`` parameter trees -> torch state dicts.
+"""The weights bridge: JAX parameter trees -> torch state dicts.
 
 Both checkpoint routes meet here. A flax tree (``init_params(cfg, seed)[1]``
 in the JAX package, or a ``"/"``-flattened ``.npz`` as
 ``lemon_tpu/models/registry.py:63-88`` reads it) converts directly; a
-HuggingFace checkpoint first becomes a flax-layout tree in
-:mod:`lemon_tpu_torch.models.loader`. Dense kernels are (in, out) in flax
-and (out, in) in ``nn.Linear``; everything else keeps its layout. A tree
-that the JAX int8 modes quantised (``kernel_q``, ``kernel_scale`` and, after
-calibration, ``act_scale`` under the vision projections) fills the port's
-``QuantLinear`` buffers of the same names.
+HuggingFace, OpenAI or open_clip checkpoint first becomes a flax-layout
+tree (:mod:`lemon_tpu_torch.models.loader`, ``biomed``). The tree is a
+``ClipModel``'s (a ViT vision tower, or a ModifiedResNet one, whose
+``stem_conv1`` marks it) or a ``BiomedClipModel``'s (a BERT text tower,
+marked by ``word_embeddings``). Dense kernels are (in, out) in flax and
+(out, in) in ``nn.Linear``; conv kernels (kh, kw, in, out) in flax and
+(out, in, kh, kw) in ``nn.Conv2d``; everything else keeps its layout. A
+tree that the JAX int8 modes quantised (``kernel_q``, ``kernel_scale`` and,
+after calibration, ``act_scale`` under the vision projections) fills the
+port's ``QuantLinear`` buffers of the same names.
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ import torch
 
 def _linear(prefix: str, node: Mapping) -> Dict[str, np.ndarray]:
     if "kernel_q" not in node:
-        return {f"{prefix}.weight": np.asarray(node["kernel"]).T, f"{prefix}.bias": np.asarray(node["bias"])}
+        out = {f"{prefix}.weight": np.asarray(node["kernel"]).T}
+        if "bias" in node:
+            out[f"{prefix}.bias"] = np.asarray(node["bias"])
+        return out
     out = {f"{prefix}.weight_q": np.asarray(node["kernel_q"]).T, f"{prefix}.weight_scale": np.asarray(node["kernel_scale"]),
            f"{prefix}.bias": np.asarray(node["bias"])}
     if "act_scale" in node:
@@ -48,26 +55,87 @@ def _blocks(prefix: str, transformer: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
-def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """A JAX ``ClipModel`` tree (with or without the ``"params"`` level) of
-    numpy-convertible leaves -> a state dict for
-    :class:`lemon_tpu_torch.models.clip.ClipModel`: fp32, but the int8
-    ``weight_q`` of a quantised tree."""
-    params = tree["params"] if "params" in tree else tree
-    v, t = params["visual"], params["text"]
+def _batch_norm(prefix: str, node: Mapping) -> Dict[str, np.ndarray]:
+    return {f"{prefix}.weight": np.asarray(node["scale"]), f"{prefix}.bias": np.asarray(node["bias"]),
+            f"{prefix}.running_mean": np.asarray(node["mean"]), f"{prefix}.running_var": np.asarray(node["var"])}
+
+
+def _conv(prefix: str, node: Mapping) -> Dict[str, np.ndarray]:
+    return {f"{prefix}.weight": np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1))}
+
+
+def _vit(v: Mapping) -> Dict[str, np.ndarray]:
     sd = {
         "visual.patch_embed.weight": np.asarray(v["patch_embedding"]).T,
         "visual.class_embedding": np.asarray(v["class_embedding"]),
         "visual.positional_embedding": np.asarray(v["positional_embedding"]),
-        **_layer_norm("visual.ln_pre", v["ln_pre"]),
         **_blocks("visual", v["transformer"]),
         **_layer_norm("visual.ln_post", v["ln_post"]),
         "visual.proj": np.asarray(v["proj"]),
+    }
+    if "patch_bias" in v:
+        sd["visual.patch_bias"] = np.asarray(v["patch_bias"])
+    if "ln_pre" in v:
+        sd.update(_layer_norm("visual.ln_pre", v["ln_pre"]))
+    return sd
+
+
+def _resnet(v: Mapping) -> Dict[str, np.ndarray]:
+    """The ModifiedResNet tree (lemon_tpu/models/resnet.py module names)."""
+    sd = {}
+    for name, node in v.items():
+        if name.startswith("stem_conv"):
+            sd.update(_conv(f"visual.{name}", node))
+        elif name.startswith("stem_bn"):
+            sd.update(_batch_norm(f"visual.{name}", node))
+        elif name.startswith("layer"):
+            for part, leaf in node.items():
+                fn = _conv if "conv" in part else _batch_norm
+                sd.update(fn(f"visual.{name}.{part}", leaf))
+    pool = v["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = np.asarray(pool["positional_embedding"])
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        sd.update(_linear(f"visual.attnpool.{proj}", pool[proj]))
+    return sd
+
+
+def _clip_text(t: Mapping) -> Dict[str, np.ndarray]:
+    return {
         "text.token_embedding.weight": np.asarray(t["token_embedding"]),
         "text.positional_embedding": np.asarray(t["positional_embedding"]),
         **_blocks("text", t["transformer"]),
         **_layer_norm("text.ln_final", t["ln_final"]),
         "text.text_projection": np.asarray(t["text_projection"]),
+    }
+
+
+def _bert_text(t: Mapping) -> Dict[str, np.ndarray]:
+    """The BERT tower's tree (lemon_tpu/models/bert_text.py module names)."""
+    sd = {f"text.{k}": np.asarray(t[k]) for k in ("word_embeddings", "position_embeddings", "token_type_embeddings")}
+    sd.update(_layer_norm("text.ln_emb", t["ln_emb"]))
+    for name, layer in t.items():
+        if name.startswith("layer_"):
+            p = f"text.layers.{int(name.removeprefix('layer_'))}"
+            for part, leaf in layer.items():
+                fn = _layer_norm if part.startswith("ln_") else _linear
+                sd.update(fn(f"{p}.{part}", leaf))
+    for head in ("proj", "proj_fc", "proj_out"):
+        if head in t:
+            sd.update(_linear(f"text.{head}", t[head]))
+    return sd
+
+
+def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX ``ClipModel`` or ``BiomedClipModel`` tree (with or without the
+    ``"params"`` level) of numpy-convertible leaves -> a state dict for
+    :class:`lemon_tpu_torch.models.clip.ClipModel` or
+    :class:`lemon_tpu_torch.models.biomed.BiomedClipModel`: fp32, but the
+    int8 ``weight_q`` of a quantised tree."""
+    params = tree["params"] if "params" in tree else tree
+    v, t = params["visual"], params["text"]
+    sd = {
+        **(_resnet(v) if "stem_conv1" in v else _vit(v)),
+        **(_bert_text(t) if "word_embeddings" in t else _clip_text(t)),
         "logit_scale": np.asarray(params["logit_scale"]),
     }
     return {k: torch.from_numpy(np.array(a, dtype=np.int8 if k.endswith(".weight_q") else np.float32, order="C"))

@@ -7,7 +7,11 @@ dropped afterwards), the embeddings stay on the device until one
 concatenation and one copy per modality at the end of a split, and batch
 assembly (image gather + BPE) runs one batch ahead on a background thread.
 ``embed_split`` can cache a split's embeddings as an ``.npz`` keyed on their
-content and the model's precision (``cache_key``).
+content and the model's precision (``cache_key``, which reads no pixel of a
+store that has a fingerprint and a 64-row sample of one that has none).
+Any model with ``cfg``, ``precision``, ``encode_image`` and ``encode_text``
+fits (``ClipModel``, ``BiomedClipModel``); ``tokenize_fn`` replaces the
+CLIP BPE (WordPiece for BiomedCLIP).
 
 The model's :class:`~lemon_tpu_torch.core.precision.Precision` sets the
 rest, as in lemon_tpu/models/encoder.py:51-104: the int8 modes' weights are
@@ -23,12 +27,13 @@ from __future__ import annotations
 import hashlib
 import os
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from lemon_tpu_torch.data.datasets import Prefetcher, Split, iter_batches, load_images
+from lemon_tpu_torch.data.streaming import is_lazy_store
 from lemon_tpu_torch.models.clip import ClipModel, calibrate_act_scales
 from lemon_tpu_torch.models.tokenizer import get_tokenizer, tokenize_batch
 from lemon_tpu_torch.ops.image import preprocess_device
@@ -41,7 +46,8 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
 class ClipEncoder:
     """Frozen CLIP wrapper: numpy in, L2-normalised numpy embeddings out."""
 
-    def __init__(self, model: ClipModel, device: torch.device, batch_size: int = 128, weights_fingerprint: str = "unknown"):
+    def __init__(self, model: ClipModel, device: torch.device, batch_size: int = 128, weights_fingerprint: str = "unknown",
+                 tokenize_fn: Optional[Callable[[Sequence[str]], np.ndarray]] = None):
         self.model = model.to(device).eval()
         self.cfg = model.cfg
         self.device = device
@@ -49,12 +55,15 @@ class ClipEncoder:
         # identity of the weights (checkpoint path+mtime+size, or "random:<seed>")
         self.weights_fingerprint = weights_fingerprint
         self.tokenizer = get_tokenizer()
+        self._tokenize_fn = tokenize_fn
         precision = model.precision
         self._calibrated = not precision.int8_static_act
         fast_resize = precision.compute_dtype == torch.bfloat16
         self._pp_kwargs = {"pil_rounding": False, "precision": "default"} if fast_resize else {}
 
     def _tokenize(self, texts: Sequence[str]) -> np.ndarray:
+        if self._tokenize_fn is not None:
+            return self._tokenize_fn(list(texts))
         return tokenize_batch(list(texts), self.cfg.context_length, self.tokenizer)
 
     @torch.inference_mode()
@@ -110,8 +119,17 @@ class ClipEncoder:
                 h.update(str(p).encode())
                 h.update(b"\x01")
         else:
-            h.update(str(split.images.shape).encode())
-            h.update(np.ascontiguousarray(split.images).tobytes())
+            images = split.images
+            h.update(str(images.shape).encode())
+            fp = getattr(images, "fingerprint", None)
+            token = fp() if fp is not None else None
+            if token is not None:  # a procedural source: its generator's parameters
+                h.update(token.encode())
+            elif is_lazy_store(images):  # a store beyond RAM: a strided 64-row sample
+                h.update(np.ascontiguousarray(images[np.linspace(0, len(images) - 1, min(64, len(images)),
+                                                                  dtype=np.int64)]).tobytes())
+            else:
+                h.update(np.ascontiguousarray(images).tobytes())
         h.update(self.weights_fingerprint.encode())
         h.update(repr(self.model.precision).encode())
         return h.hexdigest()

@@ -1,13 +1,13 @@
 """CLIP checkpoints -> flax-layout parameter trees.
 
-The numpy logic of lemon_tpu/models/loader.py:23-143,213-287 for the two
-families the ViT towers load: HuggingFace ``CLIPModel`` state dicts and
-OpenAI-format ones (fused ``attn.in_proj_weight``; ``chexzero`` and the
-from-scratch ViT-B/16 models, chexzero_clip.py:419-479). The tree goes
-through the same bridge as a JAX tree
+The numpy logic of lemon_tpu/models/loader.py for the two families the
+towers load: HuggingFace ``CLIPModel`` state dicts and OpenAI-format ones
+(fused ``attn.in_proj_weight``; ``chexzero``, the from-scratch ViT-B/16
+models and ``rn50``, chexzero_clip.py:419-479). An OpenAI-format state dict
+with ``visual.proj`` holds a ViT tower, one without it a ModifiedResNet
+(:147-215, :231). The tree goes through the same bridge as a JAX tree
 (:func:`lemon_tpu_torch.models.convert.from_flax_params`), so every
-checkpoint route shares one converter. OpenAI-format ModifiedResNet state
-dicts (``rn50``) are not ported yet and raise.
+checkpoint route shares one converter.
 """
 
 from __future__ import annotations
@@ -122,6 +122,61 @@ def _text_config_fields(sd: Mapping[str, np.ndarray]) -> dict:
     )
 
 
+def rn_config_from_state_dict(sd: Mapping[str, np.ndarray]) -> ClipConfig:
+    """Shapes of an OpenAI-format ModifiedResNet state dict (the RN branch of
+    chexzero_clip.py:429-436)."""
+    counts = tuple(len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}.")}) for b in (1, 2, 3, 4))
+    vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+    n_pos = sd["visual.attnpool.positional_embedding"].shape[0]
+    output_width = int(round((n_pos - 1) ** 0.5))
+    if output_width ** 2 + 1 != n_pos:
+        raise ValueError(f"visual.attnpool.positional_embedding has {n_pos} rows, not a square grid plus one")
+    return ClipConfig(
+        image_resolution=output_width * 32,
+        vision_layers=counts,
+        vision_width=vision_width,
+        **_text_config_fields(sd),
+    )
+
+
+def _conv_kernel(w: np.ndarray) -> np.ndarray:
+    """torch (out, in, kh, kw) -> the flax conv kernel (kh, kw, in, out)."""
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def _bn_params(sd: Mapping[str, np.ndarray], prefix: str) -> dict:
+    return {"scale": np.asarray(sd[f"{prefix}.weight"]), "bias": np.asarray(sd[f"{prefix}.bias"]),
+            "mean": np.asarray(sd[f"{prefix}.running_mean"]), "var": np.asarray(sd[f"{prefix}.running_var"])}
+
+
+def _rn_visual_params(sd: Mapping[str, np.ndarray], cfg: ClipConfig) -> dict:
+    """``visual.*`` of a ModifiedResNet state dict -> the ResNet tower's tree."""
+    conv = lambda key: {"kernel": _conv_kernel(np.asarray(sd[key]))}  # noqa: E731
+    visual = {}
+    for i in (1, 2, 3):
+        visual[f"stem_conv{i}"] = conv(f"visual.conv{i}.weight")
+        visual[f"stem_bn{i}"] = _bn_params(sd, f"visual.bn{i}")
+    for stage, n_blocks in enumerate(cfg.vision_layers, start=1):
+        for j in range(n_blocks):
+            p = f"visual.layer{stage}.{j}"
+            blk = {}
+            for c in (1, 2, 3):
+                blk[f"conv{c}"] = conv(f"{p}.conv{c}.weight")
+                blk[f"bn{c}"] = _bn_params(sd, f"{p}.bn{c}")
+            # the downsample Sequential: "-1" the average pool (no parameters), "0" conv, "1" bn
+            if f"{p}.downsample.0.weight" in sd:
+                blk["down_conv"] = conv(f"{p}.downsample.0.weight")
+                blk["down_bn"] = _bn_params(sd, f"{p}.downsample.1")
+            visual[f"layer{stage}_{j}"] = blk
+    visual["attnpool"] = {
+        "positional_embedding": np.asarray(sd["visual.attnpool.positional_embedding"]),
+        **{proj: {"kernel": np.asarray(sd[f"visual.attnpool.{proj}.weight"]).T,
+                  "bias": np.asarray(sd[f"visual.attnpool.{proj}.bias"])}
+           for proj in ("q_proj", "k_proj", "v_proj", "c_proj")},
+    }
+    return visual
+
+
 def openai_config_from_state_dict(sd: Mapping[str, np.ndarray]) -> ClipConfig:
     """Shapes of an OpenAI-format ViT state dict (chexzero_clip.py:419-456)."""
     patch = sd["visual.conv1.weight"].shape[-1]
@@ -136,15 +191,12 @@ def openai_config_from_state_dict(sd: Mapping[str, np.ndarray]) -> ClipConfig:
 
 
 def from_openai_state_dict(sd: Mapping[str, np.ndarray], cfg: ClipConfig | None = None):
-    """An OpenAI-format ViT CLIP state dict (fused in_proj) -> (flax-layout
-    tree, config). ``visual.proj`` marks the ViT tower (chexzero_clip.py:420);
-    a ModifiedResNet one raises."""
-    if "visual.proj" not in sd:
-        raise NotImplementedError(
-            "OpenAI-format ModifiedResNet (rn50) state dicts are not ported to lemon_tpu_torch yet "
-            "(ROADMAP queue 1, the other registry models)"
-        )
-    cfg = cfg or openai_config_from_state_dict(sd)
+    """An OpenAI-format CLIP state dict (fused in_proj) -> (flax-layout
+    tree, config). ``visual.proj`` marks the ViT tower, its absence the
+    ModifiedResNet one (chexzero_clip.py:420)."""
+    is_vit = "visual.proj" in sd
+    if cfg is None:
+        cfg = openai_config_from_state_dict(sd) if is_vit else rn_config_from_state_dict(sd)
 
     def block(prefix: str) -> dict:
         g = lambda name: np.asarray(sd[f"{prefix}.{name}"])
@@ -161,16 +213,17 @@ def from_openai_state_dict(sd: Mapping[str, np.ndarray], cfg: ClipConfig | None 
 
     a = lambda key: np.asarray(sd[key])
     ln = lambda prefix: {"scale": a(f"{prefix}.weight"), "bias": a(f"{prefix}.bias")}
+    visual = {
+        "patch_embedding": _conv_to_patch_kernel(a("visual.conv1.weight")),
+        "class_embedding": a("visual.class_embedding"),
+        "positional_embedding": a("visual.positional_embedding"),
+        "ln_pre": ln("visual.ln_pre"),
+        "transformer": {f"block_{i}": block(f"visual.transformer.resblocks.{i}") for i in range(cfg.vision_layers)},
+        "ln_post": ln("visual.ln_post"),
+        "proj": a("visual.proj"),
+    } if is_vit else _rn_visual_params(sd, cfg)
     params = {
-        "visual": {
-            "patch_embedding": _conv_to_patch_kernel(a("visual.conv1.weight")),
-            "class_embedding": a("visual.class_embedding"),
-            "positional_embedding": a("visual.positional_embedding"),
-            "ln_pre": ln("visual.ln_pre"),
-            "transformer": {f"block_{i}": block(f"visual.transformer.resblocks.{i}") for i in range(cfg.vision_layers)},
-            "ln_post": ln("visual.ln_post"),
-            "proj": a("visual.proj"),
-        },
+        "visual": visual,
         "text": {
             "token_embedding": a("token_embedding.weight"),
             "positional_embedding": a("positional_embedding"),

@@ -1,4 +1,4 @@
-"""Model factory (port of lemon_tpu/models/registry.py for the ViT towers).
+"""Model factory (port of lemon_tpu/models/registry.py).
 
 - ``'huggingface_clip'``              ViT-B/32; weights from an HF
   ``CLIPModel`` checkpoint or a JAX ``.npz`` tree when one is found
@@ -7,6 +7,9 @@
   ``'mimic_clip_from_scratch_cat'``   ViT-B/16 at 224 px, embed 768,
   text context 256
 - ``'cc3m_clip_from_scratch'``        ViT-B/16, embed 768, context 77
+- ``'rn50'``                          OpenAI CLIP RN50 (ModifiedResNet tower)
+- ``'biomed_clip'``                   BiomedCLIP: timm ViT-B/16 + PubMedBERT
+  (:mod:`lemon_tpu_torch.models.biomed`), in fp32 whatever the mode
 - ``'tiny'``                          test-scale config
 
 Checkpoint resolution (lemon_tpu/models/registry.py:41-51): the
@@ -14,27 +17,33 @@ Checkpoint resolution (lemon_tpu/models/registry.py:41-51): the
 ``<data_root>/checkpoints/<name>.{npz,pt,bin,safetensors}``; a checkpoint
 in either format (HF or OpenAI) loads under any name. Without one the
 weights are a seeded random init, announced loudly: fine for benchmarks and
-synthetic data, wrong for real-data results. ``'biomed_clip'`` (timm
-ViT-B/16 + PubMedBERT) and ``'rn50'`` (ModifiedResNet) are not ported yet
-and raise ``NotImplementedError``. The precision mode comes from
+synthetic data, wrong for real-data results. The precision mode comes from
 ``LEMON_TPU_PRECISION`` unless the caller passes one
-(lemon_tpu/models/registry.py:96-116).
+(lemon_tpu/models/registry.py:96-116); ``biomed_clip`` ignores it, as the
+JAX registry does, and runs in fp32. Its tokens are WordPiece ids over the
+``vocab.txt`` that ``LEMON_TPU_BIOMED_VOCAB`` names; without one, CLIP BPE
+ids clipped to the BERT vocabulary stand in, with the JAX package's warning
+(:153-165).
 """
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from lemon_tpu_torch.core.precision import Precision, default_precision
 from lemon_tpu_torch.data.datasets import data_root
+from lemon_tpu_torch.models.biomed import BiomedClipConfig, BiomedClipModel, from_open_clip_state_dict, init_biomed
 from lemon_tpu_torch.models.clip import ClipConfig, ClipModel, init_weights
 from lemon_tpu_torch.models.convert import from_flax_params, load_flax_npz
 from lemon_tpu_torch.models.encoder import ClipEncoder
 from lemon_tpu_torch.models.loader import detect_and_convert, load_torch_file
+from lemon_tpu_torch.models.tokenizer import tokenize_batch
+from lemon_tpu_torch.models.wordpiece import WordPieceTokenizer
 
 MODEL_CONFIGS = {
     "huggingface_clip": ClipConfig.vit_b32(),
@@ -42,9 +51,9 @@ MODEL_CONFIGS = {
     "mimic_clip_from_scratch_random": ClipConfig.from_scratch_mimic(),
     "mimic_clip_from_scratch_cat": ClipConfig.from_scratch_mimic(),
     "cc3m_clip_from_scratch": ClipConfig.vit_b16(embed_dim=768, context_length=77),
+    "rn50": ClipConfig.rn50(),  # ModifiedResNet tower (chexzero_clip.py:120-174)
     "tiny": ClipConfig.tiny(),
 }
-NOT_PORTED = ("biomed_clip", "rn50")
 
 
 def checkpoint_path(name: str) -> Optional[Path]:
@@ -58,7 +67,7 @@ def checkpoint_path(name: str) -> Optional[Path]:
     return None
 
 
-def checkpoint_fingerprint(ckpt: Optional[Path], seed: int, cfg: ClipConfig) -> str:
+def checkpoint_fingerprint(ckpt: Optional[Path], seed: int, cfg: Union[ClipConfig, BiomedClipConfig]) -> str:
     """Weights identity for cache keys: the seed and the model's config for a
     random init (one seed gives every model other weights), else the
     resolved path + mtime + size."""
@@ -87,14 +96,11 @@ def create_encoder(name: str, device: torch.device, seed: int = 0, batch_size: i
                    precision: Optional[Precision] = None) -> ClipEncoder:
     """A frozen encoder for a registry name (run_lemon.py:112-115), in
     ``precision`` (``None``: :func:`default_precision`, the environment's)."""
+    if name == "biomed_clip":
+        return _create_biomed_encoder(device, seed, batch_size, checkpoint)
     precision = precision or default_precision()
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"clip_model '{name}' is not ported to lemon_tpu_torch yet (ROADMAP queue 1, the other registry "
-            f"models); options: {sorted(MODEL_CONFIGS)}"
-        )
     if name not in MODEL_CONFIGS:
-        raise KeyError(f"unknown clip_model '{name}'; options: {sorted(MODEL_CONFIGS)}")
+        raise KeyError(f"unknown clip_model '{name}'; options: {sorted(MODEL_CONFIGS) + ['biomed_clip']}")
     cfg = MODEL_CONFIGS[name]
     ckpt = Path(checkpoint) if checkpoint else checkpoint_path(name)
     if ckpt is not None:
@@ -110,3 +116,34 @@ def create_encoder(name: str, device: torch.device, seed: int = 0, batch_size: i
         )
     print(f"[lemon_tpu_torch] precision: {precision}")
     return ClipEncoder(model, device, batch_size=batch_size, weights_fingerprint=checkpoint_fingerprint(ckpt, seed, cfg))
+
+
+def _create_biomed_encoder(device: torch.device, seed: int, batch_size: int, checkpoint: Optional[str]) -> ClipEncoder:
+    """BiomedCLIP (lemon_tpu/models/registry.py:127-169): weights from an
+    open_clip checkpoint (``LEMON_TPU_CKPT_BIOMED_CLIP`` or ``checkpoint``)
+    or a seeded random init; fp32."""
+    cfg = BiomedClipConfig()
+    ckpt = Path(checkpoint) if checkpoint else checkpoint_path("biomed_clip")
+    if ckpt is not None:
+        tree, cfg = from_open_clip_state_dict(load_torch_file(ckpt), cfg)
+        model = BiomedClipModel(cfg)
+        model.load_state_dict(from_flax_params(tree))
+        print(f"[lemon_tpu_torch] loaded biomed_clip weights from {ckpt}")
+    else:
+        model = init_biomed(BiomedClipModel(cfg), seed=seed)
+        print(f"[lemon_tpu_torch] WARNING: no checkpoint for 'biomed_clip' (set LEMON_TPU_CKPT_BIOMED_CLIP); "
+              f"using random init (seed {seed})")
+    vocab = os.environ.get("LEMON_TPU_BIOMED_VOCAB")
+    if vocab and Path(vocab).exists():
+        wordpiece = WordPieceTokenizer(vocab)
+
+        def tokenize_fn(texts):
+            return wordpiece(texts, cfg.context_length)
+    else:
+        def tokenize_fn(texts):
+            return (np.asarray(tokenize_batch(list(texts), cfg.context_length)) % cfg.text.vocab_size).astype(np.int32)
+
+        print("[lemon_tpu_torch] WARNING: no PubMedBERT vocab (LEMON_TPU_BIOMED_VOCAB); using clipped CLIP-BPE ids")
+    print(f"[lemon_tpu_torch] precision: {model.precision} (biomed_clip runs in fp32 in every mode)")
+    return ClipEncoder(model, device, batch_size=batch_size, weights_fingerprint=checkpoint_fingerprint(ckpt, seed, cfg),
+                       tokenize_fn=tokenize_fn)

@@ -1,7 +1,8 @@
 """The port stands alone: no module of lemon_tpu_torch/ and nothing in
-chip_smoke.py imports the JAX package, JAX or the JAX probes of
-benchmarks/, and its public entry points
-run on the CUDA card unless they are given another device."""
+chip_smoke.py imports the JAX package, JAX, the JAX probes of benchmarks/,
+or scikit-learn and transformers (which the GPU machine lacks), and its
+public entry points run on the CUDA card unless they are given another
+device."""
 
 import ast
 from pathlib import Path
@@ -17,7 +18,8 @@ from lemon_tpu_torch.scoring.lemon import NeighborLogs
 from lemon_tpu_torch.scoring.optimize import maximize_metric
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("lemon_tpu", "jax", "flax", "optax", "benchmarks")  # the port's probes must not reach the JAX ones
+# the port's probes must not reach the JAX ones in benchmarks/
+FORBIDDEN = ("lemon_tpu", "jax", "flax", "optax", "benchmarks", "sklearn", "transformers")
 SOURCES = sorted((REPO / "lemon_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -37,7 +39,8 @@ def test_no_import_of_jax_or_the_jax_package(path):
 
 def test_the_scan_sees_every_module():
     assert len(SOURCES) > 30 and all(p.exists() for p in SOURCES)
-    assert {"tokenizer.py", "encoder.py", "index.py", "chip_smoke.py", "probe_knn_select3.py"} <= {p.name for p in SOURCES}
+    assert {"tokenizer.py", "encoder.py", "index.py", "chip_smoke.py", "probe_knn_select3.py", "streaming.py",
+            "native_loader.py", "resnet.py", "bert_text.py", "biomed.py", "wordpiece.py"} <= {p.name for p in SOURCES}
 
 
 def _tiny_logs(n=40, k=3, seed=0):

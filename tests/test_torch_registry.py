@@ -5,8 +5,10 @@ An OpenAI-format state dict (fused ``attn.in_proj_weight``; the layout of
 ``chexzero`` and the from-scratch ViT-B/16 models) made from a numpy seed
 goes through both packages' loaders; the embeddings of the two towers must
 agree within 1e-5. Every ``--clip_model`` name of the JAX CLI is accepted by
-the port's CLI, and the port's registry configs equal the JAX ones field by
-field (the port's ``attention_impl="plain"`` is the JAX ``'xla'``).
+the port's CLI (which also takes ``rn50``), and the port's registry configs
+equal the JAX ones field by field (the port's ``attention_impl="plain"`` is
+the JAX ``'xla'``). ``rn50`` and ``biomed_clip`` build, each with its own
+random-init fingerprint, and the CLI runs both (at tiny sizes here).
 """
 
 import dataclasses
@@ -32,6 +34,16 @@ OPENAI_CFG = ClipConfig(
     embed_dim=48, image_resolution=64, vision_layers=2, vision_width=128, vision_patch_size=16,
     context_length=24, vocab_size=500, text_width=64, text_heads=1, text_layers=3,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in several processes at once: one intra-op thread
+    each keeps torch's OpenMP pools from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _openai_state_dict(cfg: ClipConfig, seed: int) -> dict:
@@ -125,22 +137,28 @@ def test_openai_checkpoint_loads_like_the_jax_loader(tmp_path, attention_impl):
 
 
 def test_resnet_openai_state_dict_raises():
+    """Without ``visual.proj`` a state dict is read as a ModifiedResNet (rn50)
+    one, as chexzero_clip.py:420 reads it; a ViT state dict without it has no
+    ResNet layers and raises, in both packages."""
     sd = _openai_state_dict(OPENAI_CFG, seed=0)
-    del sd["visual.proj"]  # what marks a ModifiedResNet (rn50) checkpoint
-    with pytest.raises(NotImplementedError, match="rn50"):
+    del sd["visual.proj"]
+    with pytest.raises(KeyError, match="visual.layer1.0.conv1.weight"):
         detect_and_convert(sd)
+    with pytest.raises(KeyError, match="visual.layer1.0.conv1.weight"):
+        jregistry.detect_and_convert(sd)
 
 
 def test_cli_takes_the_jax_clip_model_choices():
     def choices(parser):
         return next(a.choices for a in parser._actions if a.dest == "clip_model")
 
-    assert choices(build_parser()) == choices(jax_parser())
-    for name in NEW_NAMES:
+    ours, theirs = choices(build_parser()), choices(jax_parser())
+    assert ours[: len(theirs)] == theirs and ours[len(theirs) :] == ["rn50"]
+    for name in NEW_NAMES + ["rn50", "biomed_clip"]:
         assert build_parser().parse_args(["--output_dir", "x", "--clip_model", name]).clip_model == name
 
 
-@pytest.mark.parametrize("name", NEW_NAMES + ["huggingface_clip", "tiny"])
+@pytest.mark.parametrize("name", NEW_NAMES + ["huggingface_clip", "tiny", "rn50"])
 def test_registry_config_matches_jax(name, monkeypatch):
     """The config ``create_encoder`` builds for a name (random init skipped:
     the full-width towers are allocated, not filled)."""
@@ -185,3 +203,55 @@ def test_checkpoint_fingerprint_is_the_file():
     path = REPO_ROOT / "pyproject.toml"
     st = path.stat()
     assert registry.checkpoint_fingerprint(path, 0, cfg) == f"{path.resolve()}:{st.st_mtime_ns}:{st.st_size}"
+
+
+@pytest.mark.parametrize("name", ["rn50", "biomed_clip"])
+def test_new_models_build(name, monkeypatch):
+    """``rn50`` (ModifiedResNet) and ``biomed_clip`` (timm ViT-B/16 +
+    PubMedBERT) at full width, the random init skipped; their random-init
+    fingerprints differ from each other's and from every other model's."""
+    from lemon_tpu_torch.models.biomed import BiomedClipConfig, BiomedClipModel
+
+    monkeypatch.setattr(registry, "init_weights", lambda model, seed: model)
+    monkeypatch.setattr(registry, "init_biomed", lambda model, seed: model)
+    monkeypatch.setattr(registry, "checkpoint_path", lambda name: None)
+    monkeypatch.delenv("LEMON_TPU_BIOMED_VOCAB", raising=False)
+    enc = registry.create_encoder(name, device=torch.device("cpu"))
+    if name == "rn50":
+        assert enc.cfg.is_resnet and enc.cfg.embed_dim == 1024 and enc.cfg.v_heads == 32
+        assert type(enc.model.visual).__name__ == "ResNetVisionTower"
+    else:
+        assert isinstance(enc.model, BiomedClipModel) and enc.cfg == BiomedClipConfig()
+        assert (enc.cfg.embed_dim, enc.cfg.context_length, enc.cfg.image_resolution) == (512, 256, 224)
+        tokens = enc._tokenize(["a chest x-ray"])  # clipped CLIP-BPE ids without a vocabulary
+        assert tokens.shape == (1, 256) and tokens.max() < enc.cfg.text.vocab_size
+    prints = {registry.checkpoint_fingerprint(None, 0, c)
+              for c in (*registry.MODEL_CONFIGS.values(), BiomedClipConfig())}
+    assert len(prints) == len(set(map(repr, registry.MODEL_CONFIGS.values()))) + 1
+
+
+@pytest.mark.parametrize("name", ["rn50", "biomed_clip"])
+def test_cli_runs_the_new_models(name, tmp_path, monkeypatch):
+    """The CLI path of each name, with the registry's config cut to a tiny
+    one (the full-width towers are the GPU smoke test's)."""
+    import sys
+
+    from lemon_tpu_torch import detect
+    from lemon_tpu_torch.cli.run_lemon import main
+    from lemon_tpu_torch.models.biomed import BiomedClipConfig
+
+    monkeypatch.setitem(registry.MODEL_CONFIGS, "rn50", ClipConfig.tiny_rn())
+    monkeypatch.setattr(registry, "BiomedClipConfig", BiomedClipConfig.tiny)
+    monkeypatch.setattr(registry, "checkpoint_path", lambda name: None)
+    detect._ENCODER_CACHE.clear()
+    stdout, stderr = sys.stdout, sys.stderr
+    try:
+        main(["--output_dir", str(tmp_path), "--platform", "cpu", "--dataset", "synthetic_caption", "--noise_type",
+              "random", "--synthetic_n", "120", "--clip_model", name, "--knn_k", "3", "--batch_size", "32"])
+    finally:
+        sys.stdout, sys.stderr = stdout, stderr
+        detect._ENCODER_CACHE.clear()
+    import pandas as pd
+
+    scores = pd.read_csv(tmp_path / "know_val_labels_scores.csv")["pred_score"].to_numpy()
+    assert (tmp_path / "done").exists() and len(scores) == 120 and np.isfinite(scores).all()
