@@ -104,7 +104,20 @@ imports nothing of JAX. Phases, each printed on its own lines:
     through the CLI: finite scores, test AUROC above 0.5, K1 and K2
     launched, and the first 64 pairs embedded on the card against the same
     port code on the CPU from the card's weights (per-row cosine at least
-    0.9999 in fp32, 0.999 in bf16).
+    0.9999 in fp32, 0.999 in bf16);
+18. the detection baselines through ``python -m
+    lemon_tpu_torch.cli.run_baseline`` in bf16 at ViT-B/32 width, random
+    init: clip_sim, discrepancy (dis_x, div_y) and deepknn on phase 10's
+    20000 caption pairs, read from its ``.npz`` cache (3 hits each), and
+    zero_shot cold on 20000 synthetic classification pairs. Output files,
+    finite scores, AUROC and wall; discrepancy and deepknn must launch K1
+    at precision ``highest`` (and never ``high``) and K2. Then each run's
+    scoring again on the CPU from the same embeddings (deepknn with the
+    card's cluster labels): pred_score within 1e-5, except deepknn rows
+    whose image neighbour sets differ by an fp32 near-tie (float64
+    similarity gap under 1e-5); k-means of 4000 image embeddings (distinct
+    rows) into 100 clusters, twice on the card (bit-identical) and once on
+    the CPU (the same labels, centroids within 1e-4).
 
 The switches: TF32 off for fp32 products and convolutions, and cuBLAS's
 reduced-precision reductions of bf16 products off, as the CLI sets them
@@ -116,6 +129,8 @@ operations over the peak rate of their type (989 TFLOP/s bf16, 1979 TOP/s
 int8 and 495 TFLOP/s TF32 on the tensor cores, 67 TFLOP/s fp32), and the
 share of the bound that the kernel reaches. K3's lines also print the fp32 bound of its products on
 the CUDA cores, the bound of the kernel it replaced.
+K1's launches are counted by precision: its entry ``scores_blockmax`` is
+``high``'s, ``scores_blockmax_highest`` the fp32 mode's.
 The second-to-last line is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 """
@@ -138,6 +153,12 @@ K3_TOL = 2e-5  # tests/test_attention.py:26: fp32 with another summation order
 EMBED_TOL = 1e-4  # tests/test_attention.py:56-57: the towers, plain vs flash
 BF16_FLASH_COS = 0.999  # per row, bf16 flash vs bf16 plain: the plain route's logits and softmax are bf16
 CARD_CPU_COS = 0.999  # per row, a fast mode on the card vs the same code on the CPU (int32 sums exact on both)
+BASELINE_TOL = 1e-5  # a baseline's pred_score, card vs CPU on the same embeddings
+# float64 similarity gap of two image neighbours that the card's K1 and the
+# CPU's matmul may rank in either order: about 14 times the largest gap read
+# on an H100 (7e-7, 13 of 20000 deepknn rows)
+NEAR_TIE = 1e-5
+KMEANS_TOL, KMEANS_ROWS = 1e-4, 4000  # k-means centroids card vs CPU, on this many image embeddings
 FP32_FLOOR_COS = 0.9  # per row, a fast mode vs fp32 at full width: a sanity floor, the measured value is the record
 # (L, heads, head dim, causal) of the towers' attention: ViT-B/16 vision,
 # ctx-256 text, ViT-B/32 vision, ctx-77 text; then the other two head dims
@@ -244,7 +265,7 @@ def phase_k1(torch, scoremax, device):
             high = precision == "high"
             bnd = bound(4 * (b * d + t * d + (t if metric == "l2" else 0) + b * t + b * t // 128),
                         (3 if high else 1) * 2 * b * t * d, "bf16" if high else "fp32")
-            times[(metric, precision)] = (ms, plain_ms, bnd)
+            times[(metric, precision)] = (ms, plain_ms, bnd, max(err, berr))
             print(f"K1 scores_blockmax {metric}/{precision} (8192x512 . 16000x512): max_abs_err {err:.3e} "
                   f"(bmax {berr:.3e}, tol {K1_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
                   f"{bound_text(bnd, ms)}", flush=True)
@@ -473,24 +494,35 @@ RUNS = ROOT / "build" / "chip_smoke"
 B32_ARGV = ["--dataset", "synthetic_caption", "--synthetic_n", "20000", "--knn_k", "5", "--clip_model",
             "huggingface_clip", "--noise_type", "random"]
 COMPONENTS = ("d_1", "dists_n", "D_n", "dists_tr_n", "dists_m", "D_m", "dists_tr_m")
+K1_K2 = ("scores_blockmax", "topk")  # a detection's kNN kernels (K1 in its 'high' mode)
 
 
 def run_cli(scoremax, topk, argv, env):
-    """``run_lemon(argv)`` in-process with the environment ``env`` set for the
-    call and restored after it, K1's and K2's counts set to 0 just before it.
-    Returns (kernel launches, wall seconds, what the call wrote to out.txt)."""
+    """``run_lemon(argv)`` in-process (:func:`run_entry`). Returns (kernel
+    launches, wall seconds, what the call wrote to out.txt)."""
     from lemon_tpu_torch.cli.run_lemon import main as run_lemon
 
+    return run_entry(run_lemon, scoremax, topk, argv, env)[:3]
+
+
+def run_entry(entry, scoremax, topk, argv, env):
+    """``entry(argv)``, a CLI's ``main``, in-process with the environment
+    ``env`` set for the call and restored after it, K1's and K2's counts set
+    to 0 just before it. Returns (kernel launches, wall seconds, what the
+    call wrote to out.txt, what ``entry`` returned); K1's launches are
+    split by precision, ``scores_blockmax`` (``high``) and
+    ``scores_blockmax_highest``."""
     log_file = Path(argv[argv.index("--output_dir") + 1]) / "out.txt"
     offset = log_file.stat().st_size if log_file.exists() else 0
     stdout, stderr = sys.stdout, sys.stderr
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     scoremax.scores_blockmax.launches = 0
+    scoremax.scores_blockmax.launches_highest = 0
     topk.topk.launches = 0
     t0 = time.perf_counter()
     try:
-        run_lemon(argv)
+        result = entry(argv)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -503,8 +535,17 @@ def run_cli(scoremax, topk, argv, env):
             if tee not in (stdout, stderr):
                 tee.close()
     wall = time.perf_counter() - t0
-    launches = {"scores_blockmax": scoremax.scores_blockmax.launches, "topk": topk.topk.launches}
-    return launches, wall, log_file.read_bytes()[offset:].decode()
+    return k1_k2_launches(scoremax, topk), wall, log_file.read_bytes()[offset:].decode(), result
+
+
+def k1_k2_launches(scoremax, topk) -> dict:
+    highest = scoremax.scores_blockmax.launches_highest
+    return {"scores_blockmax": scoremax.scores_blockmax.launches - highest, "scores_blockmax_highest": highest,
+            "topk": topk.topk.launches}
+
+
+def check_launched(launches: dict, kernels, label: str) -> None:
+    check(all(launches[k] > 0 for k in kernels), f"{label}: a kernel was not launched: {launches}")
 
 
 def read_run(out, n: int, label: str, log: str):
@@ -554,7 +595,7 @@ def phase_run_lemon(torch, scoremax, topk, precision: str = "fp32", embedding_ca
     print(f"run_lemon {precision} phase timing (s): " + json.dumps({k: round(v, 4) for k, v in timing.items()}),
           flush=True)
     print(f"run_lemon {precision} kernel launches: {launches}", flush=True)
-    check(all(n > 0 for n in launches.values()), f"run_lemon {precision}: a kernel was not launched: {launches}")
+    check_launched(launches, K1_K2, f"run_lemon {precision}")
     return launches, timing, {"argv": argv, "res": res, "csv": csv, "wall": wall}
 
 
@@ -594,7 +635,7 @@ def phase_warm_repeat(torch, scoremax, topk, cold, cold_timing):
             for x, y in zip(a, b))
         check(same, f"warm repeat: res.pkl column {col} differs from the cold call's")
     check(res["agg_results"] == cold["res"]["agg_results"], "warm repeat: agg_results differ")
-    check(all(n > 0 for n in launches.values()), f"warm repeat: a kernel was not launched: {launches}")
+    check_launched(launches, K1_K2, "warm repeat")
     print(f"warm repeat: pred_score and all {len(df0.columns)} res.pkl columns bit-identical to the cold call's",
           flush=True)
 
@@ -677,7 +718,7 @@ def phase_stream(torch, scoremax, topk, n: int = 62500):
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024:.0f}", flush=True)
     print(f"stream kernel launches: {launches}", flush=True)
     check(gathers > 0, "stream: the native shard gather did not run")
-    check(all(k > 0 for k in launches.values()), f"stream: a kernel was not launched: {launches}")
+    check_launched(launches, K1_K2, "stream")
     os.environ["LEMON_TPU_DATA_ROOT"] = str(root)
     try:
         stream = get_dataset("synthetic_caption_stream", 0, noise_type="random", synthetic_n=n)[0]
@@ -733,10 +774,175 @@ def phase_new_encoders(torch, scoremax, topk, n: int = 2000):
               flush=True)
         print(f"{name} {precision} kernel launches: {launches}", flush=True)
         check(cos[0] >= bar, f"{name} {precision}: card vs CPU cosine {cos} < {bar}")
-        check(all(k > 0 for k in launches.values()), f"{name} {precision}: a kernel was not launched: {launches}")
+        check_launched(launches, K1_K2, f"{name} {precision}")
         paths[f"detect_{name}_{precision}"] = launches
         del enc, model, twin, cpu_enc
         detect._ENCODER_CACHE.clear()
+    return paths
+
+
+class RecordSearches:
+    """Records the ids of every ``ExactKnnIndex.search`` between
+    ``__enter__`` and ``__exit__``, in call order (``.ids``)."""
+
+    def __enter__(self):
+        from lemon_tpu_torch.knn.index import ExactKnnIndex
+
+        self.ids, self._cls, self._search = [], ExactKnnIndex, ExactKnnIndex.search
+
+        def search(index, xq, k):
+            scores, ids = self._search(index, xq, k)
+            self.ids.append(ids)
+            return scores, ids
+
+        ExactKnnIndex.search = search
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.search = self._search
+
+
+def phase_baselines(torch, scoremax, topk, embedding_cache, device, n: int = 20000, model: str = "huggingface_clip"):
+    """Phase 18: the detection baselines through ``run_baseline`` in bf16 at
+    ViT-B/32 width. clip_sim, discrepancy (dis_x, div_y) and deepknn read
+    phase 10's 20000 caption pairs from the ``.npz`` cache; zero_shot embeds
+    20000 synthetic classification pairs cold. Then the same scoring on the
+    CPU from the same embeddings, and k-means on the card against the CPU.
+    Returns {path: kernel launches}."""
+    import numpy as np
+
+    from lemon_tpu_torch.baselines import run_clip_sim, run_deepknn, run_discrepancy, run_zero_shot_logits
+    from lemon_tpu_torch.baselines.common import BaselineConfig, cache_kwargs, split_frame
+    from lemon_tpu_torch.cli.run_baseline import main as run_baseline
+    from lemon_tpu_torch.core.precision import Precision
+    from lemon_tpu_torch.data.clustering import cluster_caption_text
+    from lemon_tpu_torch.data.datasets import get_dataset
+    from lemon_tpu_torch.models.encoder import ClipEncoder
+    from lemon_tpu_torch.models.registry import create_encoder
+    from lemon_tpu_torch.ops.kmeans import KMeans
+    from lemon_tpu_torch.scoring.distance_metrics import knn_label_distribution
+
+    t_phase = time.perf_counter()
+    data = {"caption": ["--dataset", "synthetic_caption", "--noise_type", "random"],
+            "classification": ["--dataset", "synthetic", "--noise_type", "symmetric"]}
+    runs = (("clip_sim", [], "caption", run_clip_sim), ("discrepancy", ["--method", "dis_x"], "caption", run_discrepancy),
+            ("discrepancy", ["--method", "div_y"], "caption", run_discrepancy),
+            ("deepknn", [], "caption", run_deepknn), ("zero_shot", [], "classification", run_zero_shot_logits))
+    files = {"clip_sim": ("dists.npy", "label_flips.npy", "datasplit.npy"), "zero_shot": ("dists.npy",)}
+    paths, card = {}, {}
+    for baseline, extra, kind, runner in runs:
+        name = "_".join([baseline, *extra[1:]])
+        out = RUNS / f"baseline_{name}"
+        shutil.rmtree(out, ignore_errors=True)
+        argv = ["--output_dir", str(out), "--baseline", baseline, *extra, *data[kind], "--synthetic_n", str(n),
+                "--knn_k", "5", "--clip_model", model, "--embedding_cache", str(embedding_cache),
+                "--platform", device.type]
+        hits = ClipEncoder.npz_hits
+        with RecordSearches() as searched:
+            launches, wall, log, res = run_entry(run_baseline, scoremax, topk, argv, {"LEMON_TPU_PRECISION": "bf16"})
+        hits = ClipEncoder.npz_hits - hits
+        for f in ("args.json", "out.txt", "res.pkl", "scores.csv", "runtime.npy", "done", *files.get(baseline, ())):
+            check((out / f).exists(), f"baseline {name}: {f} missing")
+        scores = res["df"]["pred_score"].to_numpy()
+        check(len(scores) == n and bool(np.isfinite(scores).all()), f"baseline {name}: non-finite or missing pred_score")
+        check("compute_dtype=torch.bfloat16" in log, f"baseline {name}: the run did not take the bf16 mode")
+        auroc = {s: round(float(res["agg_results"][s]["AUROC"]), 4) for s in ("val", "test")}
+        print(f"baseline {name} ({kind}, n={n}, k=5, {model} bf16, random init): wall {wall:.2f} s, "
+              f"runtime.npy {float(np.load(out / 'runtime.npy')[0]):.3f} s; .npz cache hits {hits}; AUROC {auroc}; "
+              f"kernel launches {launches}", flush=True)
+        if baseline in ("discrepancy", "deepknn"):  # exact kNN at precision 'highest'
+            check_launched(launches, ("scores_blockmax_highest", "topk"), f"baseline {name}")
+            check(launches["scores_blockmax"] == 0, f"baseline {name}: K1 ran in 'high': {launches}")
+        if kind == "caption":
+            check(hits == 3, f"baseline {name}: {hits} of 3 splits read from phase 10's cache")
+        paths[f"baseline_{name}"] = launches
+        card[name] = (runner, extra, kind, res, searched.ids)
+
+    # the same scoring on the CPU, from the card's embeddings: one card
+    # encoder of the CLI's weights and mode serves the cache reads and
+    # zero_shot's class prompts; deepknn scores with the card's clusters
+    enc = create_encoder(model, device, seed=0, precision=Precision.bf16())
+    splits = dict(zip(("train", "val", "test"), get_dataset("synthetic_caption", 0, noise_type="random", synthetic_n=n)))
+    for name, (runner, extra, kind, res, card_ids) in card.items():
+        cfg = BaselineConfig(dataset=data[kind][1], noise_type=data[kind][3], synthetic_n=n, knn_k=5,
+                             clip_model=model, embedding_cache=str(embedding_cache), platform="cpu",
+                             method=extra[1] if extra else "")
+        if runner is run_deepknn:  # the card's clusters, as the card's run drew them
+            km, train_clusters = cluster_caption_text(list(splits["train"].sentence),
+                                                      n_clusters=min(100, len(splits["train"]) // 2), encoder=enc)
+            labels = {"train": train_clusters, **{s: km.predict(list(splits[s].sentence)) for s in ("val", "test")}}
+            n_classes = km.km.n_clusters
+        t0 = time.perf_counter()
+        with RecordSearches() as searched:
+            if runner is run_deepknn:
+                cpu_scores = {}
+                for sname, split in splits.items():
+                    texts = list(split.sentence)
+                    img, _ = enc.embed_split(split, texts, **cache_kwargs(cfg, enc, split, texts))
+                    y = labels[sname] % n_classes
+                    probs = knn_label_distribution(img, y, n_classes, k=5, norm="l1", device=torch.device("cpu"))
+                    cpu_scores[sname] = 1.0 - probs[np.arange(len(split)), y]
+                b = split_frame(cfg, splits, cpu_scores)
+            else:
+                b = runner(cfg, RUNS / f"baseline_{name}_cpu", encoder=enc)["df"]
+        a = res["df"]
+        check(bool((a["sset"] == b["sset"]).all() and (a["idx"] == b["idx"]).all()), f"{name}: CPU rows differ")
+        diff = np.abs(a["pred_score"].to_numpy(np.float64) - b["pred_score"].to_numpy(np.float64))
+        above = diff > BASELINE_TOL
+        below = float(diff[~above].max()) if (~above).any() else 0.0
+        print(f"baseline {name} card vs CPU scoring ({time.perf_counter() - t0:.2f} s on the CPU): pred_score max abs "
+              f"diff {diff.max():.3e} (tol {BASELINE_TOL}), {int(above.sum())} rows above it, the rest within "
+              f"{below:.3e}", flush=True)
+        if runner is run_deepknn and above.any():
+            # an fp32 near-tie among the image neighbours may resolve one way
+            # on the card's K1 and the other in the CPU's matmul: each such
+            # row must have a neighbour set that differs, by neighbours
+            # whose float64 similarities to the row lie within NEAR_TIE
+            gaps = []
+            for s, (ids_card, ids_cpu) in enumerate(zip(card_ids, searched.ids)):
+                sname = ("train", "val", "test")[s]
+                rows = np.flatnonzero(above[(a["sset"] == sname).to_numpy()])
+                if len(rows) == 0:
+                    continue
+                split = splits[sname]
+                img, _ = enc.embed_split(split, list(split.sentence), **cache_kwargs(cfg, enc, split, list(split.sentence)))
+                f = img.astype(np.float64) / np.linalg.norm(img.astype(np.float64), axis=1, keepdims=True)
+                for r in rows:
+                    moved = np.array(sorted(set(ids_card[r]) ^ set(ids_cpu[r])), np.int64)
+                    check(len(moved) > 0, f"baseline {name}: {sname} row {r} differs with the same neighbours")
+                    sims = f[moved] @ f[r]
+                    gaps.append(float(sims.max() - sims.min()))
+            gap = max(gaps, default=0.0)
+            print(f"baseline {name}: the {int(above.sum())} rows above {BASELINE_TOL} swap near-tied image neighbours "
+                  f"(float64 similarity gap at most {gap:.3e}, bar {NEAR_TIE})", flush=True)
+            check(gap <= NEAR_TIE, f"baseline {name}: a swapped neighbour is {gap} from its twin")
+        else:
+            check(diff.max() <= BASELINE_TOL, f"baseline {name}: card vs CPU pred_score differs by {diff.max()}")
+
+    # k-means on distinct rows (the train images' embeddings; the synthetic
+    # captions repeat): two fits on the card give the same bits, the CPU the
+    # same labels and centroids within KMEANS_TOL
+    cfg = BaselineConfig(dataset="synthetic_caption", noise_type="random", synthetic_n=n, clip_model=model,
+                         embedding_cache=str(embedding_cache))
+    texts = list(splits["train"].sentence)
+    emb = enc.embed_split(splits["train"], texts, **cache_kwargs(cfg, enc, splits["train"], texts))[0][:KMEANS_ROWS]
+    check(len(np.unique(emb, axis=0)) == len(emb), "k-means: the image embeddings repeat")
+    fits = {}
+    for label, km_device in (("card", device), ("card again", device), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        km = KMeans(n_clusters=100, seed=0, device=km_device).fit(emb)
+        fits[label] = (km.centroids, km.predict(emb), time.perf_counter() - t0)
+    (c0, l0, t_card), (c1, l1, _), (c2, l2, t_cpu) = fits.values()
+    err = float(np.abs(c0 - c2).max())
+    print(f"k-means {len(emb)} image embeddings x 100 clusters (5 restarts x 300 Lloyd steps): card {t_card:.2f} s, "
+          f"CPU {t_cpu:.2f} s; card repeat bit-identical {np.array_equal(c0, c1) and np.array_equal(l0, l1)}; card vs "
+          f"CPU centroids max abs diff {err:.3e} (tol {KMEANS_TOL}), labels that differ {int((l0 != l2).sum())}",
+          flush=True)
+    check(np.array_equal(c0, c1) and np.array_equal(l0, l1), "k-means: two fits on the card differ")
+    check(err <= KMEANS_TOL and np.array_equal(l0, l2), f"k-means: card vs CPU centroids differ by {err}, "
+          f"{int((l0 != l2).sum())} labels differ")
+    del enc
+    print(f"baselines phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
     return paths
 
 
@@ -805,6 +1011,7 @@ def phase_vit_b16_flash(torch, scoremax, topk, attention, device, precision: str
     del plain
 
     scoremax.scores_blockmax.launches = 0
+    scoremax.scores_blockmax.launches_highest = 0
     topk.topk.launches = 0
     attention.flash_attention.launches = 0
     attention.flash_attention.launches_bf16 = 0
@@ -813,8 +1020,8 @@ def phase_vit_b16_flash(torch, scoremax, topk, attention, device, precision: str
     agg, df = detect.select_and_evaluate(cfg, logs, device, timer)
     wall = time.perf_counter() - t1
     n_bf16 = attention.flash_attention.launches_bf16
-    launches = {"scores_blockmax": scoremax.scores_blockmax.launches, "topk": topk.topk.launches,
-                "flash_attention": attention.flash_attention.launches - n_bf16, "flash_attention_bf16": n_bf16}
+    launches = {**k1_k2_launches(scoremax, topk), "flash_attention": attention.flash_attention.launches - n_bf16,
+                "flash_attention_bf16": n_bf16}
 
     scores = df["know_val_labels_pred_score"].to_numpy()
     check(len(scores) == n and np.isfinite(scores).all(), "ViT-B/16 detection: non-finite or missing scores")
@@ -1110,7 +1317,9 @@ def main() -> None:
     p_times = phase_probe_kernels(torch, scoremax, select, matmul, device)
     # (function, attribute) of every kernel's count; the split ones are
     # reassembled below
-    counters = {"scores_blockmax": (scoremax.scores_blockmax, "launches"), "topk": (topk.topk, "launches"),
+    counters = {"scores_blockmax": (scoremax.scores_blockmax, "launches"),
+                "scores_blockmax_highest": (scoremax.scores_blockmax, "launches_highest"),
+                "topk": (topk.topk, "launches"),
                 "flash_attention": (attention.flash_attention, "launches"),
                 "flash_attention_bf16": (attention.flash_attention, "launches_bf16"),
                 "fused_gather_topk": (select.fused_gather_topk, "launches"),
@@ -1121,6 +1330,7 @@ def main() -> None:
                 "topk_colids": (select.topk_colids, "launches")}
     probes = phase_probes(torch, counters)
     for counts in probes.values():
+        counts["scores_blockmax"] -= counts["scores_blockmax_highest"]
         counts["flash_attention"] -= counts["flash_attention_bf16"]
         counts["tiled_matmul_bf16"] = counts.pop("tiled_matmul") - counts["tiled_matmul_int8"]
     for kernel, probe in (("tiled_matmul_int8", "probe_pallas_int8"), ("tiled_matmul_bf16", "probe_pallas_int8"),
@@ -1130,16 +1340,18 @@ def main() -> None:
     warm = phase_warm_repeat(torch, scoremax, topk, b32_bf16_run, b32_bf16_timing)
     stream = phase_stream(torch, scoremax, topk)
     encoders = phase_new_encoders(torch, scoremax, topk)
+    baselines = phase_baselines(torch, scoremax, topk, embedding_cache, device)
 
     main_paths = {"run_lemon_vit_b32": b32, "run_lemon_vit_b32_bf16": b32_bf16, "detect_vit_b16_flash": b16,
                   "detect_vit_b16_flash_bf16": b16_bf16, "knn_select_fused_probe": {"fused_gather_topk": k4_launches},
-                  **probes, **warm, "run_lemon_stream_62500_bf16": stream, **encoders}
+                  **probes, **warm, "run_lemon_stream_62500_bf16": stream, **encoders, **baselines}
 
     def launches(name):
         paths = {path: counts.get(name, 0) for path, counts in main_paths.items()}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
-    k1_ms, k1_plain, k1_bound = k1_times[("ip", "high")]  # the main path's mode (--knn_precision auto)
+    k1_ms, k1_plain, k1_bound, _ = k1_times[("ip", "high")]  # the main path's mode (--knn_precision auto)
+    k1h_ms, k1h_plain, k1h_bound, k1h_err = k1_times[("ip", "highest")]  # the baselines' mode
     k2_ms, k2_plain, k2_sort, k2_bound = k2_times[(768, 6)]  # the main path's candidates at --knn_k 5
     k3_ms, k3_plain, k3_sdpa, k3_bound = k3_times[K3_SHAPES[0]]  # the ViT-B/16 vision tower, the path's largest attention
     k3b_ms, k3b_plain, k3b_sdpa, k3b_bound = k3b_times[K3_SHAPES[0]]
@@ -1153,6 +1365,10 @@ def main() -> None:
         {"name": "scores_blockmax", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
          "replaces": "lemon_tpu/ops/scoremax.py:119", **launches("scores_blockmax"),
          **numbers(k1_err, k1_ms, k1_plain, k1_bound, None)},
+        {"name": "scores_blockmax_highest", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
+         "kernel": "K1 at precision 'highest' (fp32 products on the CUDA cores), ip 8192x512 . 16000x512",
+         "replaces": "lemon_tpu/ops/scoremax.py:119", **launches("scores_blockmax_highest"),
+         **numbers(k1h_err, k1h_ms, k1h_plain, k1h_bound, None)},
         {"name": "topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/topk.cu",
          "replaces": "lemon_tpu/ops/topk.py:80", **launches("topk"),
          **numbers(k2_err, k2_ms, k2_plain, k2_bound, k2_sort)},

@@ -44,7 +44,10 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 class ClipEncoder:
-    """Frozen CLIP wrapper: numpy in, L2-normalised numpy embeddings out."""
+    """Frozen CLIP wrapper: numpy in, L2-normalised numpy embeddings out.
+    ``ClipEncoder.npz_hits`` counts the splits read from the ``.npz`` cache."""
+
+    npz_hits = 0
 
     def __init__(self, model: ClipModel, device: torch.device, batch_size: int = 128, weights_fingerprint: str = "unknown",
                  tokenize_fn: Optional[Callable[[Sequence[str]], np.ndarray]] = None):
@@ -150,7 +153,9 @@ class ClipEncoder:
             if path.exists():
                 try:
                     with np.load(path) as blob:
-                        return blob["img"], blob["txt"]
+                        img, txt = blob["img"], blob["txt"]
+                    ClipEncoder.npz_hits += 1
+                    return img, txt
                 except (OSError, KeyError, ValueError) as e:  # torn or foreign file
                     print(f"embedding cache: unreadable {path} ({e}); re-embedding", flush=True)
 

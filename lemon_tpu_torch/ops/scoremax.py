@@ -89,16 +89,19 @@ def scores_blockmax(q, db, metric="ip", db_sqnorm=None, start=0, n_valid=None, p
     database tile ``db`` (T, D), both fp32 and contiguous, T a multiple of
     128. ``db_sqnorm`` (T,) is required for 'l2'. ``n_valid=None`` masks
     nothing. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (``scores_blockmax.launches`` counts the launches)."""
+    kernel (``scores_blockmax.launches`` counts the launches of both
+    precisions, ``scores_blockmax.launches_highest`` those of ``highest``)."""
     _check(q, db, metric, db_sqnorm, precision)
     if q.device.type == "cpu":
         return scores_blockmax_plain(q, db, metric, db_sqnorm, start, n_valid, precision)
     s, bmax = _launch("scores_blockmax", q, db, metric, db_sqnorm, start, n_valid, precision, _OUT_K1)
     scores_blockmax.launches += 1
+    scores_blockmax.launches_highest += precision == "highest"
     return s, bmax
 
 
 scores_blockmax.launches = 0
+scores_blockmax.launches_highest = 0
 
 
 def block_maxima_plain(q, db, precision="highest"):

@@ -1,11 +1,14 @@
-"""The port's CLI on the live-reference goldens.
+"""The port's CLIs on the live-reference goldens.
 
-Same fixtures and bars as tests/test_live_reference_parity.py's
-``_assert_parity`` (re-stated here, not imported): a tiny HF CLIP checkpoint
-and synthetic datasets in the reference's on-disk formats, built by
-tests/reference_harness/fixture.py; val and test AUROC within 1e-3 of the
-goldens, ``pred_score`` within 2e-3, ``sset``/``idx``/``is_mislabel``
-bit-exact. The run is ``--platform cpu --strict_hparam_parity``.
+Same fixtures and bars as tests/test_live_reference_parity.py (re-stated
+here, not imported): a tiny HF CLIP checkpoint and synthetic datasets in the
+reference's on-disk formats, built by tests/reference_harness/fixture.py.
+``run_lemon`` (``--platform cpu --strict_hparam_parity``): val and test AUROC
+within 1e-3 of the goldens, ``pred_score`` within 2e-3,
+``sset``/``idx``/``is_mislabel`` bit-exact. ``run_baseline`` (``--platform
+cpu``): clip_sim's and zero_shot's ``dists.npy`` within 1e-4; discrepancy's
+``dis_y`` and ``div_x`` ``scores.csv`` within 1e-4, ``is_mislabel`` exact,
+val and test AUROC within 1e-3.
 """
 
 import json
@@ -33,6 +36,8 @@ def fixtures(tmp_path_factory):
         "ckpt": build_checkpoint(base / "ckpt")["state_dict_pt"],
         "caption": build_caption_fixture(base / "caption"),
         "cifar_root": build_cifar_fixture(base / "cifar" / "data"),
+        # batch-divisible splits (512/64/64) for the npy-contract baselines
+        "cifar640_root": build_cifar_fixture(base / "cifar640" / "data", n_train=640),
     }
 
 
@@ -78,3 +83,53 @@ def test_port_matches_live_reference_golden(fixtures, tmp_path, monkeypatch, gol
     np.testing.assert_array_equal(ref["is_mislabel"].values, got["is_mislabel"].values)
     d = np.abs(ref["pred_score"].values - got["pred_score"].values).max()
     assert d <= 2e-3, f"pred_score drifted from the live-reference golden: max abs diff {d}"
+
+
+def _run_port_baseline(out_dir, env, monkeypatch, argv):
+    for k, v in env.items():
+        monkeypatch.setenv(k, str(v))
+    from lemon_tpu_torch.cli.run_baseline import main
+
+    stdout, stderr = sys.stdout, sys.stderr
+    try:
+        main(["--output_dir", str(out_dir), "--platform", "cpu", *argv])
+    finally:
+        sys.stdout, sys.stderr = stdout, stderr
+
+
+@pytest.mark.parametrize("method", ["dis_y", "div_x"])
+def test_port_discrepancy_matches_live_reference_golden(fixtures, tmp_path, monkeypatch, method):
+    out = tmp_path / f"disc_{method}"
+    _run_port_baseline(
+        out, {"LEMON_TPU_PATH_MSCOCO": fixtures["caption"], "LEMON_TPU_CKPT_HUGGINGFACE_CLIP": fixtures["ckpt"]},
+        monkeypatch,
+        ["--baseline", "discrepancy", "--method", method, "--dataset", "mscoco", "--noise_type", "random",
+         "--noise_level", "0.4", "--knn_k", "5", "--seed", "0", "--data_seed", "0"],
+    )
+    ref = pd.read_csv(HARNESS / "goldens" / f"ref_disc_{method}_scores.csv")
+    got = pd.read_csv(out / "scores.csv")
+    np.testing.assert_array_equal(ref["is_mislabel"].values, got["is_mislabel"].values)
+    d = np.abs(ref["pred_score"].values - got["pred_score"].values).max()
+    assert d <= 1e-4, f"discrepancy {method} drifted from the live-reference golden: {d}"
+    with open(out / "res.pkl", "rb") as f:
+        agg = pickle.load(f)["agg_results"]
+    for s in ("val", "test"):
+        assert abs(float(agg[s]["AUROC"]) - GOLDENS[f"disc_{method}"][f"{s}_AUROC"]) <= 1e-3
+
+
+@pytest.mark.parametrize("baseline,golden", [("zero_shot", "ref_zero_shot_dists.npy"),
+                                             ("clip_sim", "ref_clip_sim_dists.npy")])
+def test_port_dists_match_live_reference_golden(fixtures, tmp_path, monkeypatch, baseline, golden):
+    """clip_sim's golden guards the bare-class-word text contract (no 'A
+    photo of a' prompt); zero_shot's the confidences before negation."""
+    out = tmp_path / baseline
+    _run_port_baseline(
+        out, {"LEMON_TPU_DATA_ROOT": fixtures["cifar640_root"], "LEMON_TPU_CKPT_HUGGINGFACE_CLIP": fixtures["ckpt"]},
+        monkeypatch,
+        ["--baseline", baseline, "--dataset", "cifar10", "--noise_type", "symmetric", "--noise_level", "0.4",
+         "--seed", "0", "--data_seed", "0"],
+    )
+    ref = np.load(HARNESS / "goldens" / golden)
+    got = np.load(out / "dists.npy")
+    assert ref.shape == got.shape
+    assert np.abs(ref - got).max() <= 1e-4
