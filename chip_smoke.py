@@ -117,7 +117,31 @@ imports nothing of JAX. Phases, each printed on its own lines:
     whose image neighbour sets differ by an fp32 near-tie (float64
     similarity gap under 1e-5); k-means of 4000 image embeddings (distinct
     rows) into 100 clusters, twice on the card (bit-identical) and once on
-    the CPU (the same labels, centroids within 1e-4).
+    the CPU (the same labels, centroids within 1e-4);
+19. contrastive training at full width (``mimic_clip_from_scratch``:
+    ViT-B/16, text context 256, embed 768; random init): the step on one
+    repeated batch of 128 ``BatchStream`` pairs in fp32 and bf16 (fp32 master
+    weights), the loss finite and falling at every step, ms per step, pairs per second,
+    ``torch.cuda.max_memory_allocated`` and one profiled step's forward /
+    backward / optimizer split; then ``python -m
+    lemon_tpu_torch.cli.train_clip`` in-process, each step timed between two
+    synchronisations: 4 steps against 2 steps and
+    ``--resume`` to 4, and ``--mesh 1x1`` (NCCL, a world of one) against no
+    mesh, in fp32 under ``torch.use_deterministic_algorithms(True)`` (with
+    ``CUBLAS_WORKSPACE_CONFIG`` set for this phase alone), held
+    at rtol 1e-6, atol 1e-7 (bit-identical expected); 4 steps in bf16; the
+    last checkpoint's state dict loaded into a ``ClipModel`` that embeds 512
+    pairs. No kernel of the port runs in training: every count stays 0;
+20. phase 10's argv with ``--mesh 1x1``: the sharded search of a world of
+    one (K1, K2 and the K2 merge of the gathered candidates), its scores csv
+    and res.pkl columns bit-identical to phase 10's, K1 and K2 launched;
+21. the host C++ kNN (``ExactKnnIndex(backend="cpp")``, built with g++)
+    against the card's search at precision ``highest`` on phase 10's
+    embeddings (16000 x 512 comparison set, all 2000 val queries, k=6),
+    images and texts: scores within 1e-5, ids equal but at near-ties (the
+    two neighbours of a differing slot within NEAR_TIE in float64
+    similarity); both searches also held so against the exact float64
+    order.
 
 The switches: TF32 off for fp32 products and convolutions, and cuBLAS's
 reduced-precision reductions of bf16 products off, as the CLI sets them
@@ -1252,15 +1276,343 @@ def phase_probes(torch, counters):
     paths = {}
     for name in PROBES:
         mod = importlib.import_module(f"lemon_tpu_torch.benchmarks.{name}")
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
+        reset_counts(counters)
         t0 = time.perf_counter()
         mod.main()
         torch.cuda.synchronize()
-        paths[name] = {kernel: getattr(fn, attr) for kernel, (fn, attr) in counters.items()}
+        paths[name] = kernel_counts(counters)
         print(f"{name}: main() in {time.perf_counter() - t0:.2f} s; kernel launches "
               f"{ {k: v for k, v in paths[name].items() if v} }", flush=True)
     return paths
+
+
+TRAIN_BATCH = 128  # the global batch of the training phase
+TRAIN_N = 800  # synthetic pairs: a 640-row train split, five batches of 128 an epoch
+TRAIN_ARGV = ["--dataset", "synthetic_caption", "--model_size", "vit_b16", "--context_length", "256",
+              "--batch_size", str(TRAIN_BATCH), "--synthetic_n", str(TRAIN_N), "--save_interval", "100"]
+TRAIN_STEPS = 6  # API steps on one repeated batch: the first warms up, the rest are timed
+RESUME_STEPS = 2  # n: a CLI run of 2n steps against n steps and --resume to 2n
+
+
+def kernel_counts(counters) -> dict:
+    return {kernel: getattr(fn, attr) for kernel, (fn, attr) in counters.items()}
+
+
+def split_counts(counts: dict) -> dict:
+    """Counts read from ``counters`` in place as the kernels line names
+    them: K1 ``high`` apart from ``highest``, K3 fp32 apart from bf16, P4
+    bf16 apart from int8."""
+    counts["scores_blockmax"] -= counts["scores_blockmax_highest"]
+    counts["flash_attention"] -= counts["flash_attention_bf16"]
+    counts["tiled_matmul_bf16"] = counts.pop("tiled_matmul") - counts["tiled_matmul_int8"]
+    return counts
+
+
+def reset_counts(counters) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def train_steps(torch, precision: str, device):
+    """The training step at full width (the ``mimic_clip_from_scratch``
+    configuration: ViT-B/16, text context 256, embed 768) on one repeated
+    batch of ``TRAIN_BATCH`` pairs from ``BatchStream``: the losses (finite,
+    falling), ms per step and pairs per second of the steps after the first
+    (host clock, synchronised each step), the peak device memory, and one
+    profiled step's forward / backward / optimizer split."""
+    import numpy as np
+
+    from lemon_tpu_torch.cli.train_clip import BatchStream
+    from lemon_tpu_torch.data.datasets import get_dataset
+    from lemon_tpu_torch.models.clip import ClipConfig
+    from lemon_tpu_torch.train.contrastive import TrainConfig, create_train_state, make_train_step
+
+    cfg = ClipConfig.from_scratch_mimic()
+    train = get_dataset("synthetic_caption", 0, noise_level=0.0, synthetic_n=TRAIN_N)[0]
+    batch = next(BatchStream(train, cfg.context_length, TRAIN_BATCH, cfg.image_resolution, seed=0, device=device))
+    pixels, tokens = batch["pixels"], torch.from_numpy(batch["tokens"]).to(device).long()
+    # 1e-5 without warmup: the loss falls at every step on one batch (the
+    # CLI's 5e-4 moves every weight by about 5e-4 at the first AdamW step and
+    # sends this random init to chance, ln 128, in a few steps)
+    tcfg = TrainConfig(learning_rate=1e-5, warmup_steps=0, total_steps=1000, batch_size=TRAIN_BATCH,
+                       precision=precision)
+    model, state = create_train_state(cfg, tcfg, device=device)
+    step = make_train_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, pixels, tokens)
+        losses.append(float(loss))  # synchronises
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(times[1:])) * 1e3
+    check(bool(np.isfinite(losses).all()) and all(b < a for a, b in zip(losses, losses[1:])),
+          f"train {precision}: the loss is not finite and falling at every step on a repeated batch: {losses}")
+    check(all(p.dtype == torch.float32 for p in model.parameters()), f"train {precision}: a parameter left fp32")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, loss = step(state, pixels, tokens)
+        torch.cuda.synchronize()
+    split = step_split(prof)
+    print(f"train {precision} ViT-B/16 ctx-256 embed 768, batch {TRAIN_BATCH}, AdamW lr {tcfg.learning_rate}: losses "
+          f"{[round(x, 4) for x in losses]}; {ms:.1f} ms per step (median of {TRAIN_STEPS - 1}, host clock, "
+          f"synchronised), {TRAIN_BATCH / ms * 1e3:.1f} pairs/s; max_memory_allocated {peak / 2**30:.2f} GiB",
+          flush=True)
+    print(f"train {precision} profiled step, device ms by part (torch.profiler): "
+          + (json.dumps(split) if split else "not measured (no annotated device ranges in the trace)"), flush=True)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "pairs_per_s": TRAIN_BATCH / ms * 1e3, "max_memory_allocated": peak,
+            "losses": losses, "profile_ms": split}
+
+
+def step_split(prof):
+    """Device time of one profiled training step by part: the kernels (and
+    copies) that start inside the device span of the ``forward`` and
+    ``optimizer`` ranges, and those between the two, the backward (autograd
+    launches its kernels from its own thread, outside the ``backward``
+    range); with the step's device total and its span. None when the trace
+    holds no annotated device ranges."""
+    from torch.autograd import DeviceType
+
+    parts = ("forward", "backward", "optimizer")
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = {e.name: e.time_range for e in dev if e.name in parts}
+    work = [e.time_range for e in dev if e.name not in parts]
+    if "forward" not in spans or "optimizer" not in spans or not work:
+        return None
+    fwd, opt = spans["forward"], spans["optimizer"]
+
+    def busy(lo, hi):
+        return round(sum(t.elapsed_us() for t in work if lo <= t.start < hi) / 1e3, 3)
+
+    return {"forward": busy(fwd.start, fwd.end), "backward": busy(fwd.end, opt.start),
+            "optimizer": busy(opt.start, opt.end + 1), "total": round(sum(t.elapsed_us() for t in work) / 1e3, 3),
+            "span": round((max(t.end for t in work) - min(t.start for t in work)) / 1e3, 3)}
+
+
+def train_cli(torch, counters, out, extra, deterministic=False):
+    """``train_clip`` in-process (every kernel count set to 0 before it),
+    each step timed on the host clock between two synchronisations (the
+    run's step function wrapped for the call); (final model state dict on
+    the host, wall seconds, kernel launches)."""
+    from lemon_tpu_torch.cli.train_clip import main as train_clip
+    from lemon_tpu_torch.train import contrastive
+
+    make_step, seconds = contrastive.make_train_step, []
+
+    def timed_make_step(model, mesh=None):
+        step = make_step(model, mesh)
+
+        def timed(state, pixels, tokens):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, pixels, tokens)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    reset_counts(counters)
+    stdout, stderr = sys.stdout, sys.stderr
+    torch.cuda.reset_peak_memory_stats()
+    # the cuBLAS setting torch's deterministic mode asks for, for these runs
+    # alone: set for the whole script, it made phase 13's bf16 embedding
+    # 1.7-2.4x slower (PERF.md)
+    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if deterministic:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(deterministic)
+    contrastive.make_train_step = timed_make_step
+    t0 = time.perf_counter()
+    try:
+        state = train_clip(["--output_dir", str(out), *TRAIN_ARGV, *extra])
+        torch.cuda.synchronize()
+    finally:
+        contrastive.make_train_step = make_step
+        torch.use_deterministic_algorithms(False)
+        if workspace is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = workspace
+        tees = (sys.stdout, sys.stderr)
+        sys.stdout, sys.stderr = stdout, stderr
+        for tee in tees:
+            if tee not in (stdout, stderr):
+                tee.close()
+    wall = time.perf_counter() - t0
+    steady = sorted(seconds[1:] or seconds)
+    ms = steady[len(steady) // 2] * 1e3
+    print(f"train_clip {' '.join(extra)}: wall {wall:.2f} s; {len(seconds)} steps, {ms:.1f} ms per step (median "
+          f"after the first), {TRAIN_BATCH / ms * 1e3:.1f} pairs/s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    params = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+    return params, wall, kernel_counts(counters)
+
+
+def max_param_diff(torch, a: dict, b: dict):
+    """(max abs difference, whether every tensor is equal bit for bit)."""
+    return (max(float((a[k] - b[k]).abs().max()) for k in a), all(torch.equal(a[k], b[k]) for k in a))
+
+
+def phase_training(torch, counters, device):
+    """Phase 19: contrastive training at full width. The step in fp32 and
+    bf16 (:func:`train_steps`), then ``python -m lemon_tpu_torch.cli.train_clip``
+    in-process: 2n steps against n steps and ``--resume`` to 2n, and
+    ``--mesh 1x1`` (NCCL, a world of one) against no mesh, all in fp32 under
+    ``torch.use_deterministic_algorithms(True)`` (so the card adds every
+    gradient in one order: bit-identical expected, held at the JAX test's
+    rtol 1e-6, atol 1e-7); then 2n steps in bf16. The checkpoint's state dict
+    loads into a ``ClipModel`` that embeds 512 pairs. No kernel of the port
+    runs on the training path. Returns ({path: launches}, numbers)."""
+    import numpy as np
+
+    from lemon_tpu_torch.data.datasets import get_dataset
+    from lemon_tpu_torch.models.clip import ClipConfig, ClipModel
+    from lemon_tpu_torch.models.encoder import ClipEncoder
+    from lemon_tpu_torch.train.contrastive import restore_params
+
+    t_phase = time.perf_counter()
+    numbers = {p: train_steps(torch, p, device) for p in ("fp32", "bf16")}
+    n2 = str(2 * RESUME_STEPS)
+    root = RUNS / "train_clip"
+    shutil.rmtree(root, ignore_errors=True)
+    full, wall_full, launches_fp32 = train_cli(torch, counters, root / "fp32", ["--total_steps", n2], True)
+    _, wall_half, _ = train_cli(torch, counters, root / "resumed", ["--total_steps", str(RESUME_STEPS)], True)
+    resumed, wall_resume, _ = train_cli(torch, counters, root / "resumed", ["--total_steps", n2, "--resume"], True)
+    diff, same = max_param_diff(torch, full, resumed)
+    print(f"train_clip fp32 {n2} steps {wall_full:.2f} s; {RESUME_STEPS} steps {wall_half:.2f} s, then --resume to "
+          f"{n2} {wall_resume:.2f} s (deterministic algorithms): parameters max abs diff {diff:.3e}, "
+          f"bit-identical {same}", flush=True)
+    for k in full:
+        check(bool(np.allclose(resumed[k].numpy(), full[k].numpy(), rtol=1e-6, atol=1e-7)),
+              f"train_clip: the resumed run's {k} differs from the uninterrupted run's")
+    meshed, wall_mesh, launches_mesh = train_cli(torch, counters, root / "mesh", ["--total_steps", n2, "--mesh", "1x1"],
+                                                 True)
+    diff_m, same_m = max_param_diff(torch, full, meshed)
+    print(f"train_clip fp32 --mesh 1x1 (NCCL, a world of one) {n2} steps {wall_mesh:.2f} s: against no mesh "
+          f"max abs diff {diff_m:.3e}, bit-identical {same_m}", flush=True)
+    for k in full:
+        check(bool(np.allclose(meshed[k].numpy(), full[k].numpy(), rtol=1e-6, atol=1e-7)),
+              f"train_clip --mesh 1x1: {k} differs from the run without a mesh")
+    _, wall_bf16, launches_bf16 = train_cli(torch, counters, root / "bf16", ["--total_steps", n2, "--precision", "bf16"])
+    print(f"train_clip bf16 {n2} steps {wall_bf16:.2f} s", flush=True)
+    for name in ("args.json", "out.txt", "done"):
+        check((root / "fp32" / name).exists(), f"train_clip: {name} missing")
+    check(sorted(p.name for p in (root / "fp32" / "ckpt").iterdir()) == [str(2 * RESUME_STEPS - 1)],
+          "train_clip: the final checkpoint is not the last step's")
+
+    # the checkpoint feeds a ClipModel as the registry builds it
+    cfg = ClipConfig.from_scratch_mimic()
+    model = ClipModel(cfg)
+    model.load_state_dict(restore_params(root / "bf16" / "ckpt"))
+    pairs = get_dataset("synthetic_caption", 0, noise_level=0.0, synthetic_n=640)[0]
+    t0 = time.perf_counter()
+    img, txt = ClipEncoder(model, device).embed_split(pairs, list(pairs.sentence))
+    torch.cuda.synchronize()
+    norms = np.linalg.norm(np.concatenate([img, txt]), axis=1)
+    check(img.shape == (512, cfg.embed_dim) and txt.shape == (512, cfg.embed_dim)
+          and bool(np.isfinite(norms).all()) and bool(np.abs(norms - 1).max() < 1e-4),
+          "the trained checkpoint's ClipModel: embeddings not finite unit rows of 512 pairs")
+    print(f"restored bf16 checkpoint -> ClipModel (fp32): 512 pairs embedded in {time.perf_counter() - t0:.2f} s, "
+          f"finite unit rows", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    paths = {"train_clip_vit_b16_fp32": launches_fp32, "train_clip_vit_b16_fp32_mesh_1x1": launches_mesh,
+             "train_clip_vit_b16_bf16": launches_bf16}
+    for path, counts in paths.items():
+        check(not any(counts.values()), f"{path}: a kernel of the port ran in training: {counts}")
+    print(f"training phase: {time.perf_counter() - t_phase:.2f} s; kernel launches on the training paths: 0 "
+          f"(plain attention, as the JAX trainer's XLA route)", flush=True)
+    numbers["cli_wall_s"] = {"fp32": wall_full, "bf16": wall_bf16, "fp32_mesh_1x1": wall_mesh,
+                             "fp32_half": wall_half, "fp32_resume": wall_resume}
+    return paths, numbers
+
+
+def phase_mesh_detection(torch, scoremax, topk, run):
+    """Phase 20: phase 10's argv (bf16, its ``--embedding_cache``) with
+    ``--mesh 1x1``: the sharded search of a world of one (K1, K2 and the K2
+    merge of the gathered candidates) against phase 10's run, bit-identical
+    scores csv and res.pkl columns. Returns (kernel launches, timing)."""
+    argv = list(run["argv"])
+    out = RUNS / "run_lemon_bf16_mesh"
+    shutil.rmtree(out, ignore_errors=True)
+    argv[argv.index("--output_dir") + 1] = str(out)
+    launches, wall, log = run_cli(scoremax, topk, [*argv, "--mesh", "1x1"], {"LEMON_TPU_PRECISION": "bf16"})
+    res, csv, auroc, timing = read_run(out, 20000, "run_lemon --mesh 1x1", log)
+    print(f"run_lemon bf16 --mesh 1x1: wall {wall:.2f} s against phase 10's {run['wall']:.2f} s; AUROC {auroc}; "
+          f"kernel launches {launches}", flush=True)
+    check_launched(launches, K1_K2, "run_lemon --mesh 1x1")
+    check(csv == run["csv"], "run_lemon --mesh 1x1: the scores csv differs from the run without a mesh")
+    df0, df1 = run["res"]["df"], res["df"]
+    for col in df0.columns:
+        a, b = df0[col].to_list(), df1[col].to_list()
+        same = all((x.tobytes() == y.tobytes()) if hasattr(x, "tobytes") else (x == y or (x != x and y != y))
+                   for x, y in zip(a, b))
+        check(same, f"run_lemon --mesh 1x1: res.pkl column {col} differs from the run without a mesh")
+    print(f"run_lemon --mesh 1x1: scores csv and all {len(df0.columns)} res.pkl columns bit-identical to phase 10's",
+          flush=True)
+    return launches, timing
+
+
+def phase_cpp_oracle(torch, embedding_cache, device):
+    """Phase 21: the host C++ kNN (``ExactKnnIndex(backend="cpp")``) against
+    the card's search at precision ``highest`` on phase 10's ViT-B/32
+    embeddings (the 16000-row comparison set, all 2000 val queries, k=6),
+    for the image and the text embeddings: ids equal except near-ties (at
+    each slot where the two differ, the float64 similarities of the two
+    neighbours to the query within NEAR_TIE); scores within 1e-5. Each
+    search is held the same way against the exact order, a stable sort of
+    the float64 similarities computed on the card."""
+    import numpy as np
+
+    from lemon_tpu_torch.knn.index import ExactKnnIndex
+
+    blobs = {}
+    for path in sorted(Path(embedding_cache).glob("emb_*.npz")):
+        with np.load(path) as blob:
+            blobs[len(blob["img"])] = (blob["img"], blob["txt"])
+    check(16000 in blobs and 2000 in blobs, f"C++ oracle: phase 10's cache lacks the B/32 splits: {sorted(blobs)}")
+    for m, name in enumerate(("img", "txt")):
+        xb, xq = blobs[16000][m], blobs[2000][m]
+        t0 = time.perf_counter()
+        card = ExactKnnIndex(metric="ip", device=device, precision="highest")
+        card.add(xb)
+        s_card, i_card = card.search(xq, 6)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpp = ExactKnnIndex(metric="ip", backend="cpp")
+        cpp.add(xb)
+        s_cpp, i_cpp = cpp.search(xq, 6)
+        t_cpp = time.perf_counter() - t0
+        sims = (torch.from_numpy(xq).to(device).double() @ torch.from_numpy(xb).to(device).double().T)
+        i_f64 = torch.sort(sims, dim=1, descending=True, stable=True)[1][:, :6].cpu().numpy()
+        sims = sims.cpu().numpy()
+        err = float(np.abs(s_card - s_cpp).max())
+        print(f"C++ oracle, {name} embeddings ({xb.shape[0]} x {xb.shape[1]}, {len(xq)} queries, k=6): card 'highest' "
+              f"{t_card:.3f} s, C++ {t_cpp:.3f} s (host clock); score max abs diff {err:.3e}", flush=True)
+        check(err <= 1e-5, f"C++ oracle {name}: scores differ by {err}")
+        for label, a, b in (("card vs C++", i_card, i_cpp), ("card vs float64", i_card, i_f64),
+                            ("C++ vs float64", i_cpp, i_f64)):
+            # a slot where the ids differ holds two neighbours whose float64
+            # similarities to the query must be a near-tie
+            rows, slots = np.nonzero(a != b)
+            gaps = np.abs(sims[rows, a[rows, slots]] - sims[rows, b[rows, slots]])
+            worst = int(np.argmax(gaps)) if len(gaps) else None
+            gap = float(gaps[worst]) if len(gaps) else 0.0
+            at = f" (query {rows[worst]}, slot {slots[worst]})" if len(gaps) else ""
+            print(f"C++ oracle, {name}, {label}: {len(np.unique(rows))} rows with other ids, float64 similarity gap "
+                  f"at most {gap:.3e}{at} (bar {NEAR_TIE})", flush=True)
+            check(gap <= NEAR_TIE, f"C++ oracle {name}, {label}: a differing neighbour is {gap} from its twin")
+        del sims
+        torch.cuda.empty_cache()
 
 
 def print_side_by_side(what: str, a: dict, b: dict, names=("fp32", "bf16")) -> None:
@@ -1330,9 +1682,7 @@ def main() -> None:
                 "topk_colids": (select.topk_colids, "launches")}
     probes = phase_probes(torch, counters)
     for counts in probes.values():
-        counts["scores_blockmax"] -= counts["scores_blockmax_highest"]
-        counts["flash_attention"] -= counts["flash_attention_bf16"]
-        counts["tiled_matmul_bf16"] = counts.pop("tiled_matmul") - counts["tiled_matmul_int8"]
+        split_counts(counts)
     for kernel, probe in (("tiled_matmul_int8", "probe_pallas_int8"), ("tiled_matmul_bf16", "probe_pallas_int8"),
                           ("block_maxima", "probe_knn_decomp"), ("scores_blockmax_t", "probe_scoremax2"),
                           ("topk_colids", "probe_knn_select3")):
@@ -1341,10 +1691,16 @@ def main() -> None:
     stream = phase_stream(torch, scoremax, topk)
     encoders = phase_new_encoders(torch, scoremax, topk)
     baselines = phase_baselines(torch, scoremax, topk, embedding_cache, device)
+    training, train_numbers = phase_training(torch, counters, device)
+    mesh_launches, _ = phase_mesh_detection(torch, scoremax, topk, b32_bf16_run)
+    phase_cpp_oracle(torch, embedding_cache, device)
+    print("training numbers: " + json.dumps(train_numbers), flush=True)
 
     main_paths = {"run_lemon_vit_b32": b32, "run_lemon_vit_b32_bf16": b32_bf16, "detect_vit_b16_flash": b16,
                   "detect_vit_b16_flash_bf16": b16_bf16, "knn_select_fused_probe": {"fused_gather_topk": k4_launches},
-                  **probes, **warm, "run_lemon_stream_62500_bf16": stream, **encoders, **baselines}
+                  **probes, **warm, "run_lemon_stream_62500_bf16": stream, **encoders, **baselines,
+                  **{path: split_counts(counts) for path, counts in training.items()},
+                  "run_lemon_vit_b32_bf16_mesh_1x1": mesh_launches}
 
     def launches(name):
         paths = {path: counts.get(name, 0) for path, counts in main_paths.items()}
@@ -1396,6 +1752,9 @@ def main() -> None:
          "replaces": "benchmarks/probe_knn_select3.py:89", "also_replaces": "benchmarks/probe_knn_select3.py:163",
          **launches("topk_colids"), **numbers(*p_times["topk_colids"])},
     ]}), flush=True)
+    from lemon_tpu_torch.core.mesh import shutdown
+
+    shutdown()  # the world of one of phases 19 and 20
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

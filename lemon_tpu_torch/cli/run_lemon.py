@@ -9,7 +9,10 @@ Outputs: args.json, out.txt/err.txt, res.pkl, {criteria}_scores.csv, done.
 
 Differences from the JAX CLI: ``--platform`` is ``cuda`` (default) or
 ``cpu`` and a run without a GPU raises unless ``--platform cpu`` is given;
-``--mesh`` raises ``NotImplementedError``; ``--clip_model`` also takes
+``--mesh DATAx1`` runs one process per device (NCCL on the card, gloo on the
+CPU; under ``torchrun``, or a world of one without it), where rank 0 writes
+the output files, and ``DATAxMODEL`` with MODEL > 1 raises
+``NotImplementedError``; ``--clip_model`` also takes
 ``rn50``, a registry model the JAX CLI does not list. The towers' precision
 mode comes from ``LEMON_TPU_PRECISION`` (``fp32``, the default, ``bf16``,
 ``int8`` or ``int8_static``; ``biomed_clip`` runs in fp32), as in the JAX
@@ -72,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     # framework extensions
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
                    help="device to run on; a run never falls back to the CPU by itself")
-    p.add_argument("--mesh", default=None, help="multi-device mesh (not ported: raises)")
+    p.add_argument("--mesh", default=None,
+                   help="mesh shape as DATAxMODEL, e.g. 8x1 (one process per device); MODEL > 1 raises")
     p.add_argument("--knn_tile", default=0, type=int,
                    help="DB tile rows (rounded up to a multiple of 128); 0 = adaptive")
     p.add_argument("--knn_precision", default="auto", choices=["auto", "highest", "high"],
@@ -86,17 +90,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh: multi-device runs are not ported to lemon_tpu_torch yet")
 
     from lemon_tpu_torch.core.device import resolve_device
     from lemon_tpu_torch.core.io import dump_args, env_banner, mark_done, redirect_output
+    from lemon_tpu_torch.core.mesh import get_mesh, parse_mesh
     from lemon_tpu_torch.detect import DetectionConfig, run_detection
 
     device = resolve_device(args.platform)
+    mesh_shape = parse_mesh(args.mesh) if args.mesh else None
+    lead = True  # the rank that writes the run's files
+    if mesh_shape is not None:
+        mesh = get_mesh(*mesh_shape, platform=args.platform)
+        device, lead = mesh.device, mesh.rank == 0
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    if not args.debug:
+    if lead and not args.debug:
         redirect_output(out_dir)
 
     print(env_banner(device))
@@ -107,7 +115,8 @@ def main(argv=None):
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
-    dump_args(out_dir, vars(args))
+    if lead:
+        dump_args(out_dir, vars(args))
 
     cfg = DetectionConfig(
         dataset=args.dataset,
@@ -133,13 +142,20 @@ def main(argv=None):
         synthetic_n=args.synthetic_n,
         knn_tile=args.knn_tile,
         knn_precision=args.knn_precision,
+        mesh_shape=mesh_shape,
         embedding_cache=args.embedding_cache,
         checkpoint=args.checkpoint,
         platform=args.platform,
     )
     run_detection(cfg, out_dir)
-    mark_done(out_dir)
+    if lead:
+        mark_done(out_dir)
 
 
 if __name__ == "__main__":
-    main()
+    from lemon_tpu_torch.core.mesh import shutdown
+
+    try:
+        main()
+    finally:
+        shutdown()

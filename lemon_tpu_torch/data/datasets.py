@@ -119,19 +119,26 @@ def iter_batches(split: Split, batch_size: int) -> Iterator[Tuple[np.ndarray, in
         yield idx, n_valid
 
 
-def load_images(split: Split, idx: np.ndarray, decode_size: int) -> np.ndarray:
+def load_images(split: Split, idx: np.ndarray, decode_size: Optional[int] = None, stack: bool = True):
     """A batch of uint8 HWC images. Paths are decoded on the host; a batch
     of mixed sizes is unified per image with the reference's PIL
-    Resize + CenterCrop to ``decode_size`` (lemon_tpu/data/datasets.py:136-177)."""
+    Resize + CenterCrop to ``decode_size`` (lemon_tpu/data/datasets.py:136-177).
+    ``stack=False`` returns a list of the images at their own sizes, for a
+    caller that crops or resizes each one itself (the trainer's crops)."""
     if split.images is not None:
-        return split.images[idx]
+        batch = split.images[idx]
+        return batch if stack else list(batch)
     from PIL import Image
 
     out = []
     for i in idx:
         with Image.open(split.paths[i]) as img:
             out.append(np.asarray(img.convert("RGB"), np.uint8))
+    if not stack:
+        return out
     if len({a.shape for a in out}) > 1:
+        if decode_size is None:
+            raise ValueError("a batch of mixed image sizes needs decode_size (the model's input resolution)")
         from lemon_tpu_torch.ops.image import pil_resize_crop_u8
 
         out = [pil_resize_crop_u8(a, decode_size) for a in out]

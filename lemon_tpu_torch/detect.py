@@ -25,6 +25,13 @@ embeddings on the device, keyed on their content (``ClipEncoder.cache_key``)
 and the device. A warm repeat builds no encoder, uploads no embedding and,
 with a procedural dataset, renders no pixel. A hit hands the same tensors to
 a later run, so nothing downstream writes them in place.
+
+Under ``mesh_shape`` (``--mesh DATAx1``, lemon_tpu/detect.py:237-269,
+:504-530) one process drives each device: every rank embeds its rows of
+each batch and gathers every embedding, searches its shard of the
+comparison set (knn/index.py), and computes the components, the fit and the
+metrics, which come out the same on every rank; only rank 0 writes the
+output files.
 """
 
 from __future__ import annotations
@@ -35,12 +42,13 @@ import pickle
 import time
 from collections import OrderedDict
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from lemon_tpu_torch.core.device import resolve_device
+from lemon_tpu_torch.core.mesh import Mesh, get_mesh
 from lemon_tpu_torch.core.precision import default_precision
 from lemon_tpu_torch.core.profiling import PhaseTimer
 from lemon_tpu_torch.data.datasets import CLF_DATASETS, get_dataset
@@ -88,6 +96,7 @@ class DetectionConfig:
     # kNN score precision: 'highest' = fp32, 'high' = bf16x3; 'auto' is
     # 'high' unless strict_hparam_parity (see _resolve_knn_precision)
     knn_precision: str = "auto"
+    mesh_shape: Optional[Tuple[int, int]] = None  # (data, model); None = one device
     embedding_cache: Optional[str] = None
     checkpoint: Optional[str] = None
     grid: Optional[Dict] = None
@@ -200,7 +209,8 @@ _device_embs.hits = 0
 _device_embs.misses = 0
 
 
-def build_neighbor_logs(cfg: DetectionConfig, encoder: ClipEncoder, splits: Dict[str, object], label_set, timer: PhaseTimer) -> NeighborLogs:
+def build_neighbor_logs(cfg: DetectionConfig, encoder: ClipEncoder, splits: Dict[str, object], label_set, timer: PhaseTimer,
+                        mesh: Optional[Mesh] = None) -> NeighborLogs:
     """Embed everything, build the indexes, extract all score components."""
     device = encoder.device
     k = cfg.knn_k
@@ -224,8 +234,8 @@ def build_neighbor_logs(cfg: DetectionConfig, encoder: ClipEncoder, splits: Dict
 
     metric = "ip" if cfg.dist_type == "cosine" else "l2"
     knn_prec = _resolve_knn_precision(cfg)
-    index_img = ExactKnnIndex(metric=metric, device=device, tile=cfg.knn_tile or None, precision=knn_prec)
-    index_txt = ExactKnnIndex(metric=metric, device=device, tile=cfg.knn_tile or None, precision=knn_prec)
+    index_img = ExactKnnIndex(metric=metric, device=device, tile=cfg.knn_tile or None, precision=knn_prec, mesh=mesh)
+    index_txt = ExactKnnIndex(metric=metric, device=device, tile=cfg.knn_tile or None, precision=knn_prec, mesh=mesh)
     # one upload each (none on a warm repeat), shared by the indexes and the component gathers
     img_tr_dev, txt_tr_dev = _device_embs(compr_kwargs.get("cache_key"), img_tr, txt_tr, device)
     index_img.add(img_tr_dev)
@@ -404,21 +414,21 @@ def select_and_evaluate(cfg: DetectionConfig, logs: NeighborLogs, device: torch.
 _ENCODER_CACHE: Dict[tuple, ClipEncoder] = {}
 
 
-def _cached_encoder(cfg: DetectionConfig, device: torch.device) -> ClipEncoder:
+def _cached_encoder(cfg: DetectionConfig, device: torch.device, mesh: Optional[Mesh] = None) -> ClipEncoder:
     """The encoder for ``cfg`` on ``device``, built once for the key (model,
     seed, batch size, checkpoint as given and as the environment resolves
-    it, BiomedCLIP's vocabulary, precision mode, device). A cached
+    it, BiomedCLIP's vocabulary, precision mode, mesh, device). A cached
     ``int8_static`` encoder keeps its calibrated scales, the JAX contract.
     ``_cached_encoder.builds`` counts the builds."""
     precision = default_precision()
     key = (cfg.clip_model, cfg.seed, cfg.batch_size, cfg.checkpoint, str(checkpoint_path(cfg.clip_model)),
-           os.environ.get("LEMON_TPU_BIOMED_VOCAB"), precision, str(device))
+           os.environ.get("LEMON_TPU_BIOMED_VOCAB"), precision, mesh, str(device))
     encoder = _ENCODER_CACHE.get(key)
     if encoder is None:
         _ENCODER_CACHE.clear()  # free the previous model before building the next
         encoder = _ENCODER_CACHE[key] = create_encoder(
             cfg.clip_model, device, seed=cfg.seed, batch_size=cfg.batch_size, checkpoint=cfg.checkpoint,
-            precision=precision,
+            precision=precision, mesh=mesh,
         )
         _cached_encoder.builds += 1
     else:
@@ -431,10 +441,12 @@ _cached_encoder.builds = 0
 
 def run_detection(cfg: DetectionConfig, out_dir: Optional[Path] = None) -> Dict:
     """The full pipeline; writes the reference's output files when
-    ``out_dir`` is given (res.pkl, {criteria}_scores.csv)."""
+    ``out_dir`` is given (res.pkl, {criteria}_scores.csv; rank 0 only under
+    a mesh)."""
     if cfg.real_dataset and cfg.noise_level != 0.0:
         raise ValueError("--real_dataset needs --noise_level 0")
-    device = resolve_device(cfg.platform)
+    mesh = get_mesh(*cfg.mesh_shape, platform=cfg.platform) if cfg.mesh_shape is not None else None
+    device = mesh.device if mesh is not None else resolve_device(cfg.platform)
     timer = PhaseTimer(device)
 
     with timer.phase("load_data"):
@@ -449,10 +461,10 @@ def run_detection(cfg: DetectionConfig, out_dir: Optional[Path] = None) -> Dict:
 
     label_set = _labels_for(cfg)
     with timer.phase("load_model"):
-        encoder = _cached_encoder(cfg, device)
+        encoder = _cached_encoder(cfg, device, mesh)
 
     t0 = time.time()
-    logs = build_neighbor_logs(cfg, encoder, splits, label_set, timer)
+    logs = build_neighbor_logs(cfg, encoder, splits, label_set, timer, mesh)
     agg, df = select_and_evaluate(cfg, logs, device, timer)
     total = time.time() - t0
     n = len(logs)
@@ -461,7 +473,7 @@ def run_detection(cfg: DetectionConfig, out_dir: Optional[Path] = None) -> Dict:
     print(f"Phase timing: {timing}")
 
     res = {"df": df} if not agg else {"df": df, "agg_results": agg}
-    if out_dir is not None:
+    if out_dir is not None and (mesh is None or mesh.rank == 0):
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         with open(out_dir / "res.pkl", "wb") as f:

@@ -23,10 +23,23 @@ with one more K2 top-k over the tile-major concatenation. K2 takes any
 falls back to ``lax.top_k`` above 128). The fused gather + top-k K4
 (:mod:`lemon_tpu_torch.ops.select`) is not wired in, as in the JAX package.
 
+With a mesh (:mod:`lemon_tpu_torch.core.mesh`, lemon_tpu/knn/index.py:388-432
+and :505-522) the database is split over the data axis in contiguous
+shards: each rank zero-pads its shard and searches it with K1 and K2 under
+the shard's own ``n_valid`` (so a padding row never competes with a real
+one), turns its ids global, and all-gathers the (B, k) candidates; the
+rank-major concatenation is merged with one more K2 top-k. Within a rank's
+list equal scores stand in ascending id, and the ranks' id ranges ascend,
+so every group of equal scores stands in ascending global id, the order of
+the id-sorted concatenation, and K2's first-occurrence rule keeps FAISS's
+tie-break. A slot with no row behind it takes the global pad id
+``ntotal`` (JAX pins it to 2**30 here; the port pins every pad to the
+database size). ``backend="cpp"`` searches on the host with the C++ oracle
+(:mod:`lemon_tpu_torch.knn.cpp_backend`).
+
 Left out from the JAX package: the one-hot matmul gathers and index
 reconstruction (TPU gather workarounds; plain indexing here), the
-second-level select knob, the 8-block tile alignment, the mesh-sharded
-search and the host C++ backend.
+second-level select knob and the 8-block tile alignment.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import numpy as np
 import torch
 
 from lemon_tpu_torch.core.device import resolve_device
+from lemon_tpu_torch.core.mesh import Mesh, all_gather_rows, pad_to_multiple
 from lemon_tpu_torch.ops.scoremax import LANES, scores_blockmax
 from lemon_tpu_torch.ops.select import gather_then_topk
 from lemon_tpu_torch.ops.topk import topk
@@ -125,23 +139,34 @@ def _search_chunk(xq, xb, dbsq, k: int, metric: str, tile: int, n_valid: int, pr
 
 
 class ExactKnnIndex:
-    """Exact kNN index over an embedding matrix on one device.
+    """Exact kNN index over an embedding matrix: on one device, sharded over
+    a mesh's data axis, or on the host (``backend="cpp"``).
 
     >>> index = ExactKnnIndex(metric="ip", device=torch.device("cuda"))
     >>> index.add(embeddings)           # (N, D), L2-normalised for cosine
     >>> scores, ids = index.search(q, k=5)
     """
 
-    def __init__(self, metric: str = "ip", device: Optional[torch.device] = None, tile: Optional[int] = None, precision: str = "highest"):
+    def __init__(self, metric: str = "ip", device: Optional[torch.device] = None, tile: Optional[int] = None,
+                 precision: str = "highest", mesh: Optional[Mesh] = None, backend: str = "device"):
         """``device=None`` is the current CUDA card (``resolve_device("cuda")``,
-        which raises without one); pass ``torch.device("cpu")`` to search on
-        the CPU. ``tile=None`` picks the widest tile whose score block fits a 4 GiB
-        budget per query chunk; a given tile is rounded up to a multiple of
-        128 (exact search: the tile changes no result). ``precision='high'``
-        is the bf16x3 score product (see ops/scoremax.py)."""
-        if metric not in ("ip", "l2") or precision not in ("highest", "high"):
-            raise ValueError(f"metric {metric!r} / precision {precision!r}")
-        device = resolve_device("cuda") if device is None else device
+        which raises without one), or the mesh's device; pass
+        ``torch.device("cpu")`` to search on the CPU. ``tile=None`` picks the
+        widest tile whose score block fits a 4 GiB budget per query chunk; a
+        given tile is rounded up to a multiple of 128 (exact search: the tile
+        changes no result). ``precision='high'`` is the bf16x3 score product
+        (see ops/scoremax.py). With a ``mesh`` every rank adds the same
+        database and searches the same queries, and every rank gets the
+        result. ``backend="cpp"`` searches on the host (the device is not
+        used); a failed build of the library raises."""
+        if metric not in ("ip", "l2") or precision not in ("highest", "high") or backend not in ("device", "cpp"):
+            raise ValueError(f"metric {metric!r} / precision {precision!r} / backend {backend!r}")
+        if backend == "cpp":
+            if mesh is not None:
+                raise ValueError("the host C++ backend searches in one process: no mesh")
+            device = torch.device("cpu")
+        elif device is None:
+            device = mesh.device if mesh is not None else resolve_device("cuda")
         if device.type == "cuda" and device.index is None:
             # a tensor on the current card reports its index ("cuda:0"), so
             # adopting it must compare against the indexed device
@@ -150,6 +175,8 @@ class ExactKnnIndex:
         self.device = device
         self.tile = tile
         self.precision = precision
+        self.mesh = mesh
+        self.backend = backend
         self._chunks = []
         self._xb: Optional[torch.Tensor] = None
 
@@ -180,7 +207,7 @@ class ExactKnnIndex:
             self._xb = torch.from_numpy(xb).to(self.device)
 
     def device_array(self) -> torch.Tensor:
-        """The database on the device, for callers that reuse it."""
+        """The whole database on the device, for callers that reuse it."""
         self._finalize()
         return self._xb
 
@@ -188,23 +215,55 @@ class ExactKnnIndex:
         """(scores, indices), both (B, k) numpy; ``xq`` numpy or a float32
         tensor on the index's device."""
         self._finalize()
-        n = self._xb.shape[0]
+        if self.backend == "cpp":
+            from lemon_tpu_torch.knn import cpp_backend
+
+            xq = xq.cpu().numpy() if isinstance(xq, torch.Tensor) else xq
+            return cpp_backend.search(self._xb.numpy(), xq, k, self.metric)
         xq = torch.as_tensor(xq, dtype=torch.float32).to(self.device).contiguous()
+        if self.mesh is None:
+            vals, idx = self._search(xq, self._xb, k, self._xb.shape[0])
+        else:
+            vals, idx = self._sharded_search(xq, k)
+        vals, idx = vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
+        if self.metric == "l2":
+            vals = -vals  # internal 'higher is better' -> squared distances
+        return vals, idx
+
+    def _search(self, xq: torch.Tensor, xb: torch.Tensor, k: int, n_valid: int):
+        """(values, ids) of the top k among the first ``n_valid`` rows of
+        ``xb``; a slot with no row behind it is ``-inf`` with id ``n_valid``."""
+        n = xb.shape[0]
         q_chunk = search_q_chunk()
         tile = self.tile or auto_tile(n, min(len(xq), q_chunk))
         tile = min(-(-tile // LANES) * LANES, -(-n // LANES) * LANES)
         n_pad = -(-n // tile) * tile
-        xb = self._xb if n_pad == n else torch.cat([self._xb, self._xb.new_zeros(n_pad - n, self._xb.shape[1])])
+        if n_pad != n:
+            xb = torch.cat([xb, xb.new_zeros(n_pad - n, xb.shape[1])])
         dbsq = (xb * xb).sum(1) if self.metric == "l2" else None
         parts = [
-            _search_chunk(xq[s : s + q_chunk], xb, dbsq, k, self.metric, tile, n, self.precision)
+            _search_chunk(xq[s : s + q_chunk], xb, dbsq, k, self.metric, tile, n_valid, self.precision)
             for s in range(0, len(xq), q_chunk)
         ]
-        vals = torch.cat([p[0] for p in parts]).cpu().numpy()
-        idx = torch.cat([p[1] for p in parts]).to(torch.int32).cpu().numpy()
-        if self.metric == "l2":
-            vals = -vals  # internal 'higher is better' -> squared distances
-        return vals, idx
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    def _sharded_search(self, xq: torch.Tensor, k: int):
+        """This rank's shard searched under its own row count, its ids made
+        global, every rank's (B, k) candidates gathered and merged by K2."""
+        n, world, rank = self._xb.shape[0], self.mesh.data, self.mesh.rank
+        per = max(pad_to_multiple(n, world) // world, 1)
+        start = rank * per
+        shard = self._xb[start : start + per]
+        valid = shard.shape[0]
+        if valid < per:  # the last shards are zero-padded to the same size
+            shard = torch.cat([shard, shard.new_zeros(per - valid, shard.shape[1])])
+        vals, idx = self._search(xq, shard, k, valid)
+        idx = torch.where(torch.isneginf(vals), torch.full_like(idx, n), idx + start)
+        cat_v = all_gather_rows(vals[None]).permute(1, 0, 2).reshape(len(xq), world * k).contiguous()
+        cat_i = all_gather_rows(idx[None]).permute(1, 0, 2).reshape(len(xq), world * k)
+        vals, pos = topk(cat_v, k)
+        idx = cat_i.gather(1, pos)
+        return vals, torch.where(torch.isneginf(vals), torch.full_like(idx, n), idx)
 
 
 def train_split_exclusion(scores: np.ndarray, idx: np.ndarray, sample_ids: np.ndarray, in_comparison: np.ndarray):

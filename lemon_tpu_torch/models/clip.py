@@ -312,13 +312,31 @@ def calibrate_act_scales(model: "ClipModel", pixels=None, tokens=None, margin: f
     return model
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` whose weight and bias are cast to ``compute_dtype`` at
+    use: a no-op when they are held in it (inference), the bf16 cast of the
+    fp32 master weights when a model is trained (``ClipModel(...,
+    fp32_master=True)``), as flax casts ``param_dtype`` to ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, compute_dtype: torch.dtype, dtype: torch.dtype,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias, dtype=dtype)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return F.linear(x, self.weight.to(cd), None if self.bias is None else self.bias.to(cd))
+
+
 def _linear(in_features: int, out_features: int, precision: Precision, quant: bool = False,
-            weight_only: bool = False, fp32: bool = False) -> nn.Module:
-    """A projection of the towers: ``QuantLinear`` in the int8 modes, else an
-    ``nn.Linear`` in the compute dtype (fp32 where ``fold_ln`` folds it)."""
+            weight_only: bool = False, fp32: bool = False, master: bool = False) -> nn.Module:
+    """A projection of the towers: ``QuantLinear`` in the int8 modes, else a
+    :class:`Linear` held in the compute dtype (fp32 where ``fold_ln`` folds
+    it, or as ``master`` weights)."""
     if quant:
         return QuantLinear(in_features, out_features, precision.compute_dtype, precision.int8_static_act, weight_only)
-    return nn.Linear(in_features, out_features, dtype=torch.float32 if fp32 else precision.compute_dtype)
+    held = torch.float32 if fp32 or master else precision.compute_dtype
+    return Linear(in_features, out_features, precision.compute_dtype, held)
 
 
 def _take_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -338,7 +356,8 @@ class Attention(nn.Module):
     folds the preceding LayerNorm into the QKV projection."""
 
     def __init__(self, width: int, heads: int, impl: str = "plain", causal: bool = False,
-                 precision: Precision = Precision(), quant: bool = False, pooled: bool = False, fold: bool = False):
+                 precision: Precision = Precision(), quant: bool = False, pooled: bool = False, fold: bool = False,
+                 master: bool = False):
         super().__init__()
         self.heads = heads
         self.impl = impl
@@ -346,8 +365,8 @@ class Attention(nn.Module):
         self.compute_dtype = precision.compute_dtype
         self.softmax_dtype = precision.softmax_dtype
         # qkv stays W8A8 in the pooled block: its input is full-length
-        self.qkv = _linear(width, 3 * width, precision, quant, fp32=fold)
-        self.out = _linear(width, width, precision, quant, weight_only=pooled)
+        self.qkv = _linear(width, 3 * width, precision, quant, fp32=fold, master=master)
+        self.out = _linear(width, width, precision, quant, weight_only=pooled, master=master)
 
     def forward(self, x: torch.Tensor, rows: Optional[torch.Tensor] = None, ln: Optional[nn.LayerNorm] = None) -> torch.Tensor:
         b, l, d = x.shape
@@ -379,7 +398,8 @@ class TransformerBlock(nn.Module):
     projections after the attention core run weight-only)."""
 
     def __init__(self, width: int, heads: int, impl: str = "plain", causal: bool = False,
-                 precision: Precision = Precision(), quant: bool = False, pooled: bool = False, quick: bool = True):
+                 precision: Precision = Precision(), quant: bool = False, pooled: bool = False, quick: bool = True,
+                 master: bool = False):
         super().__init__()
         # quick=False: jax.nn.gelu as the JAX towers call it, whose default is
         # the tanh approximation (timm's ViT uses the exact GELU; ROADMAP queue 3)
@@ -388,10 +408,10 @@ class TransformerBlock(nn.Module):
         self.fold = precision.fold_ln and impl != "flash"
         self.compute_dtype = precision.compute_dtype
         self.ln_1 = FpLayerNorm(width, precision.ln_dtype)
-        self.attn = Attention(width, heads, impl, causal, precision, quant, pooled, self.fold)
+        self.attn = Attention(width, heads, impl, causal, precision, quant, pooled, self.fold, master)
         self.ln_2 = FpLayerNorm(width, precision.ln_dtype)
-        self.mlp_fc = _linear(width, 4 * width, precision, quant, weight_only=pooled, fp32=self.fold)
-        self.mlp_proj = _linear(4 * width, width, precision, quant, weight_only=pooled)
+        self.mlp_fc = _linear(width, 4 * width, precision, quant, weight_only=pooled, fp32=self.fold, master=master)
+        self.mlp_proj = _linear(4 * width, width, precision, quant, weight_only=pooled, master=master)
 
     def forward(self, x: torch.Tensor, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         base = x if rows is None else _take_rows(x, rows)
@@ -409,13 +429,14 @@ class VisionTower(nn.Module):
     """ViT with class token, learned positions and a final projection
     (chexzero_clip.py:226-260)."""
 
-    def __init__(self, cfg: ClipConfig, precision: Precision = Precision()):
+    def __init__(self, cfg: ClipConfig, precision: Precision = Precision(), master: bool = False):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = cd = precision.compute_dtype
+        held = torch.float32 if master else cd
         p, w, g = cfg.vision_patch_size, cfg.vision_width, cfg.grid
         self.pooled = precision.pool_last_block and cfg.pool_last_block and cfg.attention_impl != "flash"
-        self.patch_embed = nn.Linear(p * p * 3, w, bias=False, dtype=cd)
+        self.patch_embed = nn.Linear(p * p * 3, w, bias=False, dtype=held)
         # added after the product's cast, as in JAX (:683-685)
         self.patch_bias = nn.Parameter(torch.zeros(w)) if cfg.vision_patch_bias else None
         self.class_embedding = nn.Parameter(torch.empty(w))
@@ -424,11 +445,11 @@ class VisionTower(nn.Module):
         last = cfg.vision_layers - 1
         self.blocks = nn.ModuleList(
             TransformerBlock(w, cfg.v_heads, cfg.attention_impl, precision=precision, quant=precision.matmul_int8,
-                             pooled=self.pooled and i == last, quick=cfg.quick_gelu)
+                             pooled=self.pooled and i == last, quick=cfg.quick_gelu, master=master)
             for i in range(cfg.vision_layers)
         )
         self.ln_post = FpLayerNorm(w)  # fp32 tail in every mode (:732, :741)
-        self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim, dtype=cd))
+        self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim, dtype=held))
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         """``pixels``: (B, H, W, 3) NHWC, already normalised; fp32 result."""
@@ -437,7 +458,7 @@ class VisionTower(nn.Module):
         cd = self.compute_dtype
         # patch elements in (ph, pw, channel) order, as the JAX tower unfolds them
         x = pixels.to(cd).reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3)
-        x = F.linear(x.float(), self.patch_embed.weight.float()).to(cd)
+        x = F.linear(x.float(), self.patch_embed.weight.to(cd).float()).to(cd)
         if self.patch_bias is not None:
             x = x + self.patch_bias.to(cd)
         x = torch.cat([self.class_embedding.to(cd).expand(b, 1, w), x], dim=1) + self.positional_embedding.to(cd)
@@ -447,14 +468,14 @@ class VisionTower(nn.Module):
         rows = torch.zeros(b, 1, dtype=torch.long, device=x.device) if self.pooled else None
         for i, block in enumerate(self.blocks):
             x = block(x, rows if i == len(self.blocks) - 1 else None)
-        return _f32_product(self.ln_post(x[:, 0, :]), self.proj)
+        return _f32_product(self.ln_post(x[:, 0, :]), self.proj.to(cd))
 
 
 class TextTower(nn.Module):
     """Causal text transformer with first-EOT pooling (chexzero_clip.py:355-376).
     Never quantised: the int8 modes cover the vision tower only."""
 
-    def __init__(self, cfg: ClipConfig, precision: Precision = Precision()):
+    def __init__(self, cfg: ClipConfig, precision: Precision = Precision(), master: bool = False):
         super().__init__()
         w = cfg.text_width
         self.compute_dtype = cd = precision.compute_dtype
@@ -464,11 +485,11 @@ class TextTower(nn.Module):
         last = cfg.text_layers - 1
         self.blocks = nn.ModuleList(
             TransformerBlock(w, cfg.text_heads, cfg.attention_impl, causal=True, precision=precision,
-                             pooled=self.pooled and i == last, quick=cfg.quick_gelu)
+                             pooled=self.pooled and i == last, quick=cfg.quick_gelu, master=master)
             for i in range(cfg.text_layers)
         )
         self.ln_final = FpLayerNorm(w, precision.ln_dtype)
-        self.text_projection = nn.Parameter(torch.empty(w, cfg.embed_dim, dtype=cd))
+        self.text_projection = nn.Parameter(torch.empty(w, cfg.embed_dim, dtype=torch.float32 if master else cd))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         b, l = tokens.shape
@@ -483,15 +504,20 @@ class TextTower(nn.Module):
             pooled = self.ln_final(x[:, 0, :])
         else:
             pooled = self.ln_final(x)[torch.arange(b, device=x.device), eot]
-        return _f32_product(pooled, self.text_projection)
+        return _f32_product(pooled, self.text_projection.to(cd))
 
 
 class ClipModel(nn.Module):
     """Two-tower CLIP with a learned temperature (chexzero_clip.py:263-392),
     in one :class:`Precision` mode. A float state dict loads into every
-    mode (:meth:`load_state_dict`)."""
+    mode (:meth:`load_state_dict`). ``fp32_master=True`` (training) holds
+    every parameter in fp32 and casts the projections to the compute dtype
+    at use, as JAX trains ``Precision.bf16()`` (``param_dtype`` fp32,
+    lemon_tpu/core/precision.py:84-96); the inference models hold them in
+    the compute dtype, cast once when the weights load. Both give the same
+    products."""
 
-    def __init__(self, cfg: ClipConfig, precision: Precision = Precision()):
+    def __init__(self, cfg: ClipConfig, precision: Precision = Precision(), fp32_master: bool = False):
         super().__init__()
         if precision.fold_ln and precision.matmul_int8:
             raise ValueError("Precision.fold_ln and matmul_int8 are mutually exclusive (as in the JAX package)")
@@ -500,12 +526,12 @@ class ClipModel(nn.Module):
         if cfg.is_resnet:
             from lemon_tpu_torch.models.resnet import ResNetVisionTower
 
-            if precision.matmul_int8:
-                raise ValueError("the int8 modes cover the ViT towers only (as in the JAX package)")
+            if precision.matmul_int8 or fp32_master:
+                raise ValueError("the int8 modes and fp32 master weights cover the ViT towers only")
             self.visual = ResNetVisionTower(cfg, precision.compute_dtype)
         else:
-            self.visual = VisionTower(cfg, precision)
-        self.text = TextTower(cfg, precision)
+            self.visual = VisionTower(cfg, precision, fp32_master)
+        self.text = TextTower(cfg, precision, fp32_master)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
@@ -523,6 +549,22 @@ class ClipModel(nn.Module):
 
     def encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.text(tokens)
+
+    def features(self, pixels: torch.Tensor, tokens: torch.Tensor):
+        """The L2-normalised (image, text) embeddings, fp32."""
+        img, txt = self.encode_image(pixels), self.encode_text(tokens)
+        return (img / torch.linalg.vector_norm(img, dim=-1, keepdim=True),
+                txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True))
+
+    def logits(self, img: torch.Tensor, txt: torch.Tensor):
+        """``(logits_per_image, logits_per_text)`` of normalised embeddings."""
+        logits_per_image = self.logit_scale.exp() * img @ txt.T
+        return logits_per_image, logits_per_image.T
+
+    def forward(self, pixels: torch.Tensor, tokens: torch.Tensor):
+        """``(logits_per_image, logits_per_text)``, as the JAX
+        ``ClipModel.__call__`` (lemon_tpu/models/clip.py:875-882)."""
+        return self.logits(*self.features(pixels, tokens))
 
 
 def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:

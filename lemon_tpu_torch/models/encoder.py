@@ -20,6 +20,11 @@ quantised once, when the model's weights are loaded
 scales on the first image batch the encoder embeds (``encode_images`` or
 ``embed_split``; the text tower is never quantised); a bf16 compute dtype
 takes the fast resize (no uint8 rounding emulation, one bf16 pass).
+
+With a ``mesh`` (:mod:`lemon_tpu_torch.core.mesh`) every rank builds the same
+batches, padded as on one device, embeds its rows of each and all-gathers
+the embeddings (lemon_tpu/models/encoder.py:125-135), so every rank holds
+every embedding.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from lemon_tpu_torch.core.mesh import Mesh, all_gather_rows, shard_batch
 from lemon_tpu_torch.data.datasets import Prefetcher, Split, iter_batches, load_images
 from lemon_tpu_torch.data.streaming import is_lazy_store
 from lemon_tpu_torch.models.clip import ClipModel, calibrate_act_scales
@@ -50,11 +56,12 @@ class ClipEncoder:
     npz_hits = 0
 
     def __init__(self, model: ClipModel, device: torch.device, batch_size: int = 128, weights_fingerprint: str = "unknown",
-                 tokenize_fn: Optional[Callable[[Sequence[str]], np.ndarray]] = None):
+                 tokenize_fn: Optional[Callable[[Sequence[str]], np.ndarray]] = None, mesh: Optional[Mesh] = None):
         self.model = model.to(device).eval()
         self.cfg = model.cfg
         self.device = device
         self.batch_size = batch_size
+        self.mesh = mesh
         # identity of the weights (checkpoint path+mtime+size, or "random:<seed>")
         self.weights_fingerprint = weights_fingerprint
         self.tokenizer = get_tokenizer()
@@ -69,18 +76,35 @@ class ClipEncoder:
             return self._tokenize_fn(list(texts))
         return tokenize_batch(list(texts), self.cfg.context_length, self.tokenizer)
 
+    def _gathered(self, embed, batch: np.ndarray) -> torch.Tensor:
+        """``embed(batch)``, or under a mesh this rank's rows of it embedded
+        and every rank's rows gathered."""
+        if self.mesh is None:
+            return embed(batch)
+        rows, n = shard_batch(batch, self.mesh)
+        return all_gather_rows(embed(rows))[:n]
+
     @torch.inference_mode()
     def _embed_tokens(self, tokens: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(tokens).to(self.device, non_blocking=True).long()
-        return _l2_normalize(self.model.encode_text(t))
+        def embed(rows):
+            t = torch.from_numpy(rows).to(self.device, non_blocking=True).long()
+            return _l2_normalize(self.model.encode_text(t))
+
+        return self._gathered(embed, tokens)
 
     @torch.inference_mode()
     def _embed_images(self, images_u8: np.ndarray) -> torch.Tensor:
-        pixels = preprocess_device(images_u8, size=self.cfg.image_resolution, device=self.device, **self._pp_kwargs)
-        if not self._calibrated:  # int8_static: scales from the first batch, then fixed
-            calibrate_act_scales(self.model, pixels=pixels)
+        size = self.cfg.image_resolution
+        if not self._calibrated:  # int8_static: scales from the first whole batch, then fixed
+            calibrate_act_scales(self.model, pixels=preprocess_device(images_u8, size=size, device=self.device,
+                                                                      **self._pp_kwargs))
             self._calibrated = True
-        return _l2_normalize(self.model.encode_image(pixels))
+
+        def embed(rows):
+            return _l2_normalize(self.model.encode_image(
+                preprocess_device(rows, size=size, device=self.device, **self._pp_kwargs)))
+
+        return self._gathered(embed, images_u8)
 
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
         out = []

@@ -35,6 +35,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from lemon_tpu_torch.core.mesh import Mesh
 from lemon_tpu_torch.core.precision import Precision, default_precision
 from lemon_tpu_torch.data.datasets import data_root
 from lemon_tpu_torch.models.biomed import BiomedClipConfig, BiomedClipModel, from_open_clip_state_dict, init_biomed
@@ -93,11 +94,12 @@ def load_checkpoint(path: Path, cfg: ClipConfig):
 
 
 def create_encoder(name: str, device: torch.device, seed: int = 0, batch_size: int = 128, checkpoint: Optional[str] = None,
-                   precision: Optional[Precision] = None) -> ClipEncoder:
+                   precision: Optional[Precision] = None, mesh: Optional[Mesh] = None) -> ClipEncoder:
     """A frozen encoder for a registry name (run_lemon.py:112-115), in
-    ``precision`` (``None``: :func:`default_precision`, the environment's)."""
+    ``precision`` (``None``: :func:`default_precision`, the environment's),
+    sharding its batches over ``mesh`` when one is given."""
     if name == "biomed_clip":
-        return _create_biomed_encoder(device, seed, batch_size, checkpoint)
+        return _create_biomed_encoder(device, seed, batch_size, checkpoint, mesh)
     precision = precision or default_precision()
     if name not in MODEL_CONFIGS:
         raise KeyError(f"unknown clip_model '{name}'; options: {sorted(MODEL_CONFIGS) + ['biomed_clip']}")
@@ -115,10 +117,12 @@ def create_encoder(name: str, device: torch.device, seed: int = 0, batch_size: i
             f"(set LEMON_TPU_CKPT_{name.upper()}); using random init (seed {seed})"
         )
     print(f"[lemon_tpu_torch] precision: {precision}")
-    return ClipEncoder(model, device, batch_size=batch_size, weights_fingerprint=checkpoint_fingerprint(ckpt, seed, cfg))
+    return ClipEncoder(model, device, batch_size=batch_size, weights_fingerprint=checkpoint_fingerprint(ckpt, seed, cfg),
+                       mesh=mesh)
 
 
-def _create_biomed_encoder(device: torch.device, seed: int, batch_size: int, checkpoint: Optional[str]) -> ClipEncoder:
+def _create_biomed_encoder(device: torch.device, seed: int, batch_size: int, checkpoint: Optional[str],
+                           mesh: Optional[Mesh]) -> ClipEncoder:
     """BiomedCLIP (lemon_tpu/models/registry.py:127-169): weights from an
     open_clip checkpoint (``LEMON_TPU_CKPT_BIOMED_CLIP`` or ``checkpoint``)
     or a seeded random init; fp32."""
@@ -146,4 +150,4 @@ def _create_biomed_encoder(device: torch.device, seed: int, batch_size: int, che
         print("[lemon_tpu_torch] WARNING: no PubMedBERT vocab (LEMON_TPU_BIOMED_VOCAB); using clipped CLIP-BPE ids")
     print(f"[lemon_tpu_torch] precision: {model.precision} (biomed_clip runs in fp32 in every mode)")
     return ClipEncoder(model, device, batch_size=batch_size, weights_fingerprint=checkpoint_fingerprint(ckpt, seed, cfg),
-                       tokenize_fn=tokenize_fn)
+                       tokenize_fn=tokenize_fn, mesh=mesh)

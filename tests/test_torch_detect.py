@@ -214,13 +214,15 @@ def test_no_gpu_and_no_cpu_flag_raises(monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    """What the port still lacks raises: ``--mesh`` and the ``cifar10c``
-    robustness set (``biomed_clip`` and ``rn50`` build since the slice that
-    ported them; tests/test_torch_registry.py)."""
+    """What the port still lacks raises: tensor parallelism (``--mesh`` with
+    MODEL > 1; data-parallel meshes run since the slice that ported them,
+    tests/test_torch_mesh.py) and the ``cifar10c`` robustness set
+    (``biomed_clip`` and ``rn50`` build since the slice that ported them;
+    tests/test_torch_registry.py)."""
     from lemon_tpu_torch.cli.run_lemon import main
 
-    with pytest.raises(NotImplementedError):
-        main(["--output_dir", str(tmp_path), "--platform", "cpu", "--mesh", "8x1"])
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        main(["--output_dir", str(tmp_path), "--platform", "cpu", "--mesh", "4x2"])
     from lemon_tpu_torch.data.datasets import get_dataset
 
     with pytest.raises(NotImplementedError, match="cifar10c"):

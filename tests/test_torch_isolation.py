@@ -1,6 +1,7 @@
 """The port stands alone: no module of lemon_tpu_torch/ and nothing in
-chip_smoke.py imports the JAX package, JAX, the JAX probes of benchmarks/,
-or scikit-learn and transformers (which the GPU machine lacks), and its
+chip_smoke.py imports the JAX package, JAX, flax, optax, orbax, the JAX
+probes of benchmarks/, or scikit-learn and transformers (which the GPU
+machine lacks), and its
 public entry points run on the CUDA card unless they are given another
 device."""
 
@@ -19,7 +20,7 @@ from lemon_tpu_torch.scoring.optimize import maximize_metric
 
 REPO = Path(__file__).resolve().parents[1]
 # the port's probes must not reach the JAX ones in benchmarks/
-FORBIDDEN = ("lemon_tpu", "jax", "flax", "optax", "benchmarks", "sklearn", "transformers")
+FORBIDDEN = ("lemon_tpu", "jax", "flax", "optax", "orbax", "benchmarks", "sklearn", "transformers")
 SOURCES = sorted((REPO / "lemon_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -40,7 +41,9 @@ def test_no_import_of_jax_or_the_jax_package(path):
 def test_the_scan_sees_every_module():
     assert len(SOURCES) > 30 and all(p.exists() for p in SOURCES)
     assert {"tokenizer.py", "encoder.py", "index.py", "chip_smoke.py", "probe_knn_select3.py", "streaming.py",
-            "native_loader.py", "resnet.py", "bert_text.py", "biomed.py", "wordpiece.py"} <= {p.name for p in SOURCES}
+            "native_loader.py", "resnet.py", "bert_text.py", "biomed.py", "wordpiece.py", "mesh.py",
+            "contrastive.py", "preemption.py", "filtering.py", "train_clip.py", "cpp_backend.py"} <= {
+        p.name for p in SOURCES}
 
 
 def _tiny_logs(n=40, k=3, seed=0):

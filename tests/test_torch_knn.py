@@ -189,3 +189,80 @@ def test_index_on_the_card_adopts_device_tensors():
     index.add(torch.from_numpy(xb).to("cuda"))
     s, i = index.search(torch.from_numpy(xq).to("cuda"), 5)
     np.testing.assert_array_equal(i, numpy_search(xb, xq, 5, "ip")[1])
+
+
+# --------------------------------------------------------------------------
+# the host C++ oracle (knn/cpp_backend.py): the JAX package's source, built
+# with g++ by each package; both build here
+
+
+@pytest.fixture(scope="module")
+def cpp_backends():
+    from lemon_tpu.knn import cpp_backend as jax_cpp
+    from lemon_tpu_torch.knn import cpp_backend
+
+    if not (cpp_backend.available() and jax_cpp.available()):
+        pytest.skip("g++ cannot build the host kNN library here")
+    return cpp_backend, jax_cpp
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("k", [1, 7, 600])  # 600 > ntotal: padded slots
+def test_cpp_backend_matches_jax_and_numpy(cpp_backends, metric, k):
+    cpp, jax_cpp = cpp_backends
+    xb, xq = _data(500, 32, 40, seed=11, quantized=False)
+    s, i = cpp.search(xb, xq, k, metric)
+    js, ji = jax_cpp.search(xb, xq, k, metric)
+    np.testing.assert_array_equal(i, ji)
+    np.testing.assert_array_equal(s, js)  # one source, one set of flags
+    kk = min(k, len(xb))
+    ns, ni = numpy_search(xb, xq, kk, metric)
+    np.testing.assert_array_equal(i[:, :kk], ni)
+    np.testing.assert_allclose(s[:, :kk], ns, rtol=1e-5, atol=1e-5)
+    if k > len(xb):
+        assert (i[:, kk:] == len(xb)).all() and np.isinf(s[:, kk:]).all()
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_cpp_pair_distances_match_jax(cpp_backends, metric):
+    cpp, jax_cpp = cpp_backends
+    xb, xq = _data(40, 32, 40, seed=12, quantized=False)
+    a = xb * 3.0  # not unit rows: the cosine normalises
+    np.testing.assert_array_equal(cpp.pair_distances(a, xq, metric), jax_cpp.pair_distances(a, xq, metric))
+    if metric == "cosine":
+        ref = 1.0 - (a * xq).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(xq, axis=1)
+    else:
+        ref = ((a - xq) ** 2).sum(1)
+    np.testing.assert_allclose(cpp.pair_distances(a, xq, metric), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_index_cpp_backend_matches_the_cpu_search(cpp_backends, metric):
+    xb, xq = _data(2200, 16, 50, seed=13, quantized=True)  # exact scores: ids follow the tie rule
+    index = ExactKnnIndex(metric=metric, backend="cpp")
+    assert index.device.type == "cpu"
+    index.add(xb[:1000])
+    index.add(xb[1000:])
+    s, i = index.search(torch.from_numpy(xq), 9)
+    ps, pi = _port_search(xb, xq, 9, metric, tile=256)
+    np.testing.assert_array_equal(i, pi)
+    np.testing.assert_allclose(s, ps, rtol=0, atol=1e-6)
+    assert index.ntotal == 2200
+    with pytest.raises(ValueError, match="no mesh"):
+        ExactKnnIndex(backend="cpp", mesh=object())
+
+
+def test_cpp_backend_raises_when_it_cannot_build(monkeypatch, tmp_path):
+    from lemon_tpu_torch.knn import cpp_backend
+
+    cpp_backend.library.cache_clear()
+    monkeypatch.setattr(cpp_backend, "library_path", lambda: tmp_path / "absent.so")
+    monkeypatch.setattr(cpp_backend.shutil, "which", lambda name: None)
+    try:
+        index = ExactKnnIndex(backend="cpp")
+        index.add(np.eye(4, dtype=np.float32))
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+            index.search(np.eye(4, dtype=np.float32), 2)
+        assert not cpp_backend.available()
+    finally:
+        cpp_backend.library.cache_clear()
