@@ -141,7 +141,30 @@ imports nothing of JAX. Phases, each printed on its own lines:
     images and texts: scores within 1e-5, ids equal but at near-ties (the
     two neighbours of a differing slot within NEAR_TIE in float64
     similarity); both searches also held so against the exact float64
-    order.
+    order;
+22. downstream classification at ViT-B/32 width (random init): a detector's
+    scores for 3000 synthetic classification rows (``run_baseline --baseline
+    clip_sim``: dists.npy + datasplit.npy), then ``python -m
+    lemon_tpu_torch.cli.run_downstream --task classification --model_size
+    vit_b32 --scores dists.npy --epochs 2`` in-process at batch 64: its
+    files, the kept count at the 60th percentile, finite losses, ms per step,
+    images/s and ``max_memory_allocated``; the ``--epochs 0`` CIFAR-10-C
+    robustness mode on a fixture of that layout written by the phase, with
+    the run's ``ckpt.pt`` twice (the same predictions); one AdamW step of the
+    classifier on the card against the CPU from one init and batch, TF32 off:
+    loss, logits and updated parameters within ``LOSS_RTOL``, ``LOGIT_TOL``
+    and AdamW's bar (in units of the rate);
+23. ``run_baseline --baseline aum --img_base_name resnet50`` (the
+    torchvision-layout ResNet-50 at 224 px) and ``--baseline datamap
+    --img_base_name vit-base-patch16-224`` (the google ViT-B/16) on 1000
+    synthetic classification rows, 2 epochs at batch 64: the files with the
+    per-epoch pkls, finite scores, the ResNet's BatchNorm statistics moved by
+    every step, ms per step, images/s and peak memory; one SGD step of each
+    backbone on the card against the CPU, each held to a float64 step on the
+    CPU (logits, parameters, BatchNorm's running statistics: the card within
+    ``F64_RATIO`` times the CPU's fp32 distance). Phases 22 and 23 launch no kernel of the port (every count stays
+    0): the classifiers run plain attention and PyTorch's convolutions, as
+    the JAX package runs them in XLA.
 
 The switches: TF32 off for fp32 products and convolutions, and cuBLAS's
 reduced-precision reductions of bf16 products off, as the CLI sets them
@@ -1403,21 +1426,6 @@ def train_cli(torch, counters, out, extra, deterministic=False):
     from lemon_tpu_torch.cli.train_clip import main as train_clip
     from lemon_tpu_torch.train import contrastive
 
-    make_step, seconds = contrastive.make_train_step, []
-
-    def timed_make_step(model, mesh=None):
-        step = make_step(model, mesh)
-
-        def timed(state, pixels, tokens):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = step(state, pixels, tokens)
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-            return out
-
-        return timed
-
     reset_counts(counters)
     stdout, stderr = sys.stdout, sys.stderr
     torch.cuda.reset_peak_memory_stats()
@@ -1428,13 +1436,12 @@ def train_cli(torch, counters, out, extra, deterministic=False):
     if deterministic:
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.use_deterministic_algorithms(deterministic)
-    contrastive.make_train_step = timed_make_step
     t0 = time.perf_counter()
     try:
-        state = train_clip(["--output_dir", str(out), *TRAIN_ARGV, *extra])
+        with TimedSteps(torch, contrastive, "make_train_step") as steps:
+            state = train_clip(["--output_dir", str(out), *TRAIN_ARGV, *extra])
         torch.cuda.synchronize()
     finally:
-        contrastive.make_train_step = make_step
         torch.use_deterministic_algorithms(False)
         if workspace is None:
             os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
@@ -1446,9 +1453,8 @@ def train_cli(torch, counters, out, extra, deterministic=False):
             if tee not in (stdout, stderr):
                 tee.close()
     wall = time.perf_counter() - t0
-    steady = sorted(seconds[1:] or seconds)
-    ms = steady[len(steady) // 2] * 1e3
-    print(f"train_clip {' '.join(extra)}: wall {wall:.2f} s; {len(seconds)} steps, {ms:.1f} ms per step (median "
+    ms = steps.ms()
+    print(f"train_clip {' '.join(extra)}: wall {wall:.2f} s; {len(steps.seconds)} steps, {ms:.1f} ms per step (median "
           f"after the first), {TRAIN_BATCH / ms * 1e3:.1f} pairs/s; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     params = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
@@ -1615,6 +1621,303 @@ def phase_cpp_oracle(torch, embedding_cache, device):
         torch.cuda.empty_cache()
 
 
+DOWNSTREAM_N = 3000  # synthetic classification rows of phase 22: a 2400-row train split
+DOWNSTREAM_BATCH = 64  # the CLIs' --batch_size in phases 22 and 23 (run_downstream's default)
+TD_N = 1000  # synthetic classification rows of phase 23: 800 / 100 / 100
+CARD_CPU_ROWS = 16  # the batch of the one-step card-to-CPU check
+# one step card vs CPU, fp32 with TF32 off: the loss within LOSS_RTOL and
+# the logits within LOGIT_TOL[backbone] of the CPU's (the ResNet's 50
+# layers of BatchNorm on 16 rows amplify rounding, as
+# tests/test_torch_classifier.py's 2e-4 bar at 5 layers shows). AdamW's
+# parameters in units of the rate: its first step moves a parameter whose
+# gradient is rounding noise by about lr with the noise's sign, so every
+# element within 2 lr (1 + wd |p|), at most 1e-3 of them beyond 1e-6 (as
+# tests/test_torch_train.py holds the JAX trainer). SGD's step is held to a
+# float64 step on the CPU from the same init: the card's logits, updated
+# parameters and BatchNorm statistics no further from it than F64_RATIO
+# times the CPU's fp32 step is (a ResNet's gradients through BatchNorm on 16
+# rows are conditioned so that two fp32 programs part by 1e-3 of a gradient)
+LOSS_RTOL = 1e-4
+LOGIT_TOL = {"vit_b32": 1e-4, "resnet50": 1e-3, "vit_b16": 1e-4}
+F64_RATIO = 10.0
+
+
+class TimedSteps:
+    """Within the block, each step that ``module.<factory>`` builds is timed
+    on the host clock between two synchronisations (``seconds``, one entry
+    a step)."""
+
+    def __init__(self, torch, module, factory: str = "make_classifier_step"):
+        self.torch, self.module, self.factory, self.seconds = torch, module, factory, []
+
+    def __enter__(self):
+        self.make = make = getattr(self.module, self.factory)
+        torch, seconds = self.torch, self.seconds
+
+        def timed_make(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def timed(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*a)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                return out
+
+            return timed
+
+        setattr(self.module, self.factory, timed_make)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.factory, self.make)
+
+    def ms(self) -> float:
+        """The median step after the first (which pays for the first use of
+        each cuDNN / cuBLAS algorithm)."""
+        steady = sorted(self.seconds[1:] or self.seconds)
+        return steady[len(steady) // 2] * 1e3
+
+
+def card_cpu_step(torch, model_cfg, make_tx, label: str, device, logit_tol: float, adamw=None):
+    """One ``make_classifier_step`` of one init on the card and on the CPU,
+    the same batch (``CARD_CPU_ROWS`` synthetic rows preprocessed on the
+    CPU): the loss, the logits and the updated parameters held to the bars
+    above; ``adamw`` is ``(lr, weight_decay)`` for AdamW's bar, None for an
+    SGD step, which is also taken in float64 on the CPU. Returns the
+    differences."""
+    import copy
+
+    import numpy as np
+
+    from lemon_tpu_torch.data.datasets import get_dataset, load_images
+    from lemon_tpu_torch.models.classifier import init_classifier
+    from lemon_tpu_torch.ops.image import preprocess_device
+    from lemon_tpu_torch.train.downstream import make_classifier_step
+
+    cpu = torch.device("cpu")
+    split = get_dataset("synthetic", 0, noise_level=0.4, synthetic_n=TD_N)[0]
+    idx = np.arange(CARD_CPU_ROWS)
+    pixels = preprocess_device(load_images(split, idx), size=model_cfg.image_resolution, device=cpu)
+    labels = torch.from_numpy(split.y_noisy[idx] % 10)
+    mask = torch.ones(CARD_CPU_ROWS, dtype=torch.bool)
+    cpu_model = init_classifier(model_cfg, 10, seed=0)
+    variants = [("card", copy.deepcopy(cpu_model).to(device), device, torch.float32),
+                ("cpu", cpu_model, cpu, torch.float32)]
+    if adamw is None:
+        variants.append(("f64", copy.deepcopy(cpu_model).double(), cpu, torch.float64))
+    runs = {}
+    for name, model, dev, dtype in variants:
+        tx = make_tx()
+        step = make_classifier_step(model, tx, tx.init(list(model.parameters())))
+        t0 = time.perf_counter()
+        loss, logits = step(pixels.to(dev, dtype), labels.to(dev), mask.to(dev))
+        loss = float(loss)
+        runs[name] = {"loss": loss, "logits": logits.cpu().double(), "seconds": time.perf_counter() - t0,
+                      "state": {k: v.detach().cpu().double() for k, v in model.state_dict().items()
+                                if v.is_floating_point()}}
+        del model, step, tx
+    torch.cuda.empty_cache()
+    card, host = runs["card"], runs["cpu"]
+    params = {k for k, _ in cpu_model.named_parameters()}
+    diff = torch.cat([(card["state"][k] - host["state"][k]).abs().reshape(-1) for k in params])
+    out = {"loss_card": card["loss"], "loss_cpu": host["loss"],
+           "logits_max_abs_diff": float((card["logits"] - host["logits"]).abs().max()),
+           "params_max_abs_diff": float(diff.max()), "params_share_above_1e-6": float((diff > 1e-6).float().mean()),
+           "card_step_s": card["seconds"], "cpu_step_s": host["seconds"]}
+    if adamw is None:  # each fp32 step's distance from the float64 step: [card, CPU]
+        ref = runs["f64"]
+        buffers = [k for k in ref["state"] if k not in params]
+
+        def err(run, keys):
+            return max((float((run["state"][k] - ref["state"][k]).abs().max()) for k in keys), default=0.0)
+
+        out.update({"loss_f64": ref["loss"],
+                    "logits_err_vs_f64": [float((r["logits"] - ref["logits"]).abs().max()) for r in (card, host)],
+                    "params_err_vs_f64": [err(card, params), err(host, params)],
+                    "buffers_err_vs_f64": [err(card, buffers), err(host, buffers)], "f64_step_s": ref["seconds"]})
+    print(f"{label}: one step card vs CPU ({CARD_CPU_ROWS} rows, fp32, TF32 off): " + json.dumps(out), flush=True)
+    check(bool(np.isfinite(card["loss"])) and abs(card["loss"] - host["loss"]) <= LOSS_RTOL * max(1.0, abs(host["loss"])),
+          f"{label}: card loss {card['loss']} against the CPU's {host['loss']}")
+    check(out["logits_max_abs_diff"] <= logit_tol, f"{label}: logits differ by {out['logits_max_abs_diff']}")
+    if adamw is None:
+        for what in ("logits", "params", "buffers"):
+            e_card, e_cpu = out[f"{what}_err_vs_f64"]
+            check(e_card <= F64_RATIO * max(e_cpu, 1e-7),
+                  f"{label}: the card's {what} are {e_card} from the float64 step, the CPU's fp32 {e_cpu}")
+    else:
+        lr, wd = adamw
+        bound = 2 * lr * (1 + wd * max(float(host["state"][k].abs().max()) for k in params))
+        check(out["params_max_abs_diff"] <= bound and out["params_share_above_1e-6"] <= 1e-3,
+              f"{label}: AdamW's parameters differ by {float(diff.max())} (bound {bound}), "
+              f"{out['params_share_above_1e-6']} of them beyond 1e-6")
+    return out
+
+
+def training_counts(counters, label: str) -> dict:
+    """The kernel counts since the last reset, each 0: the classifiers run
+    plain attention and PyTorch's convolutions, as the JAX package runs
+    them in XLA, outside any Pallas kernel."""
+    counts = split_counts(kernel_counts(counters))
+    check(not any(counts.values()), f"{label}: a kernel of the port ran: {counts}")
+    return counts
+
+
+def phase_downstream(torch, counters, scoremax, topk, device):
+    """Phase 22: downstream classification at ViT-B/32 width. A detector's
+    scores for ``DOWNSTREAM_N`` synthetic classification rows
+    (``run_baseline --baseline clip_sim``: dists.npy + datasplit.npy), then
+    ``run_downstream --task classification --model_size vit_b32 --scores
+    dists.npy --epochs 2``: its files, the kept count at the 60th
+    percentile, finite losses, ms per step, images/s and peak memory; the
+    CIFAR-10-C robustness mode on a fixture of that layout (5 severities of
+    200 seeded uint8 images) with the run's ckpt.pt twice; one AdamW step of
+    the ViT-B/32 classifier on the card against the CPU. Returns
+    ({path: kernel launches}, numbers)."""
+    import numpy as np
+
+    from lemon_tpu_torch.cli.run_baseline import main as run_baseline
+    from lemon_tpu_torch.cli.run_downstream import main as run_downstream
+    from lemon_tpu_torch.models.clip import ClipConfig
+    from lemon_tpu_torch.train import downstream
+    from lemon_tpu_torch.train.contrastive import Optimizer, cosine_decay_schedule
+
+    t_phase = time.perf_counter()
+    root = RUNS / "downstream"
+    shutil.rmtree(root, ignore_errors=True)
+    data = ["--dataset", "synthetic", "--noise_type", "symmetric", "--synthetic_n", str(DOWNSTREAM_N)]
+    reset_counts(counters)
+    det = root / "clip_sim"
+    _, det_wall, _, _ = run_entry(run_baseline, scoremax, topk, ["--output_dir", str(det), "--baseline", "clip_sim",
+                                                                 *data, "--clip_model", "huggingface_clip"], {})
+    train_scores = np.load(det / "dists.npy")[np.load(det / "datasplit.npy", allow_pickle=True).ravel() == "train"]
+    kept = int((train_scores <= np.percentile(train_scores, 60.0)).sum())
+
+    out = root / "vit_b32"
+    argv = ["--output_dir", str(out), "--task", "classification", "--model_size", "vit_b32", *data,
+            "--scores", str(det / "dists.npy"), "--epochs", "2", "--batch_size", str(DOWNSTREAM_BATCH)]
+    torch.cuda.reset_peak_memory_stats()
+    with TimedSteps(torch, downstream) as steps:
+        _, wall, log, res = run_entry(run_downstream, scoremax, topk, argv, {})
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("args.json", "out.txt", "results.json", "val_pred_y.npy", "test_pred_y.npy", "val_probs.npy",
+                 "test_probs.npy", "ckpt.pt", "done"):
+        check((out / name).exists(), f"run_downstream: {name} missing")
+    check(f"filter: kept {kept}/{len(train_scores)} train examples" in log,
+          f"run_downstream: the filter did not keep {kept} of {len(train_scores)} rows at the 60th percentile")
+    losses = [float(line.split()[3]) for line in log.splitlines() if line.startswith("epoch ")]
+    n_steps = 2 * -(-kept // DOWNSTREAM_BATCH)
+    check(len(losses) == 2 and bool(np.isfinite(losses).all()) and len(steps.seconds) == n_steps,
+          f"run_downstream: epoch losses {losses}, {len(steps.seconds)} steps (expected {n_steps})")
+    probs = np.load(out / "test_probs.npy")
+    check(probs.shape == (DOWNSTREAM_N // 10, 10) and bool(np.isfinite(probs).all()), "run_downstream: test probabilities")
+    ms = steps.ms()
+    numbers = {"vit_b32": {"ms_per_step": ms, "images_per_s": DOWNSTREAM_BATCH / ms * 1e3,
+                           "max_memory_allocated": peak, "wall_s": wall, "epoch_losses": losses,
+                           "test_accuracy": res["test"]["accuracy"], "kept": kept}}
+    print(f"run_downstream vit_b32 (detector clip_sim {det_wall:.2f} s; kept {kept}/{len(train_scores)}): wall "
+          f"{wall:.2f} s; {len(steps.seconds)} steps at batch {DOWNSTREAM_BATCH}, {ms:.2f} ms per step (median after "
+          f"the first, host clock, synchronised), {DOWNSTREAM_BATCH / ms * 1e3:.1f} images/s; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; epoch losses {losses}; test accuracy {res['test']['accuracy']:.4f}", flush=True)
+
+    # the robustness mode on a CIFAR-10-C-layout fixture
+    rng = np.random.default_rng(0)
+    c10c = root / "data" / "CIFAR-10-C"
+    c10c.mkdir(parents=True)
+    np.save(c10c / "gaussian_noise.npy", rng.integers(0, 256, (1000, 32, 32, 3), np.uint8))
+    np.save(c10c / "labels.npy", np.tile(rng.integers(0, 10, 200), 5))
+    rob = root / "robustness"
+    ckpt = str(out / "ckpt.pt")
+    _, rob_wall, _, rob_res = run_entry(
+        run_downstream, scoremax, topk,
+        ["--output_dir", str(rob), "--task", "classification", "--epochs", "0", "--model_size", "vit_b32",
+         "--cifar10_corruption_name", "gaussian_noise", "--eval_checkpoints", ckpt, ckpt],
+        {"LEMON_TPU_DATA_ROOT": str(root / "data")})
+    for mc in (0, 1):
+        for name in (f"test_pred_y_gaussian_noise_{mc}.npy", f"test_true_y_gaussian_noise_{mc}.npy",
+                     f"results_gaussian_noise_{mc}.pkl"):
+            check((rob / name).exists(), f"robustness mode: {name} missing")
+    preds = [np.load(rob / f"test_pred_y_gaussian_noise_{mc}.npy") for mc in (0, 1)]
+    check(preds[0].shape == (1000,) and np.array_equal(*preds) and (rob / "done").exists(),
+          "robustness mode: one checkpoint twice gave two predictions")
+    print(f"robustness mode (CIFAR-10-C layout, 5 x 200 images, the checkpoint twice): wall {rob_wall:.2f} s; "
+          f"average accuracy {rob_res[0]['average_accuracy']:.4f}, worst group {rob_res[0]['worst_accuracy']:.4f}",
+          flush=True)
+    paths = {"run_downstream_vit_b32": training_counts(counters, "phase 22")}
+    numbers["vit_b32"]["card_vs_cpu"] = card_cpu_step(
+        torch, ClipConfig.vit_b32(), lambda: Optimizer("adamw", cosine_decay_schedule(1e-4, 100), weight_decay=1e-4),
+        "classifier vit_b32 (AdamW)", device, LOGIT_TOL["vit_b32"], adamw=(1e-4, 1e-4))
+    print(f"downstream phase: {time.perf_counter() - t_phase:.2f} s; kernel launches on the downstream path: 0 "
+          f"(plain attention, as the JAX classifier's XLA route)", flush=True)
+    return paths, numbers
+
+
+def phase_training_dependent(torch, counters, scoremax, topk, device):
+    """Phase 23: ``run_baseline --baseline aum --img_base_name resnet50``
+    (the torchvision-layout ResNet-50 at 224 px) and ``--baseline datamap
+    --img_base_name vit-base-patch16-224`` (the google ViT-B/16) on
+    ``TD_N`` synthetic classification rows, 2 epochs at batch 64: the files
+    (the per-epoch pkls included), finite scores, the ResNet's BatchNorm
+    statistics moved by every step, ms per step, images/s and peak memory;
+    then one SGD step of each backbone on the card against the CPU.
+    Returns ({path: kernel launches}, numbers)."""
+    import numpy as np
+
+    from lemon_tpu_torch.baselines import training_dependent
+    from lemon_tpu_torch.cli.run_baseline import classifier_config
+    from lemon_tpu_torch.cli.run_baseline import main as run_baseline
+    from lemon_tpu_torch.train.contrastive import Optimizer
+
+    t_phase = time.perf_counter()
+    paths, numbers = {}, {}
+    for method, base, key in (("aum", "resnet50", "resnet50"), ("datamap", "vit-base-patch16-224", "vit_b16")):
+        out = RUNS / f"baseline_{method}_{key}"
+        shutil.rmtree(out, ignore_errors=True)
+        models, init = [], training_dependent.init_classifier
+        training_dependent.init_classifier = lambda *a, **k: models.append(init(*a, **k)) or models[-1]
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with TimedSteps(torch, training_dependent) as steps:
+                _, wall, _, res = run_entry(run_baseline, scoremax, topk, [
+                    "--output_dir", str(out), "--baseline", method, "--img_base_name", base, "--dataset", "synthetic",
+                    "--noise_type", "symmetric", "--synthetic_n", str(TD_N), "--epochs", "2",
+                    "--batch_size", str(DOWNSTREAM_BATCH)], {})
+        finally:
+            training_dependent.init_classifier = init
+        peak = torch.cuda.max_memory_allocated()
+        for name in ("args.json", "out.txt", "res.pkl", "scores.csv", "runtime.npy", "done",
+                     *(f"{s}_epoch_{e}.pkl" for s in ("val", "test") for e in (0, 1))):
+            check((out / name).exists(), f"baseline {method} {key}: {name} missing")
+        scores = res["df"]["pred_score"].to_numpy()
+        n_steps = 2 * sum(-(-n // DOWNSTREAM_BATCH) for n in (800, 100, 100))
+        check(len(scores) == TD_N and bool(np.isfinite(scores).all()) and len(steps.seconds) == n_steps,
+              f"baseline {method} {key}: {len(scores)} scores, {len(steps.seconds)} steps (expected {n_steps})")
+        if key == "resnet50":
+            bn = models[0].backbone.bn1
+            check(int(bn.num_batches_tracked) == n_steps
+                  and not torch.equal(bn.running_var, torch.ones_like(bn.running_var)),
+                  "aum resnet50: BatchNorm's running statistics did not move with each step")
+        ms = steps.ms()
+        auroc = {s: round(float(res["agg_results"][s]["AUROC"]), 4) for s in ("val", "test")}
+        numbers[key] = {"ms_per_step": ms, "images_per_s": DOWNSTREAM_BATCH / ms * 1e3, "max_memory_allocated": peak,
+                        "wall_s": wall, "runtime_s": float(np.load(out / "runtime.npy")[0]), "auroc": auroc}
+        print(f"baseline {method} --img_base_name {base} (n={TD_N}, 2 epochs, SGD lr 1e-3): wall {wall:.2f} s, "
+              f"runtime.npy {numbers[key]['runtime_s']:.2f} s; {len(steps.seconds)} steps at batch {DOWNSTREAM_BATCH}, "
+              f"{ms:.2f} ms per step (median after the first, host clock, synchronised), "
+              f"{DOWNSTREAM_BATCH / ms * 1e3:.1f} images/s; max_memory_allocated {peak / 2**30:.2f} GiB; AUROC {auroc}",
+              flush=True)
+        paths[f"baseline_{method}_{key}"] = training_counts(counters, f"phase 23 {method}")
+        del models
+        numbers[key]["card_vs_cpu"] = card_cpu_step(
+            torch, classifier_config(base), lambda: Optimizer("sgd", lambda count: 1e-3, momentum=0.9),
+            f"classifier {key} (SGD)", device, LOGIT_TOL[key])
+    print(f"aum/datamap phase: {time.perf_counter() - t_phase:.2f} s; kernel launches on the aum and datamap paths: 0 "
+          f"(PyTorch's convolutions and plain attention, as the JAX package's XLA route)", flush=True)
+    return paths, numbers
+
+
 def print_side_by_side(what: str, a: dict, b: dict, names=("fp32", "bf16")) -> None:
     print(f"{what} phase timing (s), {names[0]} | {names[1]}: "
           + json.dumps({k: [round(a.get(k, 0.0), 4), round(b.get(k, 0.0), 4)] for k in {**a, **b}}), flush=True)
@@ -1695,12 +1998,15 @@ def main() -> None:
     mesh_launches, _ = phase_mesh_detection(torch, scoremax, topk, b32_bf16_run)
     phase_cpp_oracle(torch, embedding_cache, device)
     print("training numbers: " + json.dumps(train_numbers), flush=True)
+    downstream, downstream_numbers = phase_downstream(torch, counters, scoremax, topk, device)
+    aum_datamap, aum_datamap_numbers = phase_training_dependent(torch, counters, scoremax, topk, device)
+    print("classifier numbers: " + json.dumps({**downstream_numbers, **aum_datamap_numbers}), flush=True)
 
     main_paths = {"run_lemon_vit_b32": b32, "run_lemon_vit_b32_bf16": b32_bf16, "detect_vit_b16_flash": b16,
                   "detect_vit_b16_flash_bf16": b16_bf16, "knn_select_fused_probe": {"fused_gather_topk": k4_launches},
                   **probes, **warm, "run_lemon_stream_62500_bf16": stream, **encoders, **baselines,
                   **{path: split_counts(counts) for path, counts in training.items()},
-                  "run_lemon_vit_b32_bf16_mesh_1x1": mesh_launches}
+                  "run_lemon_vit_b32_bf16_mesh_1x1": mesh_launches, **downstream, **aum_datamap}
 
     def launches(name):
         paths = {path: counts.get(name, 0) for path, counts in main_paths.items()}

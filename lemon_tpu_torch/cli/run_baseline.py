@@ -10,9 +10,12 @@ training_dependent_baselines.py); here they share one entry point:
 Outputs: args.json, out.txt/err.txt, res.pkl, scores.csv, done, and each
 baseline's own ``.npy`` files. The parser is ``run_lemon``'s, so
 ``--platform`` is ``cuda`` (the default; raises without a GPU) or ``cpu``,
-and the towers' precision mode comes from ``LEMON_TPU_PRECISION``.
-``capfilt``, ``aum`` and ``datamap`` are listed as in the JAX CLI and raise
-``NotImplementedError``: they are not ported yet.
+and the towers' precision mode comes from ``LEMON_TPU_PRECISION``. ``aum``
+and ``datamap`` train a classifier whose backbone ``--img_base_name`` picks
+(``clip``: the tiny CLIP tower; ``resnet50``: the torchvision-layout
+ResNet-50; ``vit-base-patch16-224``: the google ViT-B/16; ``*_tiny``: test
+scale) and also write the per-epoch pkls. ``capfilt`` is listed as in the
+JAX CLI and raises ``NotImplementedError``: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,10 +29,8 @@ import torch
 
 BASELINES = ("clip_sim", "zero_shot", "discrepancy", "deepknn", "capfilt", "aum", "datamap")
 NOT_PORTED = {
-    "capfilt": "capfilt scores pairs with a BLIP ITM tower, which comes with the captioning models "
-               "(ROADMAP queue 1 item 7)",
-    "aum": "aum trains a classifier: it comes with training (ROADMAP queue 1 item 7)",
-    "datamap": "datamap trains a classifier: it comes with training (ROADMAP queue 1 item 7)",
+    "capfilt": "capfilt scores pairs with a BLIP ITM tower: a ViT, a BERT with cross-attention and an ITM head "
+               "(ROADMAP queue 1 item 6b)",
 }
 # run_lemon flags with no baseline semantics: a non-default value is refused
 RUN_LEMON_ONLY = (
@@ -55,6 +56,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--itm_checkpoint", default=None,
                    help="capfilt: local BLIP-ITM checkpoint dir (falls back to the CLIP proxy head)")
     return p
+
+
+def classifier_config(img_base_name: str):
+    """The aum/datamap backbone of ``--img_base_name`` (get_img_base,
+    lib/models/utils.py:49-61); None is the tiny CLIP tower."""
+    if img_base_name.startswith("resnet50"):
+        from lemon_tpu_torch.models.classifier import TvResNetSpec
+
+        return TvResNetSpec.tiny() if img_base_name.endswith("_tiny") else TvResNetSpec()
+    if img_base_name.startswith("vit"):
+        from lemon_tpu_torch.models.torch_backbones import GoogleViTConfig
+
+        return GoogleViTConfig.tiny() if img_base_name.endswith("_tiny") else GoogleViTConfig()
+    return None
 
 
 def main(argv=None):
@@ -100,6 +115,13 @@ def main(argv=None):
         embedding_cache=args.embedding_cache,
         platform=args.platform,
     )
+    if args.baseline in ("aum", "datamap"):
+        from lemon_tpu_torch.baselines.training_dependent import run_training_dependent
+
+        cfg.method = args.baseline
+        res = run_training_dependent(cfg, out_dir, epochs=args.epochs, model_cfg=classifier_config(args.img_base_name))
+        mark_done(out_dir)
+        return res
     if args.baseline == "clip_sim":
         from lemon_tpu_torch.baselines.clip_sim import run_clip_sim as runner
     elif args.baseline == "zero_shot":

@@ -1,8 +1,9 @@
-"""Run-output contract utilities (port of lemon_tpu/core/io.py:23-97).
+"""Run-output contract utilities (port of lemon_tpu/core/io.py).
 
 - ``args.json``  dumped with Path/numpy-safe encoding (run_lemon.py:86-87)
 - ``out.txt`` / ``err.txt`` via a stdout/stderr Tee (lib/utils/utils.py:42-54)
 - ``done`` marker written only on success (run_lemon.py:435-436)
+- ``EarlyStopping``, the trainers' best-metric tracker
 """
 
 from __future__ import annotations
@@ -88,3 +89,65 @@ def env_banner(device: torch.device) -> str:
         f"\tNode: {os.uname().nodename}",
     ]
     return "\n".join(lines)
+
+
+def _snapshot(payload):
+    """A copy of ``payload`` that later training cannot change: a module's
+    ``state_dict`` (buffers included) or a mapping's tensors, cloned."""
+    if isinstance(payload, torch.nn.Module):
+        payload = payload.state_dict()
+    if isinstance(payload, dict):
+        return {k: v.detach().clone() if isinstance(v, torch.Tensor) else v for k, v in payload.items()}
+    return payload
+
+
+class EarlyStopping:
+    """Track the best validation metric and signal when patience runs out
+    (port of lemon_tpu/core/io.py:100; reference lib/utils/utils.py:56-88).
+
+    The payload is a module or its state dict, and the best one is kept as a
+    clone: a torch state dict holds the live tensors, which the next update
+    would overwrite in place (the JAX payload is an immutable pytree).
+
+    >>> es = EarlyStopping(patience=3, mode="max")
+    >>> for epoch in range(n):
+    ...     if es.step(val_acc, model):  # True => new best, a clone kept
+    ...         ...
+    ...     if es.should_stop:
+    ...         break
+    >>> best_state, best_metric = es.best_payload, es.best
+    """
+
+    def __init__(self, patience: int, mode: str = "max"):
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
+        self.patience = patience
+        self.mode = mode
+        self.best = -np.inf if mode == "max" else np.inf
+        self.best_payload = None
+        self.since_best = 0
+
+    def seed(self, metric, payload) -> None:
+        """Set the starting best without consuming patience (e.g. the
+        untrained weights, so an entirely non-improving run still returns
+        a payload)."""
+        self.best = metric
+        self.best_payload = _snapshot(payload)
+        self.since_best = 0
+
+    def step(self, metric, payload=None) -> bool:
+        improved = metric > self.best if self.mode == "max" else metric < self.best
+        if improved:
+            self.best = metric
+            if payload is not None:
+                # an improving step without a payload keeps the previous
+                # snapshot (e.g. seed()'s) rather than clobbering it with None
+                self.best_payload = _snapshot(payload)
+            self.since_best = 0
+        else:
+            self.since_best += 1
+        return improved
+
+    @property
+    def should_stop(self) -> bool:
+        return self.since_best >= self.patience

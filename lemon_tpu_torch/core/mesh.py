@@ -97,14 +97,19 @@ def get_mesh(data: int = -1, model: int = 1, platform: str = "cuda") -> Mesh:
     """The ``data x model`` mesh over the world's processes (joined or built
     by :func:`distributed_init`). ``data=-1`` takes the whole world. Raises
     ``NotImplementedError`` for ``model > 1`` and ``ValueError`` when the
-    mesh is not the world's size."""
+    mesh is not the world's size: each process drives one device of the
+    mesh, so a rank past it would have no work. (The JAX package, one
+    process over many devices, takes the first ``data * model`` of them;
+    ROADMAP: handled divergences.)"""
     if model != 1:
         raise NotImplementedError(TP_NOT_PORTED)
     distributed_init(platform)
     world = dist.get_world_size()
     data = world if data == -1 else data
     if data * model != world:
-        raise ValueError(f"mesh {data}x{model} needs {data * model} processes; the world has {world}")
+        raise ValueError(f"mesh {data}x{model} needs {data * model} processes; the world has {world}. "
+                         f"Each process drives one device of the mesh, so the mesh must span the world: "
+                         f"start {data * model} processes, or pass --mesh {world}x{model}")
     return Mesh(data=data, model=model, rank=dist.get_rank(), device=resolve_device(platform))
 
 

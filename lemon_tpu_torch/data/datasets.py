@@ -12,9 +12,11 @@ whose images are ``.npy`` shards under ``<data_root>/synthetic_stream``),
 CIFAR-10/100 (+ ``_full``) from the standard python pickles, the captioning
 datasets read through their ``multimodal_mislabel_split.pkl``, and
 ``mini_imagenet``/``stanford_cars`` through their
-``multimodal_mislabel_split.csv``. An image source is an array or a store of
-:mod:`lemon_tpu_torch.data.streaming`; ``subset`` keeps a store lazy. Not
-ported: ``cifar10c`` and caption clustering.
+``multimodal_mislabel_split.csv``, and ``cifar10c`` (CIFAR-10's train and
+val splits with the corrupted test set of CIFAR-10-C, :func:`load_cifar10c`).
+An image source is an array or a store of
+:mod:`lemon_tpu_torch.data.streaming`; ``subset`` keeps a store lazy.
+Caption clustering is :mod:`lemon_tpu_torch.data.clustering`.
 """
 
 from __future__ import annotations
@@ -226,6 +228,33 @@ def _flip(name, noise_type, noise_level, y, data_seed, n_classes=None):
     ))
 
 
+def load_cifar10c(corruption_name: str, severity: int | None = None) -> ClassificationSplit:
+    """CIFAR-10-C corrupted test set (Hendrycks & Dietterich release):
+    ``CIFAR-10-C/{corruption}.npy`` stacks 10k test images at severities
+    1-5 (50k rows, NHWC uint8) with a shared ``labels.npy``
+    (lemon_tpu/data/datasets.py:217-240). Labels are clean
+    (y_clean == y_noisy): this is an eval-only split."""
+    for base in (data_root() / "CIFAR-10-C", data_root() / "cifar10c"):
+        if base.exists():
+            break
+    else:
+        raise FileNotFoundError(
+            f"CIFAR-10-C not found under {data_root()}; extract the "
+            "https://zenodo.org/record/2535967 archive there."
+        )
+    images = np.load(base / f"{corruption_name}.npy")
+    labels = np.load(base / "labels.npy").astype(np.int64)
+    if images.ndim != 4 or len(images) != len(labels):
+        raise ValueError(f"{base}: {images.shape[0]} images of shape {images.shape[1:]} for {len(labels)} labels")
+    if severity is not None:
+        if not 1 <= severity <= 5:
+            raise ValueError(f"severity must be 1-5, got {severity}")
+        per = len(images) // 5
+        sl = slice((severity - 1) * per, severity * per)
+        images, labels = images[sl], labels[sl]
+    return ClassificationSplit(y_clean=labels, y_noisy=labels.copy(), images=np.ascontiguousarray(images))
+
+
 def _classification_triplet(images, y, noisy, tr, va, te):
     mk = lambda idx: ClassificationSplit(y_clean=y[idx], y_noisy=noisy[idx], images=images[idx])
     return mk(tr), mk(va), mk(te)
@@ -392,8 +421,10 @@ def load_large_scale_dataset(name: str, seed: int):
     return tuple(out)
 
 
-def get_dataset(name: str, data_seed: int, noise_level: float = 0.4, noise_type: str = "real", synthetic_n: int = 600):
-    """(train, val, test) splits (lib/datasets/utils.py:350-430)."""
+def get_dataset(name: str, data_seed: int, noise_level: float = 0.4, noise_type: str = "real", synthetic_n: int = 600,
+                corruption_name: str | None = None):
+    """(train, val, test) splits (lib/datasets/utils.py:350-430).
+    ``corruption_name`` names the CIFAR-10-C test set of ``cifar10c``."""
     if name.startswith("synthetic_caption"):
         return synthetic_captioning(
             synthetic_n, data_seed=data_seed, noise_level=noise_level,
@@ -405,6 +436,16 @@ def get_dataset(name: str, data_seed: int, noise_level: float = 0.4, noise_type:
             synthetic_n, data_seed=data_seed, noise_level=noise_level,
             noise_type=noise_type if noise_type in ("symmetric", "asymmetric") else "symmetric",
         )
+    if name == "cifar10c":
+        # cifar10 train/val with the requested noise, and the corrupted test
+        # set (the robustness evaluation, lemon_tpu/data/datasets.py:494-503)
+        if not corruption_name:
+            raise ValueError("cifar10c needs corruption_name")
+        images, y = _load_cifar_pickles("cifar10", train=True)
+        noisy = _flip("cifar10", noise_type, noise_level, y, data_seed)
+        tr, va, _ = split_80_10_10(len(y), data_seed)
+        train, val, _ = _classification_triplet(images, y, noisy, tr, va, tr[:0])
+        return train, val, load_cifar10c(corruption_name)
     if name in ("cifar10", "cifar100"):
         images, y = _load_cifar_pickles(name, train=True)
         noisy = _flip(name, noise_type, noise_level, y, data_seed)

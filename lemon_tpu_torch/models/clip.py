@@ -34,7 +34,8 @@ at use, as in JAX.
 Inputs keep the JAX layout: pixels are NHWC. A tuple ``vision_layers``
 selects the ModifiedResNet tower (:mod:`lemon_tpu_torch.models.resnet`,
 :834-837), as in the JAX package; ``quick_gelu``, ``vision_patch_bias`` and
-``vision_ln_pre`` carry the timm ViT of BiomedCLIP (GELU, a patch bias, no
+``vision_ln_pre`` carry the timm ViT of BiomedCLIP (the exact GELU, where
+the JAX tower takes ``jax.nn.gelu``'s tanh approximation; a patch bias; no
 pre-LayerNorm; :57, :75-76). Left out: attention packing, a TPU
 layout workaround (the port never packs, so the pooled vision rows are
 ``[[0]]`` and the flash route has nothing to turn off).
@@ -43,7 +44,6 @@ layout workaround (the port never packs, so the pooled vision rows are
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 import re
 from typing import Optional
@@ -401,9 +401,10 @@ class TransformerBlock(nn.Module):
                  precision: Precision = Precision(), quant: bool = False, pooled: bool = False, quick: bool = True,
                  master: bool = False):
         super().__init__()
-        # quick=False: jax.nn.gelu as the JAX towers call it, whose default is
-        # the tanh approximation (timm's ViT uses the exact GELU; ROADMAP queue 3)
-        self.act = quick_gelu if quick else functools.partial(F.gelu, approximate="tanh")
+        # quick=False: the exact GELU of timm's ViT (BiomedCLIP). The JAX
+        # towers call jax.nn.gelu, whose default is the tanh approximation
+        # (ROADMAP: handled divergences)
+        self.act = quick_gelu if quick else F.gelu
         # fold_ln folds ln_1/ln_2 into qkv/mlp_fc, but not under flash (:566)
         self.fold = precision.fold_ln and impl != "flash"
         self.compute_dtype = precision.compute_dtype

@@ -12,7 +12,10 @@ marked by ``word_embeddings``). Dense kernels are (in, out) in flax and
 (out, in, kh, kw) in ``nn.Conv2d``; everything else keeps its layout. A
 tree that the JAX int8 modes quantised (``kernel_q``, ``kernel_scale`` and,
 after calibration, ``act_scale`` under the vision projections) fills the
-port's ``QuantLinear`` buffers of the same names.
+port's ``QuantLinear`` buffers of the same names. A JAX ``ImageClassifier``'s
+variables (the CLIP vision tower, the torchvision-layout ResNet-50 with its
+``batch_stats``, or the google-ViT, and the head) convert through
+:func:`classifier_from_flax`.
 """
 
 from __future__ import annotations
@@ -140,6 +143,63 @@ def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     }
     return {k: torch.from_numpy(np.array(a, dtype=np.int8 if k.endswith(".weight_q") else np.float32, order="C"))
             for k, a in sd.items()}
+
+
+def _tv_resnet(params: Mapping, stats: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX ``TvResNet50`` tree (``layer{s}_{b}`` blocks, ``downsample_conv``
+    / ``downsample_bn``) and its ``batch_stats`` -> torchvision's names."""
+    def bn(prefix, p, st):
+        return _batch_norm(prefix, {**p, **st})
+
+    sd = {**_conv("conv1", params["conv1"]), **bn("bn1", params["bn1"], stats["bn1"]),
+          **_linear("fc", params["fc"])}
+    for name, blk in params.items():
+        if not name.startswith("layer"):
+            continue
+        stage, b = name.removeprefix("layer").split("_")
+        t = f"layer{stage}.{b}"
+        for part, leaf in blk.items():
+            torch_part = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}.get(part, part)
+            sd.update(_conv(f"{t}.{torch_part}", leaf) if "conv" in part
+                      else bn(f"{t}.{torch_part}", leaf, stats[name][part]))
+    return sd
+
+
+def _google_vit(v: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX ``GoogleViTEncoder`` tree -> the port's module names (the same)."""
+    sd = {"patch_embedding.weight": np.transpose(np.asarray(v["patch_embedding"]["kernel"]), (3, 2, 0, 1)),
+          "patch_embedding.bias": np.asarray(v["patch_embedding"]["bias"]),
+          "cls_token": np.asarray(v["cls_token"]), "position_embeddings": np.asarray(v["position_embeddings"]),
+          **_layer_norm("ln_final", v["ln_final"])}
+    for name, blk in v.items():
+        if name.startswith("block_"):
+            p = f"blocks.{int(name.removeprefix('block_'))}"
+            for part, leaf in blk.items():
+                sd.update((_layer_norm if part.startswith("ln_") else _linear)(f"{p}.{part}", leaf))
+    return sd
+
+
+def classifier_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX ``ImageClassifier``'s variables (``params``, plus
+    ``batch_stats`` for the ResNet; numpy-convertible leaves) -> a state dict
+    for :class:`lemon_tpu_torch.models.classifier.ImageClassifier`, whichever
+    of the three backbones it holds. Flax convs (kh, kw, I, O) become
+    (O, I, kh, kw), dense kernels are transposed; BatchNorm's
+    ``num_batches_tracked``, which JAX has not, is 0."""
+    params = variables["params"]
+    bb = params["backbone"]
+    if "fc" in bb:
+        body = _tv_resnet(bb, variables["batch_stats"]["backbone"])
+    elif "cls_token" in bb:
+        body = _google_vit(bb)
+    else:
+        body = {k.removeprefix("visual."): a for k, a in _vit(bb).items()}
+    sd = {f"backbone.{k}": a for k, a in body.items()}
+    sd.update(_linear("head", params["head"]))
+    out = {k: torch.from_numpy(np.array(a, dtype=np.float32, order="C")) for k, a in sd.items()}
+    for k in [k for k in out if k.endswith(".running_var")]:
+        out[k.replace(".running_var", ".num_batches_tracked")] = torch.tensor(0)
+    return out
 
 
 def unflatten(flat: Mapping[str, np.ndarray]) -> dict:

@@ -8,8 +8,9 @@ interface, loaded with ``ctypes``:
     nvcc -shared
 
 The library goes to ``build/lemon_tpu_torch/<hash>/`` at the checkout root,
-keyed by a hash of the sources (``*.cu`` and ``*.cuh``) and the flags, so an
-edited kernel rebuilds and an unchanged one loads. The build happens at first
+keyed by a hash of the sources (``*.cu`` and ``*.cuh``), the flags and what
+``nvcc --version`` prints, so an edited kernel or another toolkit rebuilds
+and an unchanged one loads. The build happens at first
 use, never at import: the CPU tests import every module on machines without
 ``nvcc``.
 """
@@ -68,9 +69,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def nvcc_version() -> str:
+    """What ``nvcc --version`` prints: the toolkit the library is built with."""
+    return subprocess.run([_nvcc(), "--version"], capture_output=True, text=True, check=True).stdout
+
+
 def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+    """Where the library for the current sources and toolkit lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc_version().encode())
     for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())

@@ -81,20 +81,35 @@ def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return schedule
 
 
-class Optimizer:
-    """AdamW or SGD with momentum, as optax chains them, over a list of
-    parameters updated in place. The state is ``{"count", ...}`` with one
-    moment tensor per parameter, or one flat tensor of every parameter when
-    ``fused``."""
+def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[int], float]:
+    """optax's ``cosine_decay_schedule(init_value, decay_steps)``: a cosine
+    from ``init_value`` at count 0 to 0 at ``decay_steps``, 0 after."""
+    if decay_steps <= 0:
+        raise ValueError(f"decay_steps must be positive, got {decay_steps}")
 
-    def __init__(self, cfg: TrainConfig):
-        if cfg.optimizer not in ("adamw", "sgd"):
-            raise ValueError(cfg.optimizer)
-        self.kind = cfg.optimizer
-        self.schedule = make_schedule(cfg)
-        self.weight_decay = cfg.weight_decay
-        self.momentum = cfg.momentum
-        self.fused = cfg.fused_optimizer
+    def schedule(count: int) -> float:
+        return init_value * 0.5 * (1.0 + math.cos(math.pi * min(count, decay_steps) / decay_steps))
+
+    return schedule
+
+
+class Optimizer:
+    """AdamW (``kind="adamw"``) or SGD with momentum (``"sgd"``), as optax
+    chains them, at the rate ``schedule(count)`` read before the update,
+    over a list of parameters updated in place. AdamW decays every
+    parameter by ``lr·weight_decay·p``; SGD has no decay, as ``optax.sgd``.
+    The state is ``{"count", ...}`` with one moment tensor per parameter, or
+    one flat tensor of every parameter when ``fused``."""
+
+    def __init__(self, kind: str, schedule: Callable[[int], float], weight_decay: float = 0.0,
+                 momentum: float = 0.9, fused: bool = False):
+        if kind not in ("adamw", "sgd"):
+            raise ValueError(kind)
+        self.kind = kind
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.momentum = momentum
+        self.fused = fused
 
     def _layout(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         return [torch.cat([t.reshape(-1) for t in tensors])] if self.fused else list(tensors)
@@ -135,7 +150,7 @@ class Optimizer:
 
 
 def make_optimizer(cfg: TrainConfig) -> Optimizer:
-    return Optimizer(cfg)
+    return Optimizer(cfg.optimizer, make_schedule(cfg), cfg.weight_decay, cfg.momentum, cfg.fused_optimizer)
 
 
 def clip_loss(logits_per_image: torch.Tensor, logits_per_text: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,14 @@ Both packages hold the same weights: a JAX ``init_biomed`` tree, every leaf
 perturbed by seeded noise (a fresh init has zero biases and unit LayerNorms,
 which would hide a swapped or missing one), through ``from_flax_params``.
 Bars: both towers within 1e-5 (rtol and atol; fp32 with another summation
-order), with padded tokens; the open_clip state-dict conversion bit-equal;
+order), with padded tokens. The port's vision MLP takes the exact GELU of
+timm's ViT where the JAX tower calls ``jax.nn.gelu`` (the tanh
+approximation), so the JAX side runs with ``jax.nn.gelu`` patched to
+``approximate=False`` inside the test; the open_clip state-dict conversion bit-equal;
 the WordPiece ids equal to ``BertTokenizerFast``'s.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -53,7 +58,13 @@ def _bert_tokens(b: int, ctx: int, vocab: int, seed: int) -> np.ndarray:
     return tokens
 
 
-def test_towers_match_jax_with_padded_tokens():
+@pytest.fixture
+def exact_jax_gelu(monkeypatch):
+    """``jax.nn.gelu`` with the exact default, as timm's ViT computes it."""
+    monkeypatch.setattr(jax.nn, "gelu", functools.partial(jax.nn.gelu, approximate=False))
+
+
+def test_towers_match_jax_with_padded_tokens(exact_jax_gelu):
     jmodel, params = _perturbed_jax_biomed(seed=0)
     cfg = BiomedClipConfig.tiny()
     model = BiomedClipModel(cfg)
@@ -70,6 +81,25 @@ def test_towers_match_jax_with_padded_tokens():
     assert img.shape == (4, 16) and txt.shape == (6, 16)
     np.testing.assert_allclose(img, jimg, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(txt, jtxt, rtol=1e-5, atol=1e-5)
+
+
+def test_vision_mlp_takes_the_exact_gelu():
+    """The tanh-approximate GELU gives another tower: the port's vision
+    embedding stays within 1e-5 of JAX's only with the exact one."""
+    jmodel, params = _perturbed_jax_biomed(seed=0)
+    cfg = BiomedClipConfig.tiny()
+    model = BiomedClipModel(cfg)
+    model.load_state_dict(from_flax_params(params))
+    pixels = np.random.default_rng(1).standard_normal((4, cfg.image_resolution, cfg.image_resolution, 3))
+    pixels = pixels.astype(np.float32)
+    with torch.no_grad():
+        img = model.eval().encode_image(torch.from_numpy(pixels)).numpy()
+    tanh = np.asarray(jmodel.apply(params, jnp.asarray(pixels), method="encode_image"))
+    assert np.abs(img - tanh).max() > 1e-4  # what the JAX tower computes by default
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.nn, "gelu", functools.partial(jax.nn.gelu, approximate=False))
+        exact = np.asarray(jmodel.apply(params, jnp.asarray(pixels), method="encode_image"))
+    np.testing.assert_allclose(img, exact, rtol=1e-5, atol=1e-5)
 
 
 def test_padding_is_masked():

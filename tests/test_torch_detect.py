@@ -216,16 +216,16 @@ def test_no_gpu_and_no_cpu_flag_raises(monkeypatch):
 def test_unported_options_raise(tmp_path):
     """What the port still lacks raises: tensor parallelism (``--mesh`` with
     MODEL > 1; data-parallel meshes run since the slice that ported them,
-    tests/test_torch_mesh.py) and the ``cifar10c`` robustness set
-    (``biomed_clip`` and ``rn50`` build since the slice that ported them;
-    tests/test_torch_registry.py)."""
+    tests/test_torch_mesh.py). The ``cifar10c`` robustness set is ported
+    (tests/test_torch_downstream.py): without a corruption it raises as the
+    JAX package's does, not as an unported name."""
     from lemon_tpu_torch.cli.run_lemon import main
 
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         main(["--output_dir", str(tmp_path), "--platform", "cpu", "--mesh", "4x2"])
     from lemon_tpu_torch.data.datasets import get_dataset
 
-    with pytest.raises(NotImplementedError, match="cifar10c"):
+    with pytest.raises(ValueError, match="cifar10c needs corruption_name"):
         get_dataset("cifar10c", 0)
 
 

@@ -42,7 +42,8 @@ def test_the_scan_sees_every_module():
     assert len(SOURCES) > 30 and all(p.exists() for p in SOURCES)
     assert {"tokenizer.py", "encoder.py", "index.py", "chip_smoke.py", "probe_knn_select3.py", "streaming.py",
             "native_loader.py", "resnet.py", "bert_text.py", "biomed.py", "wordpiece.py", "mesh.py",
-            "contrastive.py", "preemption.py", "filtering.py", "train_clip.py", "cpp_backend.py"} <= {
+            "contrastive.py", "preemption.py", "filtering.py", "train_clip.py", "cpp_backend.py", "classifier.py",
+            "torch_backbones.py", "downstream.py", "run_downstream.py", "training_dependent.py"} <= {
         p.name for p in SOURCES}
 
 

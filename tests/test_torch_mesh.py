@@ -300,6 +300,21 @@ def test_world_of_one(world_of_one):
     assert parse_mesh("4X1") == (4, 1)
 
 
+def _smaller_mesh_rank(rank, world, tmp):
+    with pytest.raises(ValueError) as err:
+        get_mesh(1, 1, platform="cpu")
+    return str(err.value)
+
+
+def test_a_mesh_smaller_than_the_world_is_refused_with_its_reason(tmp_path):
+    """The JAX package takes the first ``data * model`` devices of one
+    process; the port runs one process a device, so a rank past the mesh
+    would have no work. The message says so and names the mesh that fits."""
+    assert spawn("_smaller_mesh_rank", 2, tmp_path) == [
+        "mesh 1x1 needs 1 processes; the world has 2. Each process drives one device of the mesh, so the mesh "
+        "must span the world: start 1 processes, or pass --mesh 2x1"] * 2
+
+
 def test_shard_batch_pads_with_zero_rows():
     x = np.arange(10, dtype=np.float32).reshape(5, 2) + 1
     parts = [shard_batch(x, Mesh(data=3, model=1, rank=r, device=CPU)) for r in range(3)]
