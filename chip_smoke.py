@@ -164,7 +164,34 @@ imports nothing of JAX. Phases, each printed on its own lines:
     CPU (logits, parameters, BatchNorm's running statistics: the card within
     ``F64_RATIO`` times the CPU's fp32 distance). Phases 22 and 23 launch no kernel of the port (every count stays
     0): the classifiers run plain attention and PyTorch's convolutions, as
-    the JAX package runs them in XLA.
+    the JAX package runs them in XLA;
+24. ``run_baseline --baseline capfilt --itm_checkpoint DIR`` on 2000
+    synthetic caption pairs, DIR a random-init BLIP ITM at
+    ``Salesforce/blip-itm-base-coco``'s widths (ViT-B/16 at 384 px, BERT-base
+    with cross-attention in every layer, vocab 30524; about 224M
+    parameters) written by the port's own safetensors writer with a
+    generated vocab.txt and preprocessor_config.json: the files, every
+    P(match) finite in [0, 1], the first 32 train pairs' P(match) within
+    1e-4 of the same port code on the CPU from the card's weights, wall,
+    pairs/s and peak memory; then the CLIP proxy (no checkpoint) at ViT-B/32
+    width in bf16;
+25. ``run_downstream --task captioning --model_size vit_b32`` on 2000
+    synthetic caption pairs with phase 17's rn50 fp32 scores of the same
+    pairs, 1 epoch at batch 32: GIT (ViT-B/32 and a 6-layer 512-wide
+    decoder, context 40), GIT ``--lora`` and ``--captioner_arch blip2
+    --lora`` (the Q-Former base: 12 layers, 768 wide, 32 queries): the files,
+    the kept count and step count, ms per step, images/s, peak memory,
+    generation seconds, the loss-detection AUROC; the trained model's
+    per-sample losses on the first test batch within 1e-5 relative of the
+    CPU's; the Q-Former run's frozen vision tower bit-stable;
+26. the HF-exact BLIP-2 at ``Salesforce/blip2-opt-2.7b``'s widths (ViT-g,
+    the Q-Former, OPT-2.7B; about 3.8B parameters), random init in fp32 on
+    the card, one batch of 4: per-sample loss, two LoRA steps (only the
+    LoRA factors change, every other parameter bit-stable), greedy
+    ``generate`` to 40 tokens and ``generate_judged`` on 2 left-padded
+    prompts, with their times and peak memory. Phases 24-26 launch no
+    kernel of the port: the JAX package's capfilt scorer is host torch and
+    its captioners plain einsums.
 
 The switches: TF32 off for fp32 products and convolutions, and cuBLAS's
 reduced-precision reductions of bf16 products off, as the CLI sets them
@@ -1756,9 +1783,10 @@ def card_cpu_step(torch, model_cfg, make_tx, label: str, device, logit_tol: floa
 
 
 def training_counts(counters, label: str) -> dict:
-    """The kernel counts since the last reset, each 0: the classifiers run
-    plain attention and PyTorch's convolutions, as the JAX package runs
-    them in XLA, outside any Pallas kernel."""
+    """The kernel counts since the last reset, each 0: the classifiers, the
+    BLIP ITM tower and the captioners run plain attention and PyTorch's
+    convolutions, as the JAX package runs them in XLA (or host torch),
+    outside any Pallas kernel."""
     counts = split_counts(kernel_counts(counters))
     check(not any(counts.values()), f"{label}: a kernel of the port ran: {counts}")
     return counts
@@ -1918,6 +1946,310 @@ def phase_training_dependent(torch, counters, scoremax, topk, device):
     return paths, numbers
 
 
+# the BLIP ITM, captioning and BLIP-2 phases (24-26): no kernel of the port runs on their paths
+CAPFILT_N = 2000  # synthetic caption pairs of phase 24: 1600 / 200 / 200
+PMATCH_TOL = 1e-4  # P(match), card vs CPU from the card's weights, fp32 with TF32 off
+CAPTION_N = 2000  # synthetic caption pairs of phase 25 (phase 17's detections score the same data)
+CAPTION_BATCH = 32
+CAPTION_RTOL = 1e-5  # per-sample LM loss, card vs CPU on one batch
+BLIP2_BATCH = 4
+CAPTION_DATA = ["--dataset", "synthetic_caption", "--noise_type", "random", "--noise_level", "0.4"]
+
+
+def itm_vocab(captions, size: int) -> list:
+    """A WordPiece vocabulary of ``size`` entries: BERT's specials, every
+    lowercase word of ``captions``, then unused fillers."""
+    import re
+
+    words = sorted({w for c in captions for w in re.findall(r"[a-z]+", str(c).lower())})
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *words]
+    return vocab + [f"[unused{i}]" for i in range(size - len(vocab))]
+
+
+def itm_split(torch, itm, images, captions, reps: int = 5):
+    """(ms for the inputs of one batch: the host processor, the tokens and
+    the upload; ms for the model on them, CUDA events), each a mean of
+    ``reps`` after a warm-up: where the scorer's time goes."""
+    itm.inputs(images, captions)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        inputs = itm.inputs(images, captions)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        itm.model(*inputs)
+        start.record()
+        for _ in range(reps):
+            itm.model(*inputs)
+        end.record()
+    torch.cuda.synchronize()
+    return host_ms, start.elapsed_time(end) / reps
+
+
+def phase_capfilt(torch, counters, scoremax, topk, device):
+    """Phase 24: ``run_baseline --baseline capfilt --itm_checkpoint DIR`` on
+    ``CAPFILT_N`` synthetic caption pairs, DIR a random-init BLIP ITM at
+    ``Salesforce/blip-itm-base-coco``'s widths that the port's writer puts on
+    disk; every P(match) finite in [0, 1], the first 32 train pairs' P(match)
+    held to the same port code on the CPU from the card's weights; then the
+    CLIP proxy (no checkpoint) at ViT-B/32 width in bf16. Returns
+    ({path: kernel launches}, numbers)."""
+    import numpy as np
+
+    from lemon_tpu_torch.cli.run_baseline import main as run_baseline
+    from lemon_tpu_torch.data.datasets import get_dataset, load_images
+    from lemon_tpu_torch.models.blip_itm import BlipItmConfig, BlipItmModel, init_blip_itm, load_blip_itm, save_blip_itm
+
+    t_phase = time.perf_counter()
+    root = RUNS / "capfilt"
+    shutil.rmtree(root, ignore_errors=True)
+    train = get_dataset("synthetic_caption", 0, noise_level=0.4, noise_type="random", synthetic_n=CAPFILT_N)[0]
+    cfg = BlipItmConfig.base()
+    with torch.device(device):
+        model = BlipItmModel(cfg)
+    init_blip_itm(model, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    ckpt = save_blip_itm(model, root / "blip_itm_base", itm_vocab(train.sentence, cfg.text.vocab_size))
+    write_s = time.perf_counter() - t0
+    del model
+    data = [*CAPTION_DATA, "--synthetic_n", str(CAPFILT_N)]
+    paths, numbers = {}, {}
+    for key, extra, env in (("capfilt_blip_itm_base", ["--itm_checkpoint", str(ckpt)], {}),
+                            ("capfilt_clip_proxy_bf16", ["--clip_model", "huggingface_clip"],
+                             {"LEMON_TPU_PRECISION": "bf16"})):
+        out = root / key
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        _, wall, log, res = run_entry(run_baseline, scoremax, topk,
+                                      ["--output_dir", str(out), "--baseline", "capfilt", *data, *extra], env)
+        peak = torch.cuda.max_memory_allocated()
+        paths[key] = training_counts(counters, f"phase 24 {key}")
+        for name in ("args.json", "out.txt", "res.pkl", "scores.csv", "full_loss_dict.pkl", "flip_labels.pkl",
+                     "runtime.npy", "done"):
+            check((out / name).exists(), f"{key}: {name} missing")
+        with open(out / "full_loss_dict.pkl", "rb") as f:
+            p_match = pickle.load(f)
+        every = np.concatenate([p_match[s] for s in ("train", "val", "test")])
+        check(len(every) == CAPFILT_N and bool(np.isfinite(every).all()) and every.min() >= 0 and every.max() <= 1,
+              f"{key}: P(match) not {CAPFILT_N} values in [0, 1]")
+        check(("no BLIP-ITM checkpoint" in log) == (key == "capfilt_clip_proxy_bf16"), f"{key}: the wrong scorer ran")
+        runtime = float(np.load(out / "runtime.npy")[0])
+        auroc = {s: round(float(res["agg_results"][s]["AUROC"]), 4) for s in ("val", "test")}
+        numbers[key] = {"wall_s": wall, "runtime_s": runtime, "pairs_per_s": CAPFILT_N / runtime,
+                        "max_memory_allocated": peak, "auroc": auroc}
+        line = (f"{key} (n={CAPFILT_N}): wall {wall:.2f} s, runtime.npy {runtime:.2f} s, {CAPFILT_N / runtime:.1f} "
+                f"pairs/s; max_memory_allocated {peak / 2**30:.2f} GiB; AUROC {auroc}")
+        if key == "capfilt_blip_itm_base":
+            itm = load_blip_itm(ckpt, torch.device("cpu"))
+            idx = np.arange(32)
+            cpu_p = itm.p_match(load_images(train, idx, stack=False), list(train.sentence[idx]))
+            err = float(np.abs(cpu_p - p_match["train"][:32]).max())
+            numbers[key].update(params=n_params, checkpoint_write_s=write_s, card_vs_cpu=err)
+            line += (f"; {n_params / 1e6:.1f}M parameters, checkpoint written in {write_s:.2f} s; first 32 P(match) "
+                     f"card vs CPU max abs diff {err:.3g} (bar {PMATCH_TOL})")
+            check(err <= PMATCH_TOL, f"{key}: P(match) card vs CPU {err} > {PMATCH_TOL}")
+            host_ms, model_ms = itm_split(torch, load_blip_itm(ckpt, device),
+                                          load_images(train, idx[:16], stack=False), list(train.sentence[:16]))
+            batches = -(-CAPFILT_N // 16)
+            numbers[key].update(inputs_ms_per_16=host_ms, model_ms_per_16=model_ms)
+            line += (f"; a batch of 16: inputs {host_ms:.2f} ms (host processor and tokens, upload), model "
+                     f"{model_ms:.2f} ms (CUDA events), x{batches} batches: {host_ms * batches / 1e3:.2f} s + "
+                     f"{model_ms * batches / 1e3:.2f} s")
+            del itm
+        print(line, flush=True)
+    print(f"capfilt phase: {time.perf_counter() - t_phase:.2f} s; kernel launches on the capfilt paths: 0 (plain "
+          f"attention, as the JAX package scores with host torch and XLA)", flush=True)
+    return paths, numbers
+
+
+def phase_captioning(torch, counters, scoremax, topk, device, scores_csv: Path):
+    """Phase 25: ``run_downstream --task captioning --model_size vit_b32`` on
+    ``CAPTION_N`` synthetic caption pairs with phase 17's rn50 fp32 scores
+    (the same 2000 pairs), 1 epoch at batch ``CAPTION_BATCH``: GIT, GIT
+    ``--lora`` and the Q-Former base ``--captioner_arch blip2 --lora``. Each
+    run's files, kept count and step count, ms per step, images/s, peak
+    memory, generation seconds and loss-detection AUROC; the trained model's
+    per-sample losses on the card against the CPU on the first test batch;
+    the Q-Former run's frozen vision tower bit-stable. Returns ({path: kernel
+    launches}, numbers)."""
+    import numpy as np
+    import pandas as pd
+
+    from lemon_tpu_torch.cli.run_downstream import main as run_downstream
+    from lemon_tpu_torch.data.datasets import get_dataset, load_images
+    from lemon_tpu_torch.models.captioner import CaptioningModel
+    from lemon_tpu_torch.ops.image import preprocess_device
+    from lemon_tpu_torch.train import captioning
+
+    t_phase = time.perf_counter()
+    splits = get_dataset("synthetic_caption", 0, noise_level=0.4, noise_type="random", synthetic_n=CAPTION_N)
+    n_train, test = len(splits[0]), splits[2]
+    train_scores = pd.read_csv(scores_csv).query("sset == 'train'")["pred_score"].to_numpy()
+    kept = int((train_scores <= np.percentile(train_scores, 60.0)).sum())
+    n_steps = -(-kept // CAPTION_BATCH)
+    cpu = torch.device("cpu")
+    paths, numbers = {}, {}
+    for key, extra in (("captioning_git_vit_b32", []), ("captioning_git_vit_b32_lora", ["--lora"]),
+                       ("captioning_qformer_base_lora", ["--captioner_arch", "blip2", "--lora"])):
+        out = RUNS / key
+        shutil.rmtree(out, ignore_errors=True)
+        built, init, generate, gen_s = [], captioning.init_captioner, CaptioningModel.generate, []
+
+        def capture(*a, **k):
+            m = init(*a, **k)
+            built.append((m, {n: p.detach().clone() for n, p in m.named_parameters() if n.startswith("visual.")}))
+            return m
+
+        def timed_generate(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = generate(self, *a, **k)
+            torch.cuda.synchronize()
+            gen_s.append(time.perf_counter() - t0)
+            return toks
+
+        captioning.init_captioner, CaptioningModel.generate = capture, timed_generate
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with TimedSteps(torch, captioning, "make_caption_step") as steps:
+                _, wall, log, res = run_entry(run_downstream, scoremax, topk, [
+                    "--output_dir", str(out), "--task", "captioning", "--model_size", "vit_b32", *CAPTION_DATA,
+                    "--synthetic_n", str(CAPTION_N), "--scores", str(scores_csv), "--epochs", "1",
+                    "--batch_size", str(CAPTION_BATCH), *extra], {})
+        finally:
+            captioning.init_captioner, CaptioningModel.generate = init, generate
+        peak = torch.cuda.max_memory_allocated()
+        paths[key] = training_counts(counters, f"phase 25 {key}")
+        for name in ("args.json", "out.txt", "captions.pkl", "flip_labels.pkl", "detection_scores.npy", "results.json",
+                     "done"):
+            check((out / name).exists(), f"{key}: {name} missing")
+        check(f"filter: kept {kept}/{n_train} captions" in log, f"{key}: the filter did not keep {kept} of {n_train}")
+        det = np.load(out / "detection_scores.npy")
+        check(len(steps.seconds) == n_steps and np.isfinite(res["val_loss_best"]) and det.shape == (len(test),)
+              and bool(np.isfinite(det).all()), f"{key}: {len(steps.seconds)} steps (expected {n_steps}), val loss "
+              f"{res['val_loss_best']}, detection scores {det.shape}")
+        model, visual0 = built[0]
+        if "qformer" in key:
+            moved = [n for n, p in model.named_parameters() if n in visual0 and not torch.equal(p, visual0[n])]
+            check(not moved, f"{key}: the frozen vision tower moved: {moved[:3]}")
+        twin = type(model)(model.cfg)
+        twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        idx = np.arange(CAPTION_BATCH)
+        size = model.cfg.vision.image_resolution
+        pixels = preprocess_device(load_images(test, idx, decode_size=size), size=size, device=cpu)
+        tokens = torch.from_numpy(captioning._tokenize_captions(test.sentence[idx], model.cfg))
+        with torch.no_grad():
+            card = model.per_sample_loss(pixels.to(device), tokens.to(device)).cpu()
+            host = twin.eval().per_sample_loss(pixels, tokens)
+        rel = float(((card - host).abs() / host.abs()).max())
+        check(rel <= CAPTION_RTOL, f"{key}: per-sample loss card vs CPU {rel} > {CAPTION_RTOL} relative")
+        ms = steps.ms()
+        auroc = res.get("test_loss_detection_AUROC")
+        numbers[key] = {"ms_per_step": ms, "images_per_s": CAPTION_BATCH / ms * 1e3, "max_memory_allocated": peak,
+                        "wall_s": wall, "generation_s": sum(gen_s), "test_loss_detection_AUROC": auroc,
+                        "val_loss_best": res["val_loss_best"], "card_vs_cpu_rel": rel,
+                        "trainable": sum(p.numel() for p in model.parameters() if p.requires_grad)}
+        print(f"{key} (n={CAPTION_N}, kept {kept}/{n_train}, 1 epoch): wall {wall:.2f} s; {len(steps.seconds)} steps at "
+              f"batch {CAPTION_BATCH}, {ms:.2f} ms per step (median after the first, host clock, synchronised), "
+              f"{CAPTION_BATCH / ms * 1e3:.1f} images/s; max_memory_allocated {peak / 2**30:.2f} GiB; generation "
+              f"{sum(gen_s):.2f} s ({len(gen_s)} calls); test loss-detection AUROC {auroc}; val loss "
+              f"{res['val_loss_best']:.4f}; first test batch per-sample loss card vs CPU {rel:.3g} relative (bar "
+              f"{CAPTION_RTOL}); trainable parameters {numbers[key]['trainable']}", flush=True)
+        del built, model, twin, res
+    print(f"captioning phase: {time.perf_counter() - t_phase:.2f} s; kernel launches on the captioning paths: 0 (plain "
+          f"attention, as the JAX captioners' einsums)", flush=True)
+    return paths, numbers
+
+
+def phase_blip2_opt(torch, counters, device):
+    """Phase 26: the HF-exact BLIP-2 at ``Salesforce/blip2-opt-2.7b``'s
+    widths (``Blip2Config.opt_2_7b``), random init in fp32 on the card, one
+    batch of ``BLIP2_BATCH`` synthetic caption pairs: per-sample loss, two
+    LoRA steps (only the LoRA factors change), greedy ``generate`` to 40
+    tokens and ``generate_judged`` on 2 left-padded prompts. Returns
+    ({path: kernel launches}, numbers)."""
+    import numpy as np
+
+    from lemon_tpu_torch.data.datasets import get_dataset, load_images
+    from lemon_tpu_torch.models.blip2 import Blip2Config
+    from lemon_tpu_torch.models.captioner import init_captioner, lora_trainable_mask
+    from lemon_tpu_torch.ops.image import preprocess_device
+    from lemon_tpu_torch.train.captioning import _tokenize_captions, make_caption_step
+    from lemon_tpu_torch.train.contrastive import Optimizer
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    cfg = Blip2Config.opt_2_7b()
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = timed(lambda: init_captioner(cfg, seed=0, device=device))
+    n_params = sum(p.numel() for p in model.parameters())
+    split = get_dataset("synthetic_caption", 0, noise_level=0.4, noise_type="random", synthetic_n=CAPTION_N)[2]
+    idx = np.arange(BLIP2_BATCH)
+    size = cfg.vision.image_resolution
+    pixels = preprocess_device(load_images(split, idx, decode_size=size), size=size, device=device)
+    tokens = torch.from_numpy(_tokenize_captions(split.sentence[idx], cfg)).to(device)
+    with torch.no_grad():
+        per, loss_s = timed(lambda: model.eval().per_sample_loss(pixels, tokens))
+    check(per.shape == (BLIP2_BATCH,) and bool(torch.isfinite(per).all()), f"blip2 opt-2.7b: per-sample loss {per}")
+
+    names = [n for n, _ in model.named_parameters() if lora_trainable_mask(n)]
+    check(names and all(n.endswith(("lora_a", "lora_b")) for n in names), "blip2: the LoRA set is not the factors")
+    params = [p for n, p in model.named_parameters() if n in names]
+    for n, p in model.named_parameters():
+        p.requires_grad_(n in names)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if n not in names}
+    lora_b0 = {n: p.detach().clone() for n, p in model.named_parameters() if n.endswith("lora_b")}
+    tx = Optimizer("adamw", lambda count: 1e-4, weight_decay=0.05)
+    step = make_caption_step(model, tx, tx.init(params), params)
+    mask = torch.ones(BLIP2_BATCH, dtype=torch.bool, device=device)
+    step_losses, step_s = [], []
+    for _ in range(2):
+        loss, s = timed(lambda: step(pixels, tokens, mask))
+        step_losses.append(float(loss))
+        step_s.append(s)
+    moved = [n for n, p in model.named_parameters() if n in frozen and not torch.equal(p, frozen[n])]
+    check(not moved, f"blip2 opt-2.7b: a frozen parameter moved under LoRA: {moved[:3]}")
+    check(all(not torch.equal(p, lora_b0[n]) for n, p in model.named_parameters() if n in lora_b0)
+          and bool(np.isfinite(step_losses).all()), f"blip2 opt-2.7b: LoRA B did not move, or losses {step_losses}")
+    del frozen, lora_b0
+    model.eval()
+    gen, gen_s = timed(lambda: model.generate(pixels, cfg.bos_token_id, cfg.eos_token_id, max_len=40))
+    check(gen.shape == (BLIP2_BATCH, 40) and bool((gen[:, 0] == cfg.bos_token_id).all()), "blip2: generate shape")
+    prompts = torch.tensor(_tokenize_captions(["a photo of", "the image shows a big red"], cfg)[:, :6], device=device)
+    prompt_mask = (prompts != cfg.pad_token_id).long()
+    order = torch.argsort(prompt_mask, dim=1, stable=True)  # left-pad: the padding first
+    prompts, prompt_mask = prompts.gather(1, order), prompt_mask.gather(1, order)
+    check(bool((prompt_mask[:, 0] == 0).any()) and bool(prompt_mask[:, -1].all()),
+          "blip2: the prompts are not left-padded")
+    (judged, logp), judged_s = timed(lambda: model.generate_judged(pixels[:2], prompts, prompt_mask, max_new_tokens=16))
+    check(judged.shape == (2, 16) and bool(torch.isfinite(logp).all()) and bool((logp <= 0).all()),
+          "blip2: generate_judged tokens or log-probabilities")
+    peak = torch.cuda.max_memory_allocated()
+    paths = {"blip2_opt_2.7b": training_counts(counters, "phase 26")}
+    numbers = {"params": n_params, "decoder_layers": cfg.decoder_layers, "init_s": init_s, "loss_s": loss_s,
+               "lora_step_s": step_s, "lora_step_losses": step_losses, "generate_40_s": gen_s,
+               "generate_judged_16_s": judged_s, "max_memory_allocated": peak}
+    print(f"blip2 opt-2.7b widths ({n_params / 1e9:.3f}B parameters, fp32, {cfg.decoder_layers} OPT layers, random "
+          f"init in {init_s:.2f} s), batch {BLIP2_BATCH}: per-sample loss {loss_s * 1e3:.1f} ms; LoRA steps "
+          f"{[round(s * 1e3, 1) for s in step_s]} ms (losses {step_losses}); greedy generate to 40 tokens "
+          f"{gen_s:.2f} s; generate_judged 2 x 16 tokens {judged_s:.2f} s; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; phase {time.perf_counter() - t_phase:.2f} s; kernel launches 0", flush=True)
+    del model, params, step, tx
+    torch.cuda.empty_cache()
+    return paths, numbers
+
+
 def print_side_by_side(what: str, a: dict, b: dict, names=("fp32", "bf16")) -> None:
     print(f"{what} phase timing (s), {names[0]} | {names[1]}: "
           + json.dumps({k: [round(a.get(k, 0.0), 4), round(b.get(k, 0.0), 4)] for k in {**a, **b}}), flush=True)
@@ -2001,12 +2333,19 @@ def main() -> None:
     downstream, downstream_numbers = phase_downstream(torch, counters, scoremax, topk, device)
     aum_datamap, aum_datamap_numbers = phase_training_dependent(torch, counters, scoremax, topk, device)
     print("classifier numbers: " + json.dumps({**downstream_numbers, **aum_datamap_numbers}), flush=True)
+    capfilt, capfilt_numbers = phase_capfilt(torch, counters, scoremax, topk, device)
+    captioning, captioning_numbers = phase_captioning(torch, counters, scoremax, topk, device,
+                                                      RUNS / "rn50_fp32" / "know_val_labels_scores.csv")
+    blip2, blip2_numbers = phase_blip2_opt(torch, counters, device)
+    print("capfilt and captioning numbers: " + json.dumps({**capfilt_numbers, **captioning_numbers,
+                                                           "blip2_opt_2.7b": blip2_numbers}), flush=True)
 
     main_paths = {"run_lemon_vit_b32": b32, "run_lemon_vit_b32_bf16": b32_bf16, "detect_vit_b16_flash": b16,
                   "detect_vit_b16_flash_bf16": b16_bf16, "knn_select_fused_probe": {"fused_gather_topk": k4_launches},
                   **probes, **warm, "run_lemon_stream_62500_bf16": stream, **encoders, **baselines,
                   **{path: split_counts(counts) for path, counts in training.items()},
-                  "run_lemon_vit_b32_bf16_mesh_1x1": mesh_launches, **downstream, **aum_datamap}
+                  "run_lemon_vit_b32_bf16_mesh_1x1": mesh_launches, **downstream, **aum_datamap, **capfilt,
+                  **captioning, **blip2}
 
     def launches(name):
         paths = {path: counts.get(name, 0) for path, counts in main_paths.items()}

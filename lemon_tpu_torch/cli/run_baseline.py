@@ -14,8 +14,11 @@ and the towers' precision mode comes from ``LEMON_TPU_PRECISION``. ``aum``
 and ``datamap`` train a classifier whose backbone ``--img_base_name`` picks
 (``clip``: the tiny CLIP tower; ``resnet50``: the torchvision-layout
 ResNet-50; ``vit-base-patch16-224``: the google ViT-B/16; ``*_tiny``: test
-scale) and also write the per-epoch pkls. ``capfilt`` is listed as in the
-JAX CLI and raises ``NotImplementedError``: it is not ported yet.
+scale) and also write the per-epoch pkls. ``capfilt`` scores pairs with a
+BLIP ITM tower read from ``--itm_checkpoint`` (a local ``save_pretrained``
+directory; ``lemon_tpu_torch/models/blip_itm.py``) or, without one, with
+the CLIP proxy head, and also writes full_loss_dict.pkl, flip_labels.pkl
+and runtime.npy.
 """
 
 from __future__ import annotations
@@ -28,10 +31,6 @@ import numpy as np
 import torch
 
 BASELINES = ("clip_sim", "zero_shot", "discrepancy", "deepknn", "capfilt", "aum", "datamap")
-NOT_PORTED = {
-    "capfilt": "capfilt scores pairs with a BLIP ITM tower: a ViT, a BERT with cross-attention and an ITM head "
-               "(ROADMAP queue 1 item 6b)",
-}
 # run_lemon flags with no baseline semantics: a non-default value is refused
 RUN_LEMON_ONLY = (
     "normalize_d1", "ablation", "use_discrete_for_text", "real_dataset",
@@ -76,9 +75,6 @@ def main(argv=None):
     """Runs one baseline; returns its result (the in-memory ``res``)."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.baseline in NOT_PORTED:
-        raise NotImplementedError(f"--baseline {args.baseline} is not ported to lemon_tpu_torch yet: "
-                                  f"{NOT_PORTED[args.baseline]}")
 
     from lemon_tpu_torch.baselines.common import BaselineConfig
     from lemon_tpu_torch.core.device import resolve_device
@@ -128,6 +124,8 @@ def main(argv=None):
         from lemon_tpu_torch.baselines.zero_shot import run_zero_shot_logits as runner
     elif args.baseline == "discrepancy":
         from lemon_tpu_torch.baselines.discrepancy import run_discrepancy as runner
+    elif args.baseline == "capfilt":
+        from lemon_tpu_torch.baselines.capfilt import run_capfilt as runner
     else:
         from lemon_tpu_torch.baselines.deepknn import run_deepknn as runner
     res = runner(cfg, out_dir)

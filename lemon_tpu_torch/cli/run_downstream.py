@@ -2,19 +2,26 @@
 reference train_downstream_classification.py).
 
 Consumes a detector run's scores, filters the training split, fine-tunes a
-classifier, evaluates:
+classifier or a captioner, evaluates:
 
     python -m lemon_tpu_torch.cli.run_downstream --task classification \\
         --output_dir out/ds --dataset synthetic --scores out/run/dists.npy
+    python -m lemon_tpu_torch.cli.run_downstream --task captioning \\
+        --output_dir out/dc --dataset synthetic_caption \\
+        --scores out/run/know_val_labels_scores.csv --lora
 
 ``--epochs 0 --cifar10_corruption_name NAME --eval_checkpoints CKPT ...``
 evaluates trained checkpoints (``ckpt.pt``) on a CIFAR-10-C corruption.
 
 Outputs: args.json, out.txt/err.txt, results.json, {val,test}_pred_y.npy,
 {val,test}_probs.npy, ckpt.pt, done (the robustness mode: the per-model
-prediction npys and results pkls, done). ``--platform`` is ``cuda`` (the
-default; raises without a card) or ``cpu``. ``--task captioning`` is listed
-as in the JAX CLI and raises: the captioners are not ported yet.
+prediction npys and results pkls, done). Captioning writes args.json,
+out.txt/err.txt, captions.pkl, flip_labels.pkl, detection_scores.npy,
+results.json and done; ``--captioner_arch git|blip2`` picks the GIT-style
+or the Q-Former captioner, ``--blip2_checkpoint`` a local HF BLIP-2 (OPT)
+directory, whose ``config.json`` the port reads itself
+(``models/blip2.blip2_config_from_hf``). ``--platform`` is ``cuda`` (the
+default; raises without a card) or ``cpu``.
 """
 
 from __future__ import annotations
@@ -25,10 +32,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-CAPTIONING_NOT_PORTED = ("--task captioning is not ported to lemon_tpu_torch yet: it needs the captioners "
-                         "(ROADMAP queue 1 item 7b)")
-
 
 def build_parser():
     p = argparse.ArgumentParser(description="lemon_tpu_torch downstream training")
@@ -65,8 +68,6 @@ def build_parser():
 def main(argv=None):
     """Runs one task; returns its results (per model in the robustness mode)."""
     args = build_parser().parse_args(argv)
-    if args.task == "captioning":
-        raise NotImplementedError(CAPTIONING_NOT_PORTED)
 
     from lemon_tpu_torch.core.device import resolve_device
     from lemon_tpu_torch.core.io import dump_args, env_banner, redirect_output
@@ -114,12 +115,16 @@ def main(argv=None):
             "(train on cifar10, evaluate on the corrupted test set)"
         )
 
+    # captioning needs a caption-bearing dataset; classification's default has no sentences
+    default_ds = "synthetic_caption" if args.task == "captioning" else "synthetic"
     splits = dict(zip(("train", "val", "test"), get_dataset(
-        args.dataset or "synthetic", args.data_seed, noise_level=args.noise_level,
+        args.dataset or default_ds, args.data_seed, noise_level=args.noise_level,
         noise_type=args.noise_type, synthetic_n=args.synthetic_n,
         corruption_name=args.cifar10_corruption_name,
     )))
     scores = load_detector_scores(Path(args.scores), "train") if args.scores else None
+    if args.task == "captioning":
+        return _captioning(args, splits, scores, out_dir, device)
     n_classes = len(LABEL_SETS.get(args.dataset or "synthetic", LABEL_SETS["cifar10"]))
     cfg = DownstreamConfig(
         num_classes=n_classes, percentile=args.percentile, epochs=args.epochs,
@@ -129,6 +134,32 @@ def main(argv=None):
     results = train_downstream(cfg, splits, detector_scores=scores, out_dir=out_dir, device=device)
     print(f"test accuracy {results['test']['accuracy']:.4f} "
           f"worst-group {results['test']['worst_group_accuracy']:.4f}")
+    return results
+
+
+def _captioning(args, splits, scores, out_dir: Path, device: torch.device):
+    """The captioning branch (lemon_tpu/cli/run_downstream.py:145-172)."""
+    import dataclasses
+    import json
+
+    from lemon_tpu_torch.models.blip2 import blip2_config_from_hf
+    from lemon_tpu_torch.models.captioner import CaptionerConfig
+    from lemon_tpu_torch.models.qformer import QFormerConfig
+    from lemon_tpu_torch.train.captioning import CaptionTrainConfig, train_captioner
+
+    if args.blip2_checkpoint:
+        hf = json.loads((Path(args.blip2_checkpoint) / "config.json").read_text())
+        mc = blip2_config_from_hf(hf, lora_rank=16 if args.lora else 0)
+    else:
+        cfg_cls = QFormerConfig if args.captioner_arch == "blip2" else CaptionerConfig
+        mc = cfg_cls.tiny() if args.model_size == "tiny" else cfg_cls.base()
+        if args.lora:
+            mc = dataclasses.replace(mc, lora_rank=16)
+    cfg = CaptionTrainConfig(percentile=args.percentile, epochs=args.epochs, batch_size=args.batch_size,
+                             learning_rate=args.lr, seed=args.seed, lora_only=args.lora, model_cfg=mc,
+                             blip2_checkpoint=args.blip2_checkpoint)
+    results = train_captioner(cfg, splits, detector_scores=scores, out_dir=out_dir, device=device)
+    print(f"best val loss {results['val_loss_best']:.4f}")
     return results
 
 

@@ -8,6 +8,15 @@ projection to the shared space. Padded keys get a ``-inf`` bias (:103);
 LayerNorm eps is 1e-12, GELU exact. :func:`bert_params_from_hf` maps a
 HuggingFace ``BertModel`` state dict (bare or prefixed, as in open_clip's
 ``text.transformer.*``) to the JAX package's parameter tree.
+
+BLIP's text encoder (``transformers/models/blip/modeling_blip_text.py``,
+re-stated here: the GPU machine has no ``transformers``) is the same post-LN
+layer with a cross-attention sublayer after self-attention
+(``BertTextConfig.cross_attention``): queries from the text, keys and
+values of width ``encoder_hidden_size`` from the image tokens, then add &
+LN. :class:`BlipTextEncoder` gives it BLIP's embeddings (word plus absolute
+position, LayerNorm, no token types) and a key-padding mask on
+self-attention, HF's additive ``(1 - mask) * finfo.min``.
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lemon_tpu_torch.models.clip import FpLayerNorm
+from lemon_tpu_torch.models.clip import FpLayerNorm, attend
 
 BERT_EPS = 1e-12
 
@@ -38,6 +47,10 @@ class BertTextConfig:
     embed_dim: int = 512  # the shared CLIP space
     pooling: str = "cls"  # 'cls' | 'mean'
     projection: str = "mlp"  # 'linear' | 'mlp' (open_clip's BiomedCLIP: mlp)
+    layer_norm_eps: float = BERT_EPS
+    # BLIP: a cross-attention sublayer into image tokens of this width
+    cross_attention: bool = False
+    encoder_hidden_size: int = 0
 
     @staticmethod
     def pubmedbert(embed_dim: int = 512) -> "BertTextConfig":
@@ -54,22 +67,29 @@ class BertTextConfig:
 class BertLayer(nn.Module):
     def __init__(self, cfg: BertTextConfig):
         super().__init__()
-        d = cfg.hidden_size
+        d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.heads = cfg.num_heads
         self.q, self.k, self.v = nn.Linear(d, d), nn.Linear(d, d), nn.Linear(d, d)
         self.attn_out = nn.Linear(d, d)
-        self.ln_attn = FpLayerNorm(d, eps=BERT_EPS)
+        self.ln_attn = FpLayerNorm(d, eps=eps)
+        self.cross = cfg.cross_attention
+        if self.cross:
+            e = cfg.encoder_hidden_size or d
+            self.cross_q, self.cross_k, self.cross_v = nn.Linear(d, d), nn.Linear(e, d), nn.Linear(e, d)
+            self.cross_out = nn.Linear(d, d)
+            self.ln_cross = FpLayerNorm(d, eps=eps)
         self.ffn_in = nn.Linear(d, cfg.intermediate_size)
         self.ffn_out = nn.Linear(cfg.intermediate_size, d)
-        self.ln_ffn = FpLayerNorm(d, eps=BERT_EPS)
+        self.ln_ffn = FpLayerNorm(d, eps=eps)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        b, l, d = x.shape
-        hd = d // self.heads
-        q, k, v = (p(x).reshape(b, l, self.heads, hd).transpose(1, 2) for p in (self.q, self.k, self.v))
-        logits = (q * hd ** -0.5) @ k.transpose(-1, -2) + bias
-        att = (torch.softmax(logits, dim=-1) @ v).transpose(1, 2).reshape(b, l, d)
+    def forward(self, x: torch.Tensor, bias: torch.Tensor, img: torch.Tensor | None = None) -> torch.Tensor:
+        """``img``: the (B, N, encoder_hidden_size) image tokens that a
+        cross-attention layer needs, every one attended to."""
+        att = attend(self.q(x), self.k(x), self.v(x), self.heads, bias)
         x = self.ln_attn(x + self.attn_out(att))
+        if self.cross:
+            att = attend(self.cross_q(x), self.cross_k(img), self.cross_v(img), self.heads)
+            x = self.ln_cross(x + self.cross_out(att))
         return self.ln_ffn(x + self.ffn_out(F.gelu(self.ffn_in(x))))
 
 
@@ -109,6 +129,37 @@ class BertTextTower(nn.Module):
         if c.projection == "linear":
             return self.proj(pooled)
         return self.proj_out(F.gelu(self.proj_fc(pooled)))
+
+
+def padding_bias(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """HF's additive mask of a (B, L) 0/1 key mask: ``(1 - mask) *
+    finfo.min``, shaped (B, 1, 1, L)."""
+    return ((1.0 - mask.to(dtype)) * torch.finfo(dtype).min)[:, None, None, :]
+
+
+class BlipTextEncoder(nn.Module):
+    """BLIP's text encoder (``BlipTextModel`` without its pooler): (B, L)
+    ids, their 0/1 attention mask and (B, N, encoder_hidden_size) image
+    tokens -> (B, L, hidden) states. Every image token is attended to
+    (``modeling_blip.py``'s all-ones image mask)."""
+
+    def __init__(self, cfg: BertTextConfig):
+        super().__init__()
+        if not cfg.cross_attention:
+            raise ValueError("BlipTextEncoder needs BertTextConfig(cross_attention=True)")
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.word_embeddings = nn.Parameter(torch.empty(cfg.vocab_size, h))
+        self.position_embeddings = nn.Parameter(torch.empty(cfg.max_position_embeddings, h))
+        self.ln_emb = FpLayerNorm(h, eps=cfg.layer_norm_eps)
+        self.layers = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_layers))
+
+    def forward(self, tokens: torch.Tensor, attention_mask: torch.Tensor, image_states: torch.Tensor) -> torch.Tensor:
+        x = self.ln_emb(self.word_embeddings[tokens] + self.position_embeddings[None, : tokens.shape[1]])
+        bias = padding_bias(attention_mask, x.dtype)
+        for layer in self.layers:
+            x = layer(x, bias, image_states)
+        return x
 
 
 def bert_params_from_hf(sd: Mapping[str, np.ndarray], cfg: BertTextConfig) -> dict:

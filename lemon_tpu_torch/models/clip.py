@@ -151,6 +151,19 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, mask=None) -> torch.Tensor:
+    """(B, Lq, D) queries over (B, Lk, D) keys and values: plain multi-head
+    attention, ``heads`` heads, with an additive ``mask`` broadcast to
+    (B, H, Lq, Lk). The captioners, BLIP's and BLIP-2's towers share it."""
+    b, lq, d = q.shape
+    hd = d // heads
+    q, k, v = (t.reshape(b, t.shape[1], heads, hd).transpose(1, 2) for t in (q, k, v))
+    logits = (q * hd ** -0.5) @ k.transpose(-1, -2)
+    if mask is not None:
+        logits = logits + mask
+    return (torch.softmax(logits, dim=-1) @ v).transpose(1, 2).reshape(b, lq, d)
+
+
 def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with an fp32 result: JAX's ``preferred_element_type=float32``
     on operands of any dtype (bf16 products are exact in fp32)."""
@@ -428,15 +441,20 @@ class TransformerBlock(nn.Module):
 
 class VisionTower(nn.Module):
     """ViT with class token, learned positions and a final projection
-    (chexzero_clip.py:226-260)."""
+    (chexzero_clip.py:226-260). ``tokens_only``: no projection; ``forward``
+    returns every token state after ``ln_post`` (the JAX tower's
+    ``return_tokens=True``, lemon_tpu/models/clip.py:658-739: the
+    captioners' image prefix)."""
 
-    def __init__(self, cfg: ClipConfig, precision: Precision = Precision(), master: bool = False):
+    def __init__(self, cfg: ClipConfig, precision: Precision = Precision(), master: bool = False,
+                 tokens_only: bool = False):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = cd = precision.compute_dtype
         held = torch.float32 if master else cd
         p, w, g = cfg.vision_patch_size, cfg.vision_width, cfg.grid
-        self.pooled = precision.pool_last_block and cfg.pool_last_block and cfg.attention_impl != "flash"
+        self.pooled = (precision.pool_last_block and cfg.pool_last_block and cfg.attention_impl != "flash"
+                       and not tokens_only)
         self.patch_embed = nn.Linear(p * p * 3, w, bias=False, dtype=held)
         # added after the product's cast, as in JAX (:683-685)
         self.patch_bias = nn.Parameter(torch.zeros(w)) if cfg.vision_patch_bias else None
@@ -450,7 +468,7 @@ class VisionTower(nn.Module):
             for i in range(cfg.vision_layers)
         )
         self.ln_post = FpLayerNorm(w)  # fp32 tail in every mode (:732, :741)
-        self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim, dtype=held))
+        self.proj = None if tokens_only else nn.Parameter(torch.empty(w, cfg.embed_dim, dtype=held))
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         """``pixels``: (B, H, W, 3) NHWC, already normalised; fp32 result."""
@@ -469,6 +487,8 @@ class VisionTower(nn.Module):
         rows = torch.zeros(b, 1, dtype=torch.long, device=x.device) if self.pooled else None
         for i, block in enumerate(self.blocks):
             x = block(x, rows if i == len(self.blocks) - 1 else None)
+        if self.proj is None:
+            return self.ln_post(x)
         return _f32_product(self.ln_post(x[:, 0, :]), self.proj.to(cd))
 
 
@@ -594,7 +614,8 @@ def init_vit_(v: "VisionTower", generator: torch.Generator) -> None:
     """A ViT tower's own parameters, after :func:`init_layers_`."""
     w = v.cfg.vision_width
     for param in (v.class_embedding, v.positional_embedding, v.proj):
-        param.normal_(0.0, w ** -0.5, generator=generator)
+        if param is not None:
+            param.normal_(0.0, w ** -0.5, generator=generator)
     if v.patch_bias is not None:
         v.patch_bias.zero_()
 

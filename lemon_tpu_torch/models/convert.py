@@ -15,11 +15,13 @@ after calibration, ``act_scale`` under the vision projections) fills the
 port's ``QuantLinear`` buffers of the same names. A JAX ``ImageClassifier``'s
 variables (the CLIP vision tower, the torchvision-layout ResNet-50 with its
 ``batch_stats``, or the google-ViT, and the head) convert through
-:func:`classifier_from_flax`.
+:func:`classifier_from_flax`, and the three captioner families (GIT-style,
+Q-Former, HF-exact BLIP-2) through :func:`captioner_from_flax`.
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Dict, Mapping
 
@@ -74,8 +76,9 @@ def _vit(v: Mapping) -> Dict[str, np.ndarray]:
         "visual.positional_embedding": np.asarray(v["positional_embedding"]),
         **_blocks("visual", v["transformer"]),
         **_layer_norm("visual.ln_post", v["ln_post"]),
-        "visual.proj": np.asarray(v["proj"]),
     }
+    if "proj" in v:  # a captioner's tower has none (tokens only)
+        sd["visual.proj"] = np.asarray(v["proj"])
     if "patch_bias" in v:
         sd["visual.patch_bias"] = np.asarray(v["patch_bias"])
     if "ln_pre" in v:
@@ -200,6 +203,53 @@ def classifier_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     for k in [k for k in out if k.endswith(".running_var")]:
         out[k.replace(".running_var", ".num_batches_tracked")] = torch.tensor(0)
     return out
+
+
+_BLOCK_NAMES = ((r"^(?:block|lm_block|opt_block)_(\d+)$", r"blocks.\1"), (r"^qformer_block_(\d+)$", r"qformer_blocks.\1"))
+
+
+def _flax_module_names(node: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    """A flax subtree under the port's module names: ``block_{i}``-style
+    lists become ``blocks.{i}``, a dense kernel (in, out) a transposed
+    ``weight``, a conv kernel (kh, kw, in, out) an (out, in, kh, kw)
+    ``weight``, a LayerNorm ``scale`` a ``weight``; every other leaf (biases,
+    embeddings, LoRA factors, laid out alike) keeps its name."""
+    import re
+
+    out = {}
+    for key, val in node.items():
+        name = key
+        for pattern, repl in _BLOCK_NAMES:
+            name = re.sub(pattern, repl, name)
+        path = f"{prefix}.{name}" if prefix else name
+        if isinstance(val, Mapping):
+            out.update(_flax_module_names(val, path))
+            continue
+        a = np.asarray(val)
+        if key == "kernel":
+            a, path = (a.T if a.ndim == 2 else np.transpose(a, (3, 2, 0, 1))), f"{prefix}.weight"
+        elif key == "scale":
+            path = f"{prefix}.weight"
+        out[path] = a
+    return out
+
+
+def captioner_from_flax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """A JAX captioner's parameters (``init_captioner(cfg)[1]`` or
+    ``load_blip2``'s, with or without the ``"params"`` level) -> the state
+    dict of the port's model of the same config: ``CaptioningModel``,
+    ``QFormerCaptioner`` (their CLIP tower as :func:`from_flax_params`
+    converts it) or ``Blip2Captioner`` (its ViT-g by module name), fp32."""
+    from lemon_tpu_torch.models.blip2 import Blip2Config
+
+    params = tree["params"] if "params" in tree else tree
+    sd = {}
+    for name, node in params.items():
+        if name == "visual" and not isinstance(cfg, Blip2Config):
+            sd.update(_vit(node))
+        else:
+            sd.update(_flax_module_names({name: node}, ""))
+    return {k: torch.from_numpy(np.array(a, dtype=np.float32, order="C")) for k, a in sd.items()}
 
 
 def unflatten(flat: Mapping[str, np.ndarray]) -> dict:

@@ -43,6 +43,7 @@ from lemon_tpu_torch.models.clip import ClipConfig, ClipModel, init_weights
 from lemon_tpu_torch.models.convert import from_flax_params, load_flax_npz
 from lemon_tpu_torch.models.encoder import ClipEncoder
 from lemon_tpu_torch.models.loader import detect_and_convert, load_torch_file
+from lemon_tpu_torch.models.safetensors_io import load_numpy
 from lemon_tpu_torch.models.tokenizer import tokenize_batch
 from lemon_tpu_torch.models.wordpiece import WordPieceTokenizer
 
@@ -84,9 +85,7 @@ def load_checkpoint(path: Path, cfg: ClipConfig):
     if path.suffix == ".npz":
         return from_flax_params(load_flax_npz(path)), cfg
     if path.suffix == ".safetensors":
-        from safetensors.numpy import load_file
-
-        sd = load_file(path)
+        sd = load_numpy(path)  # the port's own reader: the GPU machine has no safetensors package
     else:
         sd = load_torch_file(path)
     tree, cfg = detect_and_convert({k: v for k, v in sd.items() if "position_ids" not in k})

@@ -95,6 +95,30 @@ else:  # pragma: no cover - stdlib-re approximation (letters/digits classes)
 _WHITESPACE = _re.compile(r"\s+")
 
 
+def bpe_merge(parts: List[str], ranks: dict) -> tuple:
+    """Byte-pair merges of one pre-token's symbols: while some adjacent pair
+    has a rank, merge every occurrence of the first lowest-ranked pair, left
+    to right; returns the symbol tuple."""
+    while len(parts) > 1:
+        ranked = [(ranks.get((parts[i], parts[i + 1])), i) for i in range(len(parts) - 1)]
+        ranked = [(r, i) for r, i in ranked if r is not None]
+        if not ranked:
+            break
+        _, best = min(ranked)  # the lowest rank, first in the word
+        first, second = parts[best], parts[best + 1]
+        merged: List[str] = []
+        i = 0
+        while i < len(parts):
+            if i < len(parts) - 1 and parts[i] == first and parts[i + 1] == second:
+                merged.append(first + second)
+                i += 2
+            else:
+                merged.append(parts[i])
+                i += 1
+        parts = merged
+    return tuple(parts)
+
+
 def _clean_text(text: str) -> str:
     """Unicode-normalize and unescape, collapse whitespace, lowercase later.
 
@@ -149,40 +173,7 @@ class ClipBpeTokenizer:
         """Apply BPE merges to one pre-token; returns the symbol tuple."""
         if word in (SOT_TEXT, EOT_TEXT):
             return (word,)
-        parts: List[str] = list(word[:-1]) + [word[-1] + "</w>"]
-        if len(parts) == 1:
-            return tuple(parts)
-        while len(parts) > 1:
-            # Find the lowest-rank adjacent pair currently present.
-            ranked = [
-                (self.merge_rank.get((parts[i], parts[i + 1]), None), i)
-                for i in range(len(parts) - 1)
-            ]
-            ranked = [(r, i) for r, i in ranked if r is not None]
-            if not ranked:
-                break
-            best_rank = min(r for r, _ in ranked)
-            best_pair = None
-            for r, i in ranked:
-                if r == best_rank:
-                    best_pair = (parts[i], parts[i + 1])
-                    break
-            # Merge every occurrence of best_pair left-to-right.
-            merged: List[str] = []
-            i = 0
-            while i < len(parts):
-                if (
-                    i < len(parts) - 1
-                    and parts[i] == best_pair[0]
-                    and parts[i + 1] == best_pair[1]
-                ):
-                    merged.append(parts[i] + parts[i + 1])
-                    i += 2
-                else:
-                    merged.append(parts[i])
-                    i += 1
-            parts = merged
-        return tuple(parts)
+        return bpe_merge(list(word[:-1]) + [word[-1] + "</w>"], self.merge_rank)
 
     @functools.lru_cache(maxsize=65536)
     def _encode_cached(self, text: str) -> tuple:

@@ -15,7 +15,13 @@ its defaults (lowercase, accents stripped, CJK characters split):
    ``##``-prefixed continuations; a word with no full cover, or longer than
    100 characters, becomes ``[UNK]``;
 4. ``[CLS]`` + ids (truncated to ``context_length - 2``) + ``[SEP]``, padded
-   with ``[PAD]`` to ``context_length``.
+   with ``[PAD]`` to ``context_length`` (:meth:`WordPieceTokenizer.batch`:
+   to the batch's longest row, with the attention mask, as ``padding=True,
+   truncation=True`` pads).
+
+``lowercase=False`` (``do_lower_case: false`` in a ``tokenizer_config.json``)
+keeps case and accents, as the fast tokenizer does with ``strip_accents``
+unset.
 
 tests/test_torch_biomed.py holds it to ``BertTokenizerFast``.
 """
@@ -53,7 +59,7 @@ def _is_punctuation(ch: str) -> bool:
     return unicodedata.category(ch).startswith("P")
 
 
-def normalize(text: str) -> str:
+def normalize(text: str, lowercase: bool = True) -> str:
     out = []
     for ch in text:
         if ord(ch) in (0, 0xFFFD) or _is_control(ch):
@@ -64,6 +70,8 @@ def normalize(text: str) -> str:
             out.append(f" {ch} ")
         else:
             out.append(ch)
+    if not lowercase:
+        return "".join(out)
     text = unicodedata.normalize("NFD", "".join(out))
     return "".join(ch for ch in text if unicodedata.category(ch) != "Mn").lower()
 
@@ -87,7 +95,8 @@ class WordPieceTokenizer:
     """Token ids of a BERT vocabulary (one token a line; its id is the line
     number)."""
 
-    def __init__(self, vocab_path):
+    def __init__(self, vocab_path, lowercase: bool = True):
+        self.lowercase = lowercase
         lines = Path(vocab_path).read_text(encoding="utf-8").split("\n")
         if lines and lines[-1] == "":
             lines.pop()
@@ -115,7 +124,7 @@ class WordPieceTokenizer:
         return ids
 
     def encode(self, text: str) -> List[int]:
-        return [i for word in pre_tokenize(normalize(text)) for i in self.word_ids(word)]
+        return [i for word in pre_tokenize(normalize(text, self.lowercase)) for i in self.word_ids(word)]
 
     def __call__(self, texts: Sequence[str], context_length: int) -> np.ndarray:
         """(B, context_length) int32: ``[CLS] ids [SEP]``, truncated, padded."""
@@ -124,3 +133,15 @@ class WordPieceTokenizer:
             ids = [self.cls, *self.encode(text)[: context_length - 2], self.sep]
             out[r, : len(ids)] = ids
         return out
+
+    def batch(self, texts: Sequence[str], max_length: int) -> tuple[np.ndarray, np.ndarray]:
+        """(ids, attention mask), int64 (B, L): each row ``[CLS] ids [SEP]``
+        truncated to ``max_length``, padded to the batch's longest row."""
+        rows = [[self.cls, *self.encode(t)[: max_length - 2], self.sep] for t in texts]
+        width = max(len(r) for r in rows)
+        ids = np.full((len(rows), width), self.pad, np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for r, row in enumerate(rows):
+            ids[r, : len(row)] = row
+            mask[r, : len(row)] = 1
+        return ids, mask

@@ -69,16 +69,8 @@ def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     """optax's ``warmup_cosine_decay_schedule(0, lr, warmup, decay_steps)``
     with ``decay_steps = max(total_steps, warmup_steps + 1)``: linear from 0
     over the warmup, then a cosine to 0."""
-    peak, warmup = cfg.learning_rate, cfg.warmup_steps
-    decay = max(cfg.total_steps, warmup + 1) - warmup
-
-    def schedule(count: int) -> float:
-        if count < warmup:
-            return peak * count / warmup
-        t = min(count - warmup, decay)
-        return peak * 0.5 * (1.0 + math.cos(math.pi * t / decay))
-
-    return schedule
+    return warmup_cosine_decay_schedule(0.0, cfg.learning_rate, cfg.warmup_steps,
+                                        max(cfg.total_steps, cfg.warmup_steps + 1))
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[int], float]:
@@ -89,6 +81,23 @@ def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[int]
 
     def schedule(count: int) -> float:
         return init_value * 0.5 * (1.0 + math.cos(math.pi * min(count, decay_steps) / decay_steps))
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int) -> Callable[[int], float]:
+    """optax's ``warmup_cosine_decay_schedule(init, peak, warmup, decay_steps)``
+    with ``end_value`` 0: linear from ``init_value`` to ``peak_value`` over
+    ``warmup_steps``, then :func:`cosine_decay_schedule` over the remaining
+    ``decay_steps - warmup_steps`` (which must be positive, as optax asks),
+    read at ``count - warmup_steps``."""
+    cosine = cosine_decay_schedule(peak_value, decay_steps - warmup_steps)
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return init_value + (peak_value - init_value) * count / warmup_steps
+        return cosine(count - warmup_steps)
 
     return schedule
 

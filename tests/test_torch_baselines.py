@@ -271,14 +271,20 @@ def test_cli_refuses_run_lemon_only_flags(tmp_path, flag):
 
 @pytest.mark.parametrize("baseline", ["capfilt", "aum", "datamap"])
 def test_cli_unported_baselines_raise(tmp_path, baseline):
-    """capfilt raises, naming its ROADMAP item, before any output; aum and
-    datamap are ported (tests/test_torch_training_dependent.py holds them
-    to the JAX package) and no longer raise."""
+    """Once refusals, now ported: capfilt without ``--itm_checkpoint`` runs
+    the CLIP proxy head on a tiny caption set, printing the JAX package's
+    notice (tests/test_torch_capfilt.py and test_torch_blip_itm.py hold it
+    to the golden and to JAX); aum and datamap run
+    (tests/test_torch_training_dependent.py holds them to JAX)."""
     argv = ["--output_dir", str(tmp_path / "out"), "--platform", "cpu", "--baseline", baseline]
     if baseline == "capfilt":
-        with pytest.raises(NotImplementedError, match="--baseline capfilt is not ported.*item 6b"):
-            _cli(argv)
-        assert not (tmp_path / "out").exists()
+        res = _cli([*argv, "--clip_model", "tiny", "--dataset", "synthetic_caption", "--noise_type", "random",
+                    "--synthetic_n", "60", "--batch_size", "16"])
+        assert (tmp_path / "out" / "done").exists() and np.isfinite(res["df"]["pred_score"]).all()
+        assert "[capfilt] no BLIP-ITM checkpoint; using the CLIP ITM proxy head" in (
+            tmp_path / "out" / "out.txt").read_text()
+        for name in ("full_loss_dict.pkl", "flip_labels.pkl", "runtime.npy"):
+            assert (tmp_path / "out" / name).exists(), name
         return
     res = _cli([*argv, "--dataset", "synthetic", "--noise_type", "symmetric", "--synthetic_n", "60", "--epochs", "1",
                 "--batch_size", "32", "--img_base_name", "resnet50_tiny"])

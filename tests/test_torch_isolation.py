@@ -1,7 +1,7 @@
 """The port stands alone: no module of lemon_tpu_torch/ and nothing in
 chip_smoke.py imports the JAX package, JAX, flax, optax, orbax, the JAX
-probes of benchmarks/, or scikit-learn and transformers (which the GPU
-machine lacks), and its
+probes of benchmarks/, or scikit-learn, transformers and safetensors (which
+the GPU machine lacks), and its
 public entry points run on the CUDA card unless they are given another
 device."""
 
@@ -20,7 +20,7 @@ from lemon_tpu_torch.scoring.optimize import maximize_metric
 
 REPO = Path(__file__).resolve().parents[1]
 # the port's probes must not reach the JAX ones in benchmarks/
-FORBIDDEN = ("lemon_tpu", "jax", "flax", "optax", "orbax", "benchmarks", "sklearn", "transformers")
+FORBIDDEN = ("lemon_tpu", "jax", "flax", "optax", "orbax", "benchmarks", "sklearn", "transformers", "safetensors")
 SOURCES = sorted((REPO / "lemon_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -43,7 +43,9 @@ def test_the_scan_sees_every_module():
     assert {"tokenizer.py", "encoder.py", "index.py", "chip_smoke.py", "probe_knn_select3.py", "streaming.py",
             "native_loader.py", "resnet.py", "bert_text.py", "biomed.py", "wordpiece.py", "mesh.py",
             "contrastive.py", "preemption.py", "filtering.py", "train_clip.py", "cpp_backend.py", "classifier.py",
-            "torch_backbones.py", "downstream.py", "run_downstream.py", "training_dependent.py"} <= {
+            "torch_backbones.py", "downstream.py", "run_downstream.py", "training_dependent.py", "safetensors_io.py",
+            "blip_itm.py", "capfilt.py", "captioner.py", "qformer.py", "blip2.py", "gpt2_bpe.py",
+            "captioning.py"} <= {
         p.name for p in SOURCES}
 
 
