@@ -191,7 +191,26 @@ imports nothing of JAX. Phases, each printed on its own lines:
     ``generate`` to 40 tokens and ``generate_judged`` on 2 left-padded
     prompts, with their times and peak memory. Phases 24-26 launch no
     kernel of the port: the JAX package's capfilt scorer is host torch and
-    its captioners plain einsums.
+    its captioners plain einsums;
+27. the generative judge at full width: ``save_blip2`` writes a random-init
+    BLIP-2 at ``Salesforce/blip2-opt-2.7b``'s widths (all 32 OPT layers,
+    seed 0) as a sharded directory in a temporary folder (removed after;
+    the phase raises if the disk lacks room), then ``run_judges --judge
+    llava --backend flax`` judges the 64 val and test pairs of 320
+    synthetic caption pairs in batches of 8 with 16 new tokens: the files,
+    every score finite in [0, 1], the first batch again with identical
+    tokens, peak memory; the first batch on a 2-layer OPT at full width,
+    card against CPU: equal tokens, log-probabilities within
+    ``JUDGE_LOGP_TOL``; ``VdcPipeline`` on 4 examples, the VLM stage served
+    by the full-width model and the LLM by a scripted host function; the
+    write, load, per-batch and per-pair times. No kernel runs (the JAX
+    judge's BLIP-2 is plain einsums);
+28. ``python -m lemon_tpu_torch.cli.sweep launch --experiment
+    synthetic_smoke --command_launcher local --yes --embedding_cache auto``:
+    its four ``run_lemon`` jobs run on the card, each in a process of its
+    own, and each job's log counts its K1 and K2 launches (both above 0);
+    ``status`` reports 4 done; ``aggregate --root`` and ``aggregate
+    --hparam_drop`` print tables over the 4 runs; the wall of each step.
 
 The switches: TF32 off for fp32 products and convolutions, and cuBLAS's
 reduced-precision reductions of bf16 products off, as the CLI sets them
@@ -1954,6 +1973,11 @@ CAPTION_BATCH = 32
 CAPTION_RTOL = 1e-5  # per-sample LM loss, card vs CPU on one batch
 BLIP2_BATCH = 4
 CAPTION_DATA = ["--dataset", "synthetic_caption", "--noise_type", "random", "--noise_level", "0.4"]
+JUDGE_N = 320  # synthetic caption pairs of phase 27: 32 val and 32 test pairs judged
+JUDGE_ARGV = ["--judge", "llava", "--backend", "flax", "--dataset", "synthetic_caption", "--synthetic_n", str(JUDGE_N),
+              "--generate_batch_size", "8", "--max_new_tokens", "16"]
+JUDGE_LOGP_TOL = 1e-4  # generate_judged's log-probabilities, card vs CPU, fp32 with TF32 off
+VDC_EXAMPLES = 4
 
 
 def itm_vocab(captions, size: int) -> list:
@@ -2250,6 +2274,197 @@ def phase_blip2_opt(torch, counters, device):
     return paths, numbers
 
 
+def scripted_llm(prompt: str) -> str:
+    """VDC's LLM stages on the host: two fixed questions for VQG, a yes or no
+    from the prompt's crc32 for the answer check (stable across processes)."""
+    import zlib
+
+    if "generate some visual questions" in prompt:
+        return "Is there a photo in the image?\nDoes the image match the caption?"
+    return "yes" if zlib.crc32(prompt.encode()) % 2 == 0 else "no"
+
+
+def phase_judges(torch, counters, scoremax, topk, device):
+    """Phase 27: ``run_judges --backend flax`` on a sharded BLIP-2 at
+    ``Salesforce/blip2-opt-2.7b``'s widths that ``save_blip2`` writes, the
+    card-vs-CPU check of the first batch at 2 OPT layers, and ``VdcPipeline``
+    on the full-width model. Returns ({path: kernel launches}, numbers)."""
+    import copy
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from lemon_tpu_torch.baselines.judges import LLAVA_QUERY, VdcPipeline
+    from lemon_tpu_torch.cli.run_judges import Blip2Judge, main as run_judges
+    from lemon_tpu_torch.data.datasets import get_dataset, load_images
+    from lemon_tpu_torch.models.blip2 import Blip2Config, save_blip2
+    from lemon_tpu_torch.models.captioner import init_captioner
+
+    t_phase = time.perf_counter()
+    root = RUNS / "judges"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = Blip2Config.opt_2_7b()
+    model = init_captioner(cfg, seed=0, device=device)
+    n_bytes = sum(t.numel() * t.element_size() for n, t in model.state_dict().items() if "lora" not in n)
+    free = shutil.disk_usage(root).free
+    check(free > 1.1 * n_bytes, f"phase 27: {free / 1e9:.1f} GB free under {root}, the checkpoint needs "
+                                f"{n_bytes / 1e9:.1f} GB")
+    ckpt = Path(tempfile.mkdtemp(prefix="blip2_opt_2.7b_", dir=root))
+    numbers = {"checkpoint_bytes": n_bytes}
+    try:
+        t0 = time.perf_counter()
+        files = save_blip2(model, ckpt)
+        numbers["write_s"] = time.perf_counter() - t0
+        shards = [f for f in files if f.name.startswith("model-")]
+        check(len(shards) > 1 and (ckpt / "model.safetensors.index.json").exists(),
+              f"phase 27: save_blip2 wrote {[f.name for f in files]}, not shards and an index")
+        del model
+        torch.cuda.empty_cache()
+        out = root / "llava_flax"
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        _, wall, log, result = run_entry(run_judges, scoremax, topk,
+                                         ["--output_dir", str(out), "--vlm_checkpoint", str(ckpt), *JUDGE_ARGV], {})
+        peak = torch.cuda.max_memory_allocated()
+        paths = {"run_judges_llava_blip2_opt_2.7b": training_counts(counters, "phase 27")}
+        for name in ("args.json", "out.txt", "res.pkl", "scores.csv", "done"):
+            check((out / name).exists(), f"phase 27: {name} missing")
+        vlm, df = result["vlm"], result["res"]["df"]
+        auroc = {split: float(result["res"]["agg_results"][split]["AUROC"]) for split in ("val", "test")}
+        scores = df["pred_score"].to_numpy()
+        n_pairs = len(df)
+        check(n_pairs == JUDGE_N // 5 and bool(np.isfinite(scores).all()) and scores.min() >= 0 and scores.max() <= 1,
+              f"phase 27: {n_pairs} scores, not {JUDGE_N // 5} in [0, 1]")
+        batch_s = [b["s"] for b in vlm.batches]
+        check(len(batch_s) == n_pairs // 8, f"phase 27: {len(batch_s)} generate calls for {n_pairs} pairs")
+        val = get_dataset("synthetic_caption", 0, noise_level=0.4, noise_type="random", synthetic_n=JUDGE_N)[1]
+        idx = np.arange(8)
+        images, prompts = load_images(val, idx, stack=False), [LLAVA_QUERY % c for c in val.sentence[idx]]
+        first = vlm.batches[0]
+        vlm.run_batch(images, prompts)
+        again = vlm.batches[-1]
+        check(np.array_equal(again["tokens"], first["tokens"]), "phase 27: the first batch again gave other tokens")
+        replies = {str(r) for r in first["tokens"].tolist()}
+        t0 = time.perf_counter()
+        pipe = VdcPipeline(llm_generate=scripted_llm, vlm_answer=vlm.backends()[1],
+                           vlm_answer_batch=vlm.backends()[4], batch_size=8)
+        n_calls = len(vlm.batches)
+        vdc = [pipe.score_example(images[i], val.sentence[i], label=val.sentence[i]) for i in range(VDC_EXAMPLES)]
+        vdc_s = time.perf_counter() - t0
+        vdc_scores = [v["score"] for v in vdc]
+        check(all(0 <= v <= 1 for v in vdc_scores) and len(vlm.batches) - n_calls == VDC_EXAMPLES
+              and all(len(v["questions"]) == 4 for v in vdc),
+              f"phase 27: VdcPipeline scores {vdc_scores}, {len(vlm.batches) - n_calls} VLM calls")
+        load_s = vlm.load_s
+        del vlm, result, pipe
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    # card against CPU: the first batch through a 2-layer OPT at full width
+    card_model = init_captioner(dataclasses.replace(cfg, decoder_layers=2), seed=0, device=device)
+    card = Blip2Judge(card_model, device, 16)
+    host = Blip2Judge(copy.deepcopy(card_model).cpu(), torch.device("cpu"), 16)
+    card.run_batch(images, prompts)
+    t0 = time.perf_counter()
+    host.run_batch(images, prompts)
+    cpu_s = time.perf_counter() - t0
+    a, b = card.batches[0], host.batches[0]
+    logp_err = float(np.abs(a["logprobs"] - b["logprobs"]).max())
+    check(np.array_equal(a["tokens"], b["tokens"]), f"phase 27: 2-layer tokens card vs CPU differ at "
+                                                     f"{np.argwhere(a['tokens'] != b['tokens'])[:4].tolist()}")
+    check(logp_err <= JUDGE_LOGP_TOL, f"phase 27: 2-layer log-probabilities card vs CPU {logp_err} > {JUDGE_LOGP_TOL}")
+    del card, host, card_model
+    torch.cuda.empty_cache()
+    steady = batch_s[1:]
+    numbers.update(load_s=load_s, wall_s=wall, batch_s=batch_s, first_batch_again_s=again["s"],
+                   s_per_batch_steady=float(np.median(steady)), s_per_pair=sum(batch_s) / n_pairs,
+                   pairs_per_s=n_pairs / sum(batch_s), max_memory_allocated=peak, shards=len(shards),
+                   distinct_replies_first_batch=len(replies), vdc_s=vdc_s, vdc_scores=vdc_scores,
+                   card_vs_cpu_logp=logp_err, cpu_batch_s=cpu_s, auroc=auroc)
+    print(f"run_judges llava flax, BLIP-2 at opt-2.7b widths ({n_bytes / 1e9:.2f} GB fp32 in {len(shards)} shards, "
+          f"written in {numbers['write_s']:.2f} s, loaded in {load_s:.2f} s): wall {wall:.2f} s; {n_pairs} pairs "
+          f"in {len(batch_s)} batches of 8 x 16 new tokens, batch s {[round(x, 3) for x in batch_s]} (steady "
+          f"median {numbers['s_per_batch_steady']:.3f} s), {numbers['s_per_pair']:.4f} s a pair, "
+          f"{numbers['pairs_per_s']:.2f} pairs/s; max_memory_allocated {peak / 2**30:.2f} GiB; the first batch "
+          f"again: identical tokens in {again['s']:.3f} s ({len(replies)} distinct replies); AUROC "
+          f"{numbers['auroc']}", flush=True)
+    print(f"VdcPipeline on {VDC_EXAMPLES} examples (4 questions each, the VLM at full width, a scripted LLM): "
+          f"{vdc_s:.2f} s, scores {vdc_scores}; 2-layer OPT at full width, the first batch card vs CPU: tokens "
+          f"equal, log-probabilities max abs diff {logp_err:.3g} (bar {JUDGE_LOGP_TOL}), CPU batch {cpu_s:.2f} s; "
+          f"judge phase {time.perf_counter() - t_phase:.2f} s; kernel launches 0 (plain attention, as the JAX "
+          f"judge's BLIP-2 einsums)", flush=True)
+    return paths, numbers
+
+
+def phase_sweep():
+    """Phase 28: ``sweep launch --experiment synthetic_smoke`` through the
+    port's CLI in a process of its own, its four ``run_lemon`` jobs on the
+    card; ``status``; the two ``aggregate`` tables. Returns ({path: kernel
+    launches summed over the jobs' processes}, numbers)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from lemon_tpu_torch.cli import aggregate, sweep
+
+    t_phase = time.perf_counter()
+    root = RUNS / "sweeps"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))}
+    t0 = time.perf_counter()
+    launch = subprocess.run([sys.executable, "-m", "lemon_tpu_torch.cli.sweep", "launch", "--experiment",
+                             "synthetic_smoke", "--output_root", str(root), "--command_launcher", "local", "--yes",
+                             "--embedding_cache", "auto"], cwd=ROOT, env=env, capture_output=True, text=True,
+                            timeout=900)
+    launch_s = time.perf_counter() - t0
+    (root / "launch.log").write_text(launch.stdout + launch.stderr)
+    check(launch.returncode == 0 and "launched 4 jobs" in launch.stdout,
+          f"phase 28: sweep launch rc {launch.returncode}: {(launch.stdout + launch.stderr)[-2000:]}")
+
+    def captured(fn, argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn(argv)
+        return buf.getvalue(), time.perf_counter() - t
+
+    status, status_s = captured(sweep.main, ["status", "--experiment", "synthetic_smoke", "--output_root", str(root)])
+    check("{'done': 4}" in status, f"phase 28: sweep status: {status}")
+    exp_root = root / "synthetic_smoke"
+    table, table_s = captured(aggregate.main, ["--root", str(exp_root)])
+    configs = aggregate.paper_table(aggregate.collect_runs(exp_root))
+    check("collected 4 completed runs" in table and len(configs) == 2,
+          f"phase 28: aggregate, not 4 runs in 2 configurations (noise 0.2, 0.4): {table}")
+    drop, drop_s = captured(aggregate.main, ["--root", str(exp_root), "--hparam_drop"])
+    drop_rows = aggregate.hparam_drop_table(exp_root)
+    check(len(drop_rows) == 4 and bool(np.isfinite(drop_rows[["AUROC", "AUPRC", "F1_prev"]].to_numpy(float)).all()),
+          f"phase 28: aggregate --hparam_drop: {drop}")
+    launches, job_walls = {}, []
+    for job in sweep.build_jobs("synthetic_smoke", exp_root):
+        log = (job.output_dir / "out.txt").read_text()
+        counts = [json.loads(line.split(": ", 1)[1]) for line in log.splitlines()
+                  if line.startswith("kernel launches in this process: ")]
+        check(len(counts) == 1 and counts[0]["scores_blockmax"] > 0 and counts[0]["topk"] > 0,
+              f"phase 28: job {job.run_id} did not report K1 and K2 launches: {counts}")
+        for k, v in counts[0].items():
+            launches[k] = launches.get(k, 0) + v
+        timing = [ast.literal_eval(line.removeprefix("Phase timing: ")) for line in log.splitlines()
+                  if line.startswith("Phase timing: ")]
+        job_walls.append(round(sum(timing[0].values()), 3) if timing else None)
+    numbers = {"launch_s": launch_s, "status_s": status_s, "aggregate_s": table_s, "hparam_drop_s": drop_s,
+               "job_phase_sums_s": job_walls}
+    print(f"sweep synthetic_smoke: launch of 4 run_lemon jobs {launch_s:.2f} s (a process each; their phase sums "
+          f"{job_walls} s); status {status_s:.3f} s: {status.strip()}; aggregate {table_s:.3f} s, --hparam_drop "
+          f"{drop_s:.3f} s; K1/K2 launches over the jobs {launches}; sweep phase "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    print("aggregate --root:\n" + table.rstrip() + "\naggregate --hparam_drop:\n" + drop.rstrip(), flush=True)
+    return {"sweep_synthetic_smoke_jobs": launches}, numbers
+
+
 def print_side_by_side(what: str, a: dict, b: dict, names=("fp32", "bf16")) -> None:
     print(f"{what} phase timing (s), {names[0]} | {names[1]}: "
           + json.dumps({k: [round(a.get(k, 0.0), 4), round(b.get(k, 0.0), 4)] for k in {**a, **b}}), flush=True)
@@ -2339,13 +2554,16 @@ def main() -> None:
     blip2, blip2_numbers = phase_blip2_opt(torch, counters, device)
     print("capfilt and captioning numbers: " + json.dumps({**capfilt_numbers, **captioning_numbers,
                                                            "blip2_opt_2.7b": blip2_numbers}), flush=True)
+    judges, judge_numbers = phase_judges(torch, counters, scoremax, topk, device)
+    sweep_launches, sweep_numbers = phase_sweep()
+    print("judge and sweep numbers: " + json.dumps({"judges": judge_numbers, "sweep": sweep_numbers}), flush=True)
 
     main_paths = {"run_lemon_vit_b32": b32, "run_lemon_vit_b32_bf16": b32_bf16, "detect_vit_b16_flash": b16,
                   "detect_vit_b16_flash_bf16": b16_bf16, "knn_select_fused_probe": {"fused_gather_topk": k4_launches},
                   **probes, **warm, "run_lemon_stream_62500_bf16": stream, **encoders, **baselines,
                   **{path: split_counts(counts) for path, counts in training.items()},
                   "run_lemon_vit_b32_bf16_mesh_1x1": mesh_launches, **downstream, **aum_datamap, **capfilt,
-                  **captioning, **blip2}
+                  **captioning, **blip2, **judges, **sweep_launches}
 
     def launches(name):
         paths = {path: counts.get(name, 0) for path, counts in main_paths.items()}

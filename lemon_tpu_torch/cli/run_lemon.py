@@ -5,7 +5,9 @@ Example:
     python -m lemon_tpu_torch.cli.run_lemon --output_dir out/exp1 \
         --dataset cifar10 --noise_type symmetric --noise_level 0.4
 
-Outputs: args.json, out.txt/err.txt, res.pkl, {criteria}_scores.csv, done.
+Outputs: args.json, out.txt/err.txt, res.pkl, {criteria}_scores.csv, done;
+out.txt's last line counts the process's kernel launches
+(:func:`kernel_launches`).
 
 Differences from the JAX CLI: ``--platform`` is ``cuda`` (default) or
 ``cpu`` and a run without a GPU raises unless ``--platform cpu`` is given;
@@ -25,6 +27,7 @@ embeddings (``detect.py``).
 from __future__ import annotations
 
 import argparse
+import json
 import random
 from pathlib import Path
 
@@ -149,7 +152,20 @@ def main(argv=None):
     )
     run_detection(cfg, out_dir)
     if lead:
+        print("kernel launches in this process: " + json.dumps(kernel_launches()))
         mark_done(out_dir)
+
+
+def kernel_launches() -> dict:
+    """This process's launches of the kernels a detection can reach, from
+    the wrappers' counts: K1 by precision, K2, K3 fp32 and bf16. A run in a
+    process of its own (a sweep's job) reports its path's launches so."""
+    from lemon_tpu_torch.ops import attention, scoremax, topk
+
+    highest, bf16 = scoremax.scores_blockmax.launches_highest, attention.flash_attention.launches_bf16
+    return {"scores_blockmax": scoremax.scores_blockmax.launches - highest, "scores_blockmax_highest": highest,
+            "topk": topk.topk.launches, "flash_attention": attention.flash_attention.launches - bf16,
+            "flash_attention_bf16": bf16}
 
 
 if __name__ == "__main__":

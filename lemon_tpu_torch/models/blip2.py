@@ -24,8 +24,10 @@ chosen token's log-probability each step (:490-527).
 :func:`load_blip2` reads a local ``save_pretrained`` directory without
 ``transformers``: ``config.json`` through :func:`blip2_config_from_hf`
 (HF's ``Blip2Config``/``OPTConfig`` defaults for every omitted key), the
-weights through :mod:`safetensors_io` or ``torch.load``, and checks every
-non-LoRA parameter's name and shape (:484-499).
+weights through :func:`safetensors_io.load_pretrained` (one file or an
+index and its shards, safetensors or ``torch.save``), and checks every
+non-LoRA parameter's name and shape (:484-499). :func:`save_blip2` writes
+such a directory, sharded above ``max_shard_bytes`` as HF shards it.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from torch import nn
 from lemon_tpu_torch.models.blip_itm import VISION_NAMES, BlipVisionTower, rename, unbatch
 from lemon_tpu_torch.models.captioner import CaptionerConfig, CaptioningModel, LoraLinear, init_captioner
 from lemon_tpu_torch.models.clip import ClipConfig, FpLayerNorm, attend
-from lemon_tpu_torch.models.safetensors_io import load_file
+from lemon_tpu_torch.models.safetensors_io import load_pretrained, save_sharded
 
 QFORMER_EPS = 1e-12
 VISION_EPS = 1e-6
@@ -320,13 +322,7 @@ def load_blip2(checkpoint_dir, lora_rank: int = 0, max_text_len: int = 40, seed:
     d = Path(checkpoint_dir)
     cfg = blip2_config_from_hf(json.loads((d / "config.json").read_text()), lora_rank=lora_rank,
                                max_text_len=max_text_len)
-    if (d / "model.safetensors").exists():
-        sd = load_file(d / "model.safetensors")
-    elif (d / "pytorch_model.bin").exists():
-        sd = torch.load(d / "pytorch_model.bin", map_location="cpu", weights_only=True)
-    else:
-        raise FileNotFoundError(f"{d}: no model.safetensors or pytorch_model.bin")
-    converted = convert_blip2_state_dict(sd)
+    converted = convert_blip2_state_dict(load_pretrained(d))
     model = init_captioner(cfg, seed, device)
     params = dict(model.named_parameters())
     unknown = sorted(set(converted) - set(params))
@@ -340,5 +336,66 @@ def load_blip2(checkpoint_dir, lora_rank: int = 0, max_text_len: int = 40, seed:
                 raise KeyError(f"{d}: the checkpoint has no {name}")
             if tuple(converted[name].shape) != tuple(p.shape):
                 raise ValueError(f"{name}: checkpoint shape {tuple(converted[name].shape)}, model {tuple(p.shape)}")
-            p.copy_(converted[name])
+            p.copy_(converted[name])  # casts a half-precision checkpoint to the model's dtype
     return model, cfg
+
+
+def blip2_hf_config(cfg: Blip2Config) -> dict:
+    """``config.json`` of ``Blip2ForConditionalGeneration`` with an OPT LM,
+    every size :func:`blip2_config_from_hf` reads written out."""
+    v = cfg.vision
+    return {
+        "architectures": ["Blip2ForConditionalGeneration"], "model_type": "blip-2",
+        "num_query_tokens": cfg.n_queries, "use_decoder_only_language_model": True,
+        "vision_config": {"model_type": "blip_2_vision_model", "hidden_size": v.vision_width,
+                          "intermediate_size": cfg.vision_mlp_dim or 4 * v.vision_width,
+                          "num_hidden_layers": v.vision_layers, "num_attention_heads": v.v_heads,
+                          "image_size": v.image_resolution, "patch_size": v.vision_patch_size,
+                          "layer_norm_eps": VISION_EPS, "hidden_act": "gelu", "qkv_bias": True},
+        "qformer_config": {"model_type": "blip_2_qformer", "hidden_size": cfg.qformer_width,
+                           "num_hidden_layers": cfg.qformer_layers, "num_attention_heads": cfg.qformer_heads,
+                           "intermediate_size": cfg.qformer_mlp_dim or 4 * cfg.qformer_width,
+                           "cross_attention_frequency": cfg.cross_attention_freq,
+                           "encoder_hidden_size": v.vision_width, "layer_norm_eps": QFORMER_EPS,
+                           "hidden_act": "gelu"},
+        "text_config": {"model_type": "opt", "vocab_size": cfg.vocab_size, "hidden_size": cfg.decoder_width,
+                        "word_embed_proj_dim": cfg.decoder_width, "num_hidden_layers": cfg.decoder_layers,
+                        "num_attention_heads": cfg.decoder_heads,
+                        "ffn_dim": cfg.decoder_mlp_dim or 4 * cfg.decoder_width,
+                        "max_position_embeddings": cfg.max_positions or (cfg.max_text_len + cfg.n_queries),
+                        "activation_function": "relu", "do_layer_norm_before": True,
+                        "pad_token_id": cfg.pad_token_id, "bos_token_id": cfg.bos_token_id,
+                        "eos_token_id": cfg.eos_token_id, "tie_word_embeddings": True},
+    }
+
+
+def blip2_to_hf_state_dict(model: Blip2Captioner) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`convert_blip2_state_dict`: HF's names and batch
+    axes (the LoRA factors, which no checkpoint holds, left out; the tied
+    ``lm_head`` left out, as ``save_pretrained`` leaves it)."""
+    out = {}
+    for name, t in model.state_dict().items():
+        if name.endswith(("lora_a", "lora_b")):
+            continue
+        hf = rename(name, _BLIP2_NAMES, reverse=True)
+        if hf is None:
+            raise KeyError(f"no HF name for {name}")
+        if name.endswith("class_embedding"):
+            t = t[None, None]
+        elif name.endswith(("position_embedding", "query_tokens")):
+            t = t[None]
+        out[hf] = t
+    return out
+
+
+def save_blip2(model: Blip2Captioner, out_dir, max_shard_bytes: int = 5 * 10**9) -> list:
+    """Write ``model`` as a ``save_pretrained`` directory that
+    :func:`load_blip2` (and HF's loader) reads: ``config.json`` and the
+    weights in the model's dtype through the port's safetensors writer, as
+    shards and an index when they exceed ``max_shard_bytes`` (HF's default
+    ``max_shard_size`` is 5 GB). Returns the files written."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "config.json").write_text(json.dumps(blip2_hf_config(model.cfg), indent=2))
+    return [out / "config.json"] + save_sharded(blip2_to_hf_state_dict(model), out, max_shard_bytes,
+                                               metadata={"format": "pt"})

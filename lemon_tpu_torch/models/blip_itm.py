@@ -27,8 +27,8 @@ directory's ``vocab.txt`` and ``tokenizer_config.json``).
 :func:`load_blip_itm` reads a ``save_pretrained`` directory: ``config.json``
 (which omits every key at HF's default, so the defaults of ``BlipConfig``,
 ``BlipTextConfig`` and ``BlipVisionConfig`` are carried here),
-``model.safetensors`` (through :mod:`safetensors_io`) or
-``pytorch_model.bin``, ``vocab.txt`` and ``preprocessor_config.json``.
+the weights (through :func:`safetensors_io.load_pretrained`: one file or
+an index and its shards), ``vocab.txt`` and ``preprocessor_config.json``.
 :func:`save_blip_itm` writes such a directory from a model of the port.
 """
 
@@ -47,7 +47,7 @@ from torch import nn
 
 from lemon_tpu_torch.models.bert_text import BertTextConfig, BlipTextEncoder
 from lemon_tpu_torch.models.clip import attend
-from lemon_tpu_torch.models.safetensors_io import load_file, save_file
+from lemon_tpu_torch.models.safetensors_io import load_pretrained, save_file
 from lemon_tpu_torch.models.wordpiece import WordPieceTokenizer
 from lemon_tpu_torch.ops.image import CLIP_MEAN, CLIP_STD
 
@@ -377,14 +377,8 @@ def load_blip_itm(checkpoint_dir, device: torch.device) -> BlipItm:
     -> :class:`BlipItm` on ``device``."""
     d = Path(checkpoint_dir)
     cfg = blip_itm_config_from_hf(json.loads((d / "config.json").read_text()))
-    if (d / "model.safetensors").exists():
-        sd = load_file(d / "model.safetensors")
-    elif (d / "pytorch_model.bin").exists():
-        sd = torch.load(d / "pytorch_model.bin", map_location="cpu", weights_only=True)
-    else:
-        raise FileNotFoundError(f"{d}: no model.safetensors or pytorch_model.bin")
     model = BlipItmModel(cfg)
-    model.load_state_dict(from_hf_state_dict(sd))
+    model.load_state_dict(from_hf_state_dict(load_pretrained(d)))
     tok_cfg_path = d / "tokenizer_config.json"
     tok_cfg = json.loads(tok_cfg_path.read_text()) if tok_cfg_path.exists() else {}
     tokenizer = WordPieceTokenizer(d / "vocab.txt", lowercase=tok_cfg.get("do_lower_case", True))

@@ -13,8 +13,9 @@ lemon_tpu/train/captioning.py:89-98):
 4. prepend BOS when ``tokenizer_config.json`` says ``add_bos_token`` (OPT
    does), truncate to ``max_length`` (BOS included) and pad on the right.
 
-``decode`` joins the tokens, maps them back to bytes (invalid UTF-8
-replaced) and, with ``clean_up_tokenization_spaces``, applies HF's clean-up.
+``decode`` joins the tokens (without the special ones under
+``skip_special_tokens``), maps them back to bytes (invalid UTF-8 replaced)
+and, with ``clean_up_tokenization_spaces``, applies HF's clean-up.
 The vocabulary comes from ``vocab.json`` + ``merges.txt`` or from a
 ``tokenizer.json``. tests/test_torch_gpt2_bpe.py holds it to
 ``GPT2TokenizerFast``.
@@ -129,7 +130,10 @@ class GPT2BPETokenizer:
             mask[r, : len(row)] = 1
         return ids, mask
 
-    def decode(self, ids: Sequence[int]) -> str:
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = False) -> str:
+        """``skip_special_tokens`` drops BOS, EOS, PAD and UNK, as HF's."""
+        if skip_special_tokens:
+            ids = [i for i in ids if self.id_to_token[int(i)] not in self._specials]
         text = "".join(self.id_to_token[int(i)] for i in ids)
         raw = bytearray()
         for ch in text:

@@ -8,6 +8,13 @@ is what HuggingFace's ``save_pretrained`` writes (``model.safetensors``).
 The port reads it itself, so it needs no ``safetensors`` package on the
 GPU machine. Covered dtypes: F64, F32, F16, BF16, I64, I32, I16, I8, U8
 and BOOL.
+
+A model above ``save_pretrained``'s ``max_shard_size`` is written as
+shards, ``model-0000i-of-0000n.safetensors``, beside
+``model.safetensors.index.json``, whose ``weight_map`` names each tensor's
+shard (``pytorch_model.bin.index.json`` for ``torch.save`` shards).
+:func:`load_pretrained` reads a directory in any of the four layouts and
+:func:`save_sharded` writes the sharded one.
 """
 
 from __future__ import annotations
@@ -105,3 +112,71 @@ def save_file(tensors: Mapping[str, torch.Tensor], path, metadata: Optional[Mapp
             t = tensors[name].detach().to("cpu").contiguous()
             if t.numel():
                 f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+
+
+WEIGHT_FILES = ("model.safetensors", "model.safetensors.index.json", "pytorch_model.bin",
+                "pytorch_model.bin.index.json")
+
+
+def _load_one(path: Path) -> Dict[str, torch.Tensor]:
+    if path.suffix == ".safetensors":
+        return load_file(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_pretrained(checkpoint_dir) -> Dict[str, torch.Tensor]:
+    """The state dict of a ``save_pretrained`` directory, on the CPU, from the
+    first of :data:`WEIGHT_FILES` that exists (HF's order: safetensors
+    before ``torch.save`` files, one file before an index). An index's
+    shards are read in turn; a missing shard, or a tensor the index names
+    but its shard lacks, raises."""
+    d = Path(checkpoint_dir)
+    found = next((d / f for f in WEIGHT_FILES if (d / f).exists()), None)
+    if found is None:
+        raise FileNotFoundError(f"{d}: none of {', '.join(WEIGHT_FILES)}")
+    if not found.name.endswith(".index.json"):
+        return _load_one(found)
+    weight_map = json.loads(found.read_text())["weight_map"]
+    out: Dict[str, torch.Tensor] = {}
+    for shard in sorted(set(weight_map.values())):
+        if not (d / shard).exists():
+            raise FileNotFoundError(f"{d}: {found.name} names the shard {shard}, which is missing")
+        out.update(_load_one(d / shard))
+    lacking = sorted(set(weight_map) - set(out))
+    if lacking:
+        raise KeyError(f"{d}: {found.name} names tensors that no shard holds: {lacking[:5]}")
+    return out
+
+
+def save_sharded(tensors: Mapping[str, torch.Tensor], out_dir, max_shard_bytes: int,
+                 metadata: Optional[Mapping[str, str]] = None) -> list:
+    """Write ``tensors`` as ``save_pretrained`` does: ``model.safetensors``
+    when they fit in ``max_shard_bytes``, else shards filled in name order
+    (a tensor that would overflow the current shard opens the next one; a
+    tensor above the limit has a shard of its own) and
+    ``model.safetensors.index.json``. Returns the files written."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    shards: list = [[]]
+    size = 0
+    for name in sorted(tensors):
+        n = tensors[name].numel() * tensors[name].element_size()
+        if shards[-1] and size + n > max_shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append(name)
+        size += n
+    if len(shards) == 1:
+        save_file(tensors, out / "model.safetensors", metadata)
+        return [out / "model.safetensors"]
+    files, weight_map = [], {}
+    for i, names in enumerate(shards, 1):
+        fname = f"model-{i:05d}-of-{len(shards):05d}.safetensors"
+        save_file({n: tensors[n] for n in names}, out / fname, metadata)
+        files.append(out / fname)
+        weight_map.update(dict.fromkeys(names, fname))
+    total = sum(t.numel() * t.element_size() for t in tensors.values())
+    index = {"metadata": {"total_size": total, "total_parameters": sum(t.numel() for t in tensors.values())},
+             "weight_map": weight_map}
+    (out / "model.safetensors.index.json").write_text(json.dumps(index, indent=2, sort_keys=True))
+    return files + [out / "model.safetensors.index.json"]
