@@ -165,7 +165,7 @@ imports nothing of JAX. Phases, each printed on its own lines:
     ``F64_RATIO`` times the CPU's fp32 distance). Phases 22 and 23 launch no kernel of the port (every count stays
     0): the classifiers run plain attention and PyTorch's convolutions, as
     the JAX package runs them in XLA;
-24. ``run_baseline --baseline capfilt --itm_checkpoint DIR`` on 2000
+24. ``run_baseline --baseline capfilt --itm_checkpoint DIR`` on 800
     synthetic caption pairs, DIR a random-init BLIP ITM at
     ``Salesforce/blip-itm-base-coco``'s widths (ViT-B/16 at 384 px, BERT-base
     with cross-attention in every layer, vocab 30524; about 224M
@@ -196,7 +196,7 @@ imports nothing of JAX. Phases, each printed on its own lines:
     BLIP-2 at ``Salesforce/blip2-opt-2.7b``'s widths (all 32 OPT layers,
     seed 0) as a sharded directory in a temporary folder (removed after;
     the phase raises if the disk lacks room), then ``run_judges --judge
-    llava --backend flax`` judges the 64 val and test pairs of 320
+    llava --backend flax`` judges the 32 val and test pairs of 160
     synthetic caption pairs in batches of 8 with 16 new tokens: the files,
     every score finite in [0, 1], the first batch again with identical
     tokens, peak memory; the first batch on a 2-layer OPT at full width,
@@ -210,7 +210,22 @@ imports nothing of JAX. Phases, each printed on its own lines:
     its four ``run_lemon`` jobs run on the card, each in a process of its
     own, and each job's log counts its K1 and K2 launches (both above 0);
     ``status`` reports 4 done; ``aggregate --root`` and ``aggregate
-    --hparam_drop`` print tables over the 4 runs; the wall of each step.
+    --hparam_drop`` print tables over the 4 runs; the wall of each step;
+29. tensor parallelism, run right after phase 20 while the card's memory is
+    free: ``train_clip`` at ``mimic_clip_from_scratch`` width (every
+    sublayer splits in two: 12 vision and 8 text heads), fp32, batch 32, 4
+    AdamW steps, and ``run_lemon`` in bf16 on 2000 pairs, first in this
+    process without a mesh, then in two spawned ranks on the one card
+    with ``--mesh 1x2`` over a gloo group of CUDA tensors (NCCL refuses two
+    ranks on one device): the losses within 1e-4, the final checkpoint's
+    parameters in units of the rate, the checkpoint in the single-process
+    layout and loading into a ``ClipModel`` that embeds 512 pairs, the
+    replicated parameters bit-identical across the ranks, the detection's
+    scores csv and res.pkl columns bit-identical, each run's files written
+    once; each rank's ms per step, peak memory and the bytes all-reduced
+    over the model group (gloo stages them through host memory: no measure
+    of tensor parallelism's speed). The training launches no kernel, the
+    detections K1 and K2.
 
 The switches: TF32 off for fp32 products and convolutions, and cuBLAS's
 reduced-precision reductions of bf16 products off, as the CLI sets them
@@ -598,6 +613,16 @@ def run_cli(scoremax, topk, argv, env):
     return run_entry(run_lemon, scoremax, topk, argv, env)[:3]
 
 
+def restore_streams(stdout, stderr) -> None:
+    """Put the caller's ``stdout`` and ``stderr`` back after a CLI call,
+    closing the tees its lead rank opened into its out.txt."""
+    tees = (sys.stdout, sys.stderr)
+    sys.stdout, sys.stderr = stdout, stderr
+    for tee in tees:
+        if tee not in (stdout, stderr):
+            tee.close()
+
+
 def run_entry(entry, scoremax, topk, argv, env):
     """``entry(argv)``, a CLI's ``main``, in-process with the environment
     ``env`` set for the call and restored after it, K1's and K2's counts set
@@ -622,11 +647,7 @@ def run_entry(entry, scoremax, topk, argv, env):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-        tees = (sys.stdout, sys.stderr)
-        sys.stdout, sys.stderr = stdout, stderr
-        for tee in tees:
-            if tee not in (stdout, stderr):
-                tee.close()
+        restore_streams(stdout, stderr)
     wall = time.perf_counter() - t0
     return k1_k2_launches(scoremax, topk), wall, log_file.read_bytes()[offset:].decode(), result
 
@@ -1493,18 +1514,14 @@ def train_cli(torch, counters, out, extra, deterministic=False):
             os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
         else:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = workspace
-        tees = (sys.stdout, sys.stderr)
-        sys.stdout, sys.stderr = stdout, stderr
-        for tee in tees:
-            if tee not in (stdout, stderr):
-                tee.close()
+        restore_streams(stdout, stderr)
     wall = time.perf_counter() - t0
     ms = steps.ms()
     print(f"train_clip {' '.join(extra)}: wall {wall:.2f} s; {len(steps.seconds)} steps, {ms:.1f} ms per step (median "
           f"after the first), {TRAIN_BATCH / ms * 1e3:.1f} pairs/s; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     params = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
-    del state
+    del state, steps  # the steps' results hold the state too
     torch.cuda.empty_cache()
     return params, wall, kernel_counts(counters)
 
@@ -1512,6 +1529,34 @@ def train_cli(torch, counters, out, extra, deterministic=False):
 def max_param_diff(torch, a: dict, b: dict):
     """(max abs difference, whether every tensor is equal bit for bit)."""
     return (max(float((a[k] - b[k]).abs().max()) for k in a), all(torch.equal(a[k], b[k]) for k in a))
+
+
+def embed_checkpoint(torch, ckpt, device, label: str) -> None:
+    """The checkpoint's state dict (``restore_params``) loaded into a
+    ``ClipModel`` as the registry builds it, which embeds 512 pairs: finite
+    unit rows."""
+    import numpy as np
+
+    from lemon_tpu_torch.data.datasets import get_dataset
+    from lemon_tpu_torch.models.clip import ClipConfig, ClipModel
+    from lemon_tpu_torch.models.encoder import ClipEncoder
+    from lemon_tpu_torch.train.contrastive import restore_params
+
+    cfg = ClipConfig.from_scratch_mimic()
+    model = ClipModel(cfg)
+    model.load_state_dict(restore_params(ckpt))
+    pairs = get_dataset("synthetic_caption", 0, noise_level=0.0, synthetic_n=640)[0]
+    t0 = time.perf_counter()
+    img, txt = ClipEncoder(model, device).embed_split(pairs, list(pairs.sentence))
+    torch.cuda.synchronize()
+    norms = np.linalg.norm(np.concatenate([img, txt]), axis=1)
+    check(img.shape == (512, cfg.embed_dim) and txt.shape == (512, cfg.embed_dim)
+          and bool(np.isfinite(norms).all()) and bool(np.abs(norms - 1).max() < 1e-4),
+          f"{label}: the ClipModel's embeddings are not finite unit rows of 512 pairs")
+    print(f"{label} -> ClipModel (fp32): 512 pairs embedded in {time.perf_counter() - t0:.2f} s, finite unit rows",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
 
 
 def phase_training(torch, counters, device):
@@ -1525,11 +1570,6 @@ def phase_training(torch, counters, device):
     loads into a ``ClipModel`` that embeds 512 pairs. No kernel of the port
     runs on the training path. Returns ({path: launches}, numbers)."""
     import numpy as np
-
-    from lemon_tpu_torch.data.datasets import get_dataset
-    from lemon_tpu_torch.models.clip import ClipConfig, ClipModel
-    from lemon_tpu_torch.models.encoder import ClipEncoder
-    from lemon_tpu_torch.train.contrastive import restore_params
 
     t_phase = time.perf_counter()
     numbers = {p: train_steps(torch, p, device) for p in ("fp32", "bf16")}
@@ -1561,22 +1601,7 @@ def phase_training(torch, counters, device):
     check(sorted(p.name for p in (root / "fp32" / "ckpt").iterdir()) == [str(2 * RESUME_STEPS - 1)],
           "train_clip: the final checkpoint is not the last step's")
 
-    # the checkpoint feeds a ClipModel as the registry builds it
-    cfg = ClipConfig.from_scratch_mimic()
-    model = ClipModel(cfg)
-    model.load_state_dict(restore_params(root / "bf16" / "ckpt"))
-    pairs = get_dataset("synthetic_caption", 0, noise_level=0.0, synthetic_n=640)[0]
-    t0 = time.perf_counter()
-    img, txt = ClipEncoder(model, device).embed_split(pairs, list(pairs.sentence))
-    torch.cuda.synchronize()
-    norms = np.linalg.norm(np.concatenate([img, txt]), axis=1)
-    check(img.shape == (512, cfg.embed_dim) and txt.shape == (512, cfg.embed_dim)
-          and bool(np.isfinite(norms).all()) and bool(np.abs(norms - 1).max() < 1e-4),
-          "the trained checkpoint's ClipModel: embeddings not finite unit rows of 512 pairs")
-    print(f"restored bf16 checkpoint -> ClipModel (fp32): 512 pairs embedded in {time.perf_counter() - t0:.2f} s, "
-          f"finite unit rows", flush=True)
-    del model
-    torch.cuda.empty_cache()
+    embed_checkpoint(torch, root / "bf16" / "ckpt", device, "restored bf16 checkpoint")
     paths = {"train_clip_vit_b16_fp32": launches_fp32, "train_clip_vit_b16_fp32_mesh_1x1": launches_mesh,
              "train_clip_vit_b16_bf16": launches_bf16}
     for path, counts in paths.items():
@@ -1603,15 +1628,184 @@ def phase_mesh_detection(torch, scoremax, topk, run):
           f"kernel launches {launches}", flush=True)
     check_launched(launches, K1_K2, "run_lemon --mesh 1x1")
     check(csv == run["csv"], "run_lemon --mesh 1x1: the scores csv differs from the run without a mesh")
-    df0, df1 = run["res"]["df"], res["df"]
+    columns = check_same_columns(run["res"]["df"], res["df"], "run_lemon --mesh 1x1")
+    print(f"run_lemon --mesh 1x1: scores csv and all {columns} res.pkl columns bit-identical to phase 10's", flush=True)
+    return launches, timing
+
+
+def check_same_columns(df0, df1, label: str) -> int:
+    """Every column of two res.pkl frames equal bit for bit (NaN to NaN);
+    the number of columns."""
     for col in df0.columns:
         a, b = df0[col].to_list(), df1[col].to_list()
-        same = all((x.tobytes() == y.tobytes()) if hasattr(x, "tobytes") else (x == y or (x != x and y != y))
-                   for x, y in zip(a, b))
-        check(same, f"run_lemon --mesh 1x1: res.pkl column {col} differs from the run without a mesh")
-    print(f"run_lemon --mesh 1x1: scores csv and all {len(df0.columns)} res.pkl columns bit-identical to phase 10's",
-          flush=True)
-    return launches, timing
+        same = len(a) == len(b) and all(
+            (x.tobytes() == y.tobytes()) if hasattr(x, "tobytes") else (x == y or (x != x and y != y))
+            for x, y in zip(a, b))
+        check(same, f"{label}: res.pkl column {col} differs from the run without a mesh")
+    return len(df0.columns)
+
+
+# phase 29: mimic_clip_from_scratch at full width, 4 AdamW steps at batch 32
+# (a 320-row train split, 10 batches an epoch) at a rate that moves every
+# weight, so a wrong gradient shows in the losses after the first
+TP_ARGV = ["--dataset", "synthetic_caption", "--model_size", "vit_b16", "--context_length", "256", "--batch_size",
+           "32", "--synthetic_n", "400", "--save_interval", "100", "--total_steps", "4", "--lr", "1e-4",
+           "--warmup_steps", "0"]
+TP_LEMON_ARGV = ["--dataset", "synthetic_caption", "--synthetic_n", "2000", "--knn_k", "5", "--clip_model",
+                 "mimic_clip_from_scratch_random", "--noise_type", "random"]
+
+
+def tp_rank(rank: int, root: str) -> None:
+    """One of phase 29's two ranks, both on the one card: a gloo group over
+    CUDA tensors (NCCL refuses two ranks on one device), then ``train_clip
+    --mesh 1x2`` and, in bf16, ``run_lemon --mesh 1x2`` in-process. What it
+    measured goes to ``<root>/rank<rank>.pt``: the losses, the step times,
+    the peak memory, the bytes all-reduced over the model group, a digest
+    of each replicated parameter, the kernel launches of each run."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{root}/store", rank=rank, world_size=2)
+    try:
+        from lemon_tpu_torch.cli.run_lemon import kernel_launches
+        from lemon_tpu_torch.cli.run_lemon import main as run_lemon
+        from lemon_tpu_torch.cli.train_clip import main as train_clip
+        from lemon_tpu_torch.models import clip
+        from lemon_tpu_torch.train import contrastive
+
+        stdout, stderr = sys.stdout, sys.stderr
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with TimedSteps(torch, contrastive, "make_train_step") as steps:
+                state = train_clip(["--output_dir", f"{root}/train_tp", *TP_ARGV, "--mesh", "1x2"])
+        finally:
+            restore_streams(stdout, stderr)
+        layout = contrastive.tp_layout(state.model)
+        out = {"losses": [float(loss) for _, loss in steps.results], "ms": steps.ms(), "steps": len(steps.seconds),
+               "peak": torch.cuda.max_memory_allocated(), "all_reduce_bytes": clip.model_sum.bytes,
+               "split": len(layout), "train_launches": kernel_launches(),
+               "replicated": {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+                              for k, v in state.model.state_dict().items() if k not in layout}}
+        del state, steps  # the steps' results hold the state too
+        torch.cuda.empty_cache()
+        os.environ["LEMON_TPU_PRECISION"] = "bf16"
+        t0 = time.perf_counter()
+        try:
+            run_lemon(["--output_dir", f"{root}/lemon_tp", *TP_LEMON_ARGV, "--mesh", "1x2"])
+        finally:
+            restore_streams(stdout, stderr)
+        out["lemon_wall"] = time.perf_counter() - t0
+        out["lemon_launches"] = kernel_launches()
+        torch.save(out, f"{root}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tensor_parallel(torch, counters, scoremax, topk, device):
+    """Phase 29: tensor parallelism at the full width of
+    ``mimic_clip_from_scratch`` (every sublayer splits at ``model = 2``: 12
+    vision and 8 text heads). ``train_clip`` (fp32, TF32 off) and, in bf16,
+    ``run_lemon`` on 2000 pairs run in this process without a mesh, then
+    in two spawned ranks on the card with ``--mesh 1x2``
+    (:func:`tp_rank`). Held: the losses within 1e-4 and the final
+    checkpoint's parameters in units of the rate (AdamW's bar of
+    tests/test_torch_tensor_parallel.py), the checkpoint in the
+    single-process layout and loading into a ``ClipModel`` that embeds 512
+    pairs, the replicated parameters bit-identical across the ranks, the
+    detection's scores csv and res.pkl columns bit-identical, each run's
+    files written once. Gloo stages every collective through host memory,
+    so the step times say nothing of tensor parallelism's speed. Returns
+    ({path: launches}, numbers)."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from lemon_tpu_torch.cli.train_clip import main as train_clip
+    from lemon_tpu_torch.train import contrastive
+    from lemon_tpu_torch.train.contrastive import TrainConfig, make_schedule
+
+    t_phase = time.perf_counter()
+    root = RUNS / "tensor_parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    reset_counts(counters)
+    stdout, stderr = sys.stdout, sys.stderr
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with TimedSteps(torch, contrastive, "make_train_step") as steps:
+            train_clip(["--output_dir", str(root / "train_one"), *TP_ARGV])
+    finally:
+        restore_streams(stdout, stderr)
+    one = {"losses": [float(loss) for _, loss in steps.results], "ms": steps.ms(),
+           "peak": torch.cuda.max_memory_allocated()}
+    train_one_counts = split_counts(kernel_counts(counters))
+    del steps
+    lemon_one, wall_one, log = run_cli(scoremax, topk, ["--output_dir", str(root / "lemon_one"), *TP_LEMON_ARGV],
+                                       {"LEMON_TPU_PRECISION": "bf16"})
+    res_one, csv_one, auroc, _ = read_run(root / "lemon_one", 2000, "run_lemon bf16 mimic (phase 29)", log)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mp.spawn(tp_rank, args=(str(root),), nprocs=2, join=True)
+    wall_ranks = time.perf_counter() - t0
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+    for r, out in enumerate(ranks):
+        gap = float(np.abs(np.subtract(out["losses"], one["losses"])).max())
+        check(len(out["losses"]) == 4 and gap <= 1e-4,
+              f"train_clip --mesh 1x2 rank {r}: losses {out['losses']} against {one['losses']} without a mesh")
+        check(not any(out["train_launches"].values()), f"train_clip --mesh 1x2: a kernel of the port ran: {out}")
+        check_launched(out["lemon_launches"], K1_K2, f"run_lemon --mesh 1x2 rank {r}")
+        print(f"train_clip --mesh 1x2 rank {r} (gloo on one card): {out['steps']} steps, {out['ms']:.1f} ms per step "
+              f"(median after the first, host clock, synchronised); max_memory_allocated {out['peak'] / 2**30:.2f} "
+              f"GiB; all-reduced over the model group {out['all_reduce_bytes'] / 2**30:.3f} GiB "
+              f"({out['all_reduce_bytes'] / out['steps'] / 2**30:.3f} GiB a step); {out['split']} parameters split, "
+              f"{len(out['replicated'])} replicated; losses {[round(x, 6) for x in out['losses']]}", flush=True)
+    print(f"train_clip without a mesh (this process): {one['ms']:.1f} ms per step, max_memory_allocated "
+          f"{one['peak'] / 2**30:.2f} GiB; losses {[round(x, 6) for x in one['losses']]}; the two ranks' wall (start, "
+          f"train, detect) {wall_ranks:.2f} s", flush=True)
+    check(ranks[0]["replicated"] == ranks[1]["replicated"],
+          "train_clip --mesh 1x2: a replicated parameter differs between the ranks")
+
+    tp_dir, one_dir = root / "train_tp", root / "train_one"
+    check(sorted(p.name for p in (tp_dir / "ckpt").iterdir()) == ["3"], "train_clip --mesh 1x2: not one checkpoint, 3")
+    tp_ckpt = torch.load(tp_dir / "ckpt" / "3" / "state.pt", weights_only=True)
+    one_ckpt = torch.load(one_dir / "ckpt" / "3" / "state.pt", weights_only=True)
+    check({k: v.shape for k, v in tp_ckpt["model"].items()} == {k: v.shape for k, v in one_ckpt["model"].items()}
+          and [t.shape for t in tp_ckpt["opt_state"]["mu"]] == [t.shape for t in one_ckpt["opt_state"]["mu"]],
+          "train_clip --mesh 1x2: the checkpoint is not in the single-process layout")
+    diff = torch.cat([(tp_ckpt["model"][k] - v).abs().reshape(-1) for k, v in one_ckpt["model"].items()])
+    lr = make_schedule(TrainConfig(learning_rate=1e-4, warmup_steps=0, total_steps=4))
+    bar = 2 * sum(lr(j) for j in range(4))
+    beyond = float((diff > 1e-4).float().mean())
+    print(f"train_clip --mesh 1x2 checkpoint against no mesh: parameters max abs diff {float(diff.max()):.3e} (bar "
+          f"{bar:.3e}), share beyond 1e-4 {beyond:.2e} (bar 1e-3)", flush=True)
+    check(float(diff.max()) <= bar and beyond <= 1e-3,
+          "train_clip --mesh 1x2: the checkpoint's parameters differ from the run without a mesh")
+    del tp_ckpt, one_ckpt, diff
+    for label, d in (("train_clip --mesh 1x2", tp_dir), ("run_lemon --mesh 1x2", root / "lemon_tp")):
+        text = (d / "out.txt").read_text()
+        check((d / "done").exists() and text.count("Environment:") == 1, f"{label}: its files not written once")
+    embed_checkpoint(torch, tp_dir / "ckpt", device, "train_clip --mesh 1x2 checkpoint")
+
+    res_tp, csv_tp, auroc_tp, _ = read_run(root / "lemon_tp", 2000, "run_lemon --mesh 1x2",
+                                           (root / "lemon_tp" / "out.txt").read_text())
+    check(csv_tp == csv_one, "run_lemon --mesh 1x2: the scores csv differs from the run without a mesh")
+    columns = check_same_columns(res_one["df"], res_tp["df"], "run_lemon --mesh 1x2")
+    lemon_tp = {k: ranks[0]["lemon_launches"][k] + ranks[1]["lemon_launches"][k] for k in ranks[0]["lemon_launches"]}
+    print(f"run_lemon bf16 mimic_clip_from_scratch_random n=2000 --mesh 1x2: walls {ranks[0]['lemon_wall']:.2f} / "
+          f"{ranks[1]['lemon_wall']:.2f} s against {wall_one:.2f} s without a mesh; AUROC {auroc_tp}; scores csv and "
+          f"all {columns} res.pkl columns bit-identical; kernel launches (both ranks) {lemon_tp}", flush=True)
+    train_tp = {k: ranks[0]["train_launches"][k] + ranks[1]["train_launches"][k] for k in ranks[0]["train_launches"]}
+    check(not any(train_one_counts.values()), f"train_clip (phase 29): a kernel of the port ran: {train_one_counts}")
+    print(f"tensor-parallel phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    paths = {"train_clip_vit_b16_fp32_tp_1x2": train_tp, "run_lemon_mimic_bf16": lemon_one,
+             "run_lemon_mimic_bf16_mesh_1x2": lemon_tp}
+    numbers = {"one": one, "ranks": [{k: v for k, v in out.items() if k != "replicated"} for out in ranks],
+               "wall_ranks_s": wall_ranks, "lemon_wall_one_s": wall_one}
+    return paths, numbers
 
 
 def phase_cpp_oracle(torch, embedding_cache, device):
@@ -1691,14 +1885,14 @@ F64_RATIO = 10.0
 class TimedSteps:
     """Within the block, each step that ``module.<factory>`` builds is timed
     on the host clock between two synchronisations (``seconds``, one entry
-    a step)."""
+    a step; ``results``, what each step returned)."""
 
     def __init__(self, torch, module, factory: str = "make_classifier_step"):
-        self.torch, self.module, self.factory, self.seconds = torch, module, factory, []
+        self.torch, self.module, self.factory, self.seconds, self.results = torch, module, factory, [], []
 
     def __enter__(self):
         self.make = make = getattr(self.module, self.factory)
-        torch, seconds = self.torch, self.seconds
+        torch, seconds, results = self.torch, self.seconds, self.results
 
         def timed_make(*args, **kwargs):
             step = make(*args, **kwargs)
@@ -1709,6 +1903,7 @@ class TimedSteps:
                 out = step(*a)
                 torch.cuda.synchronize()
                 seconds.append(time.perf_counter() - t0)
+                results.append(out)
                 return out
 
             return timed
@@ -1966,14 +2161,14 @@ def phase_training_dependent(torch, counters, scoremax, topk, device):
 
 
 # the BLIP ITM, captioning and BLIP-2 phases (24-26): no kernel of the port runs on their paths
-CAPFILT_N = 2000  # synthetic caption pairs of phase 24: 1600 / 200 / 200
+CAPFILT_N = 800  # synthetic caption pairs of phase 24: 640 / 80 / 80 (cut from 2000 to pay for phase 29)
 PMATCH_TOL = 1e-4  # P(match), card vs CPU from the card's weights, fp32 with TF32 off
 CAPTION_N = 2000  # synthetic caption pairs of phase 25 (phase 17's detections score the same data)
 CAPTION_BATCH = 32
 CAPTION_RTOL = 1e-5  # per-sample LM loss, card vs CPU on one batch
 BLIP2_BATCH = 4
 CAPTION_DATA = ["--dataset", "synthetic_caption", "--noise_type", "random", "--noise_level", "0.4"]
-JUDGE_N = 320  # synthetic caption pairs of phase 27: 32 val and 32 test pairs judged
+JUDGE_N = 160  # synthetic caption pairs of phase 27: 16 val and 16 test pairs judged (cut from 320 for phase 29)
 JUDGE_ARGV = ["--judge", "llava", "--backend", "flax", "--dataset", "synthetic_caption", "--synthetic_n", str(JUDGE_N),
               "--generate_batch_size", "8", "--max_new_tokens", "16"]
 JUDGE_LOGP_TOL = 1e-4  # generate_judged's log-probabilities, card vs CPU, fp32 with TF32 off
@@ -2543,8 +2738,9 @@ def main() -> None:
     baselines = phase_baselines(torch, scoremax, topk, embedding_cache, device)
     training, train_numbers = phase_training(torch, counters, device)
     mesh_launches, _ = phase_mesh_detection(torch, scoremax, topk, b32_bf16_run)
+    tensor_parallel, tp_numbers = phase_tensor_parallel(torch, counters, scoremax, topk, device)
     phase_cpp_oracle(torch, embedding_cache, device)
-    print("training numbers: " + json.dumps(train_numbers), flush=True)
+    print("training numbers: " + json.dumps({**train_numbers, "tensor_parallel": tp_numbers}), flush=True)
     downstream, downstream_numbers = phase_downstream(torch, counters, scoremax, topk, device)
     aum_datamap, aum_datamap_numbers = phase_training_dependent(torch, counters, scoremax, topk, device)
     print("classifier numbers: " + json.dumps({**downstream_numbers, **aum_datamap_numbers}), flush=True)
@@ -2562,7 +2758,7 @@ def main() -> None:
                   "detect_vit_b16_flash_bf16": b16_bf16, "knn_select_fused_probe": {"fused_gather_topk": k4_launches},
                   **probes, **warm, "run_lemon_stream_62500_bf16": stream, **encoders, **baselines,
                   **{path: split_counts(counts) for path, counts in training.items()},
-                  "run_lemon_vit_b32_bf16_mesh_1x1": mesh_launches, **downstream, **aum_datamap, **capfilt,
+                  "run_lemon_vit_b32_bf16_mesh_1x1": mesh_launches, **tensor_parallel, **downstream, **aum_datamap, **capfilt,
                   **captioning, **blip2, **judges, **sweep_launches}
 
     def launches(name):

@@ -11,10 +11,10 @@ out.txt's last line counts the process's kernel launches
 
 Differences from the JAX CLI: ``--platform`` is ``cuda`` (default) or
 ``cpu`` and a run without a GPU raises unless ``--platform cpu`` is given;
-``--mesh DATAx1`` runs one process per device (NCCL on the card, gloo on the
-CPU; under ``torchrun``, or a world of one without it), where rank 0 writes
-the output files, and ``DATAxMODEL`` with MODEL > 1 raises
-``NotImplementedError``; ``--clip_model`` also takes
+``--mesh DATAxMODEL`` runs one process per device (NCCL on the card, gloo on
+the CPU; under ``torchrun``, or a world of one without it): batches and the
+database are sharded over DATA and replicated over MODEL, as in the JAX CLI,
+and global rank 0 writes the output files; ``--clip_model`` also takes
 ``rn50``, a registry model the JAX CLI does not list. The towers' precision
 mode comes from ``LEMON_TPU_PRECISION`` (``fp32``, the default, ``bf16``,
 ``int8`` or ``int8_static``; ``biomed_clip`` runs in fp32), as in the JAX
@@ -79,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
                    help="device to run on; a run never falls back to the CPU by itself")
     p.add_argument("--mesh", default=None,
-                   help="mesh shape as DATAxMODEL, e.g. 8x1 (one process per device); MODEL > 1 raises")
+                   help="mesh shape as DATAxMODEL, e.g. 8x1 (one process per device; sharded over DATA, "
+                        "replicated over MODEL)")
     p.add_argument("--knn_tile", default=0, type=int,
                    help="DB tile rows (rounded up to a multiple of 128); 0 = adaptive")
     p.add_argument("--knn_precision", default="auto", choices=["auto", "highest", "high"],
@@ -104,7 +105,7 @@ def main(argv=None):
     lead = True  # the rank that writes the run's files
     if mesh_shape is not None:
         mesh = get_mesh(*mesh_shape, platform=args.platform)
-        device, lead = mesh.device, mesh.rank == 0
+        device, lead = mesh.device, mesh.lead
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     if lead and not args.debug:

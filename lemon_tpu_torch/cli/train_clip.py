@@ -5,12 +5,16 @@ Trains a CLIP from scratch on a captioning dataset (MIMIC-CXR at context
 256, CC3M at 77), with the detection-driven CC3M filtering mode
 (``--cc3m_filtering`` names a prior LEMoN run). Random-resized crops on the
 host, preprocessing on the device, data parallelism with global-batch
-InfoNCE under ``--mesh Dx1``, torch checkpoints under ``<output_dir>/ckpt``.
+InfoNCE under ``--mesh DxM``, tensor parallelism over the model axis when
+``M > 1`` (Megatron's split of the towers' blocks), torch checkpoints under
+``<output_dir>/ckpt``.
 
     python -m lemon_tpu_torch.cli.train_clip --output_dir out/clip --dataset cc3m
     torchrun --nproc_per_node 4 -m lemon_tpu_torch.cli.train_clip ... --mesh 4x1
+    torchrun --nproc_per_node 4 -m lemon_tpu_torch.cli.train_clip ... --mesh 2x2
 
-Outputs: args.json, out.txt/err.txt, ckpt/<step>/state.pt, done (rank 0).
+Outputs: args.json, out.txt/err.txt, ckpt/<step>/state.pt, done (global
+rank 0).
 ``--platform`` is ``cuda`` (the default; raises without a card) or ``cpu``.
 """
 
@@ -48,8 +52,8 @@ def build_parser():
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
                    help="device to run on; a run never falls back to the CPU by itself")
     p.add_argument("--mesh", default=None,
-                   help="DATAxMODEL, e.g. 8x1 (data parallelism, one process per device); "
-                        "MODEL > 1 (tensor parallelism) is not ported and raises")
+                   help="DATAxMODEL, e.g. 8x1 (data parallelism, one process per device) or 4x2 "
+                        "(tensor parallelism over MODEL neighbouring processes)")
     p.add_argument("--resume", action="store_true",
                    help="continue from the latest checkpoint in output_dir/ckpt")
     p.add_argument("--synthetic_n", type=int, default=600)
@@ -90,7 +94,8 @@ class BatchStream:
     so ``skip(n)`` fast-forwards a resume by replaying only the shuffles,
     and the crops equal an uninterrupted run's. With a ``mesh`` the stream
     builds only this rank's rows of each batch, drawing their crops with
-    their slots in the whole batch, so the pixels equal one process's.
+    their slots in the whole batch, so the pixels equal one process's; the
+    ranks of one model group build the same rows.
     ``last_boxes`` holds the crop boxes of the last batch built."""
 
     def __init__(self, split, tokenizer_ctx, batch_size, image_size, seed, augment=True, device=None, mesh=None):
@@ -177,7 +182,7 @@ def main(argv=None):
     mesh = get_mesh(*parse_mesh(args.mesh), platform=args.platform) if args.mesh else None
     if mesh is not None:
         device = mesh.device
-    lead = mesh is None or mesh.rank == 0  # the rank that writes the run's files
+    lead = mesh is None or mesh.lead  # the rank that writes the run's files
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     if lead:

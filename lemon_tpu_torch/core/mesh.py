@@ -5,8 +5,15 @@ CPU (``platform="cpu"``). A mesh is ``data x model`` processes:
 
 - ``data``  : the batch and query axis (pure data parallelism), and the
   database axis of the sharded kNN search (knn/index.py);
-- ``model`` : tensor parallelism, which the port does not have yet: a mesh
-  with ``model > 1`` raises ``NotImplementedError``.
+- ``model`` : tensor parallelism (Megatron's split of the transformer
+  blocks, models/clip.py; train/contrastive.py keeps the layout).
+
+Ranks are laid out data-major, as the JAX package reshapes its devices
+(lemon_tpu/core/mesh.py:42): global rank ``d * model + m``, so a model
+group is ``model`` neighbouring ranks (neighbouring cards of a node). With
+``model > 1`` every rank builds every data group and every model group
+(``dist.new_group``, in one order); with ``model == 1`` the data axis is the
+default group and no group is built.
 
 :func:`distributed_init` joins the world that the environment describes
 (torchrun's ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/``MASTER_ADDR``/
@@ -30,8 +37,6 @@ import torch.distributed as dist
 from lemon_tpu_torch.core.device import resolve_device
 
 DATA_AXIS = "data"  # the batch, query and database axis, as the JAX package names it
-TP_NOT_PORTED = ("tensor parallelism (--mesh DATAxMODEL with MODEL > 1) is not ported to lemon_tpu_torch yet "
-                 "(ROADMAP queue 1, item 10)")
 
 
 def _env_int(*names: str, default: Optional[int] = None) -> Optional[int]:
@@ -79,12 +84,24 @@ def shutdown() -> None:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """``data x model`` processes of the default group; ``rank`` is this
-    process's place on the data axis, ``device`` the one it drives."""
+    process's place on the data axis, ``model_rank`` its place on the model
+    axis, ``device`` the one it drives. ``data_group`` (the ranks of this
+    model rank, one per data rank) and ``model_group`` (the ranks of this
+    data rank) are None where the default group is meant: the data axis of
+    a mesh with ``model == 1``, and no model group there."""
 
     data: int
     model: int
     rank: int
     device: torch.device
+    model_rank: int = 0
+    data_group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False, repr=False)
+    model_group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False, repr=False)
+
+    @property
+    def lead(self) -> bool:
+        """Global rank 0: the one process that writes a run's files."""
+        return self.rank == 0 and self.model_rank == 0
 
 
 def parse_mesh(text: str):
@@ -93,24 +110,45 @@ def parse_mesh(text: str):
     return int(d), int(m)
 
 
+# (data, model) -> (the default group they were built in, data groups, model groups)
+_GROUPS: dict = {}
+
+
+def _subgroups(data: int, model: int):
+    """Every data group and every model group of a ``data x model`` mesh,
+    built once per default group: ``new_group`` is called by every rank in
+    the same order, so a second mesh of the same shape reuses them."""
+    world = dist.group.WORLD
+    cached = _GROUPS.get((data, model))
+    if cached is None or cached[0] is not world:
+        data_groups = [dist.new_group([d * model + m for d in range(data)]) for m in range(model)]
+        model_groups = [dist.new_group([d * model + m for m in range(model)]) for d in range(data)]
+        cached = _GROUPS[data, model] = (world, data_groups, model_groups)
+    return cached[1], cached[2]
+
+
 def get_mesh(data: int = -1, model: int = 1, platform: str = "cuda") -> Mesh:
     """The ``data x model`` mesh over the world's processes (joined or built
-    by :func:`distributed_init`). ``data=-1`` takes the whole world. Raises
-    ``NotImplementedError`` for ``model > 1`` and ``ValueError`` when the
-    mesh is not the world's size: each process drives one device of the
-    mesh, so a rank past it would have no work. (The JAX package, one
-    process over many devices, takes the first ``data * model`` of them;
-    ROADMAP: handled divergences.)"""
-    if model != 1:
-        raise NotImplementedError(TP_NOT_PORTED)
+    by :func:`distributed_init`), data-major. ``data=-1`` takes the whole
+    world. Raises ``ValueError`` when the mesh is not the world's size: each
+    process drives one device of the mesh, so a rank past it would have no
+    work. (The JAX package, one process over many devices, takes the first
+    ``data * model`` of them; ROADMAP: handled divergences.)"""
     distributed_init(platform)
     world = dist.get_world_size()
-    data = world if data == -1 else data
+    data = world // model if data == -1 else data
     if data * model != world:
+        fits = f"{world // model}x{model}" if world % model == 0 else f"{world}x1"
         raise ValueError(f"mesh {data}x{model} needs {data * model} processes; the world has {world}. "
                          f"Each process drives one device of the mesh, so the mesh must span the world: "
-                         f"start {data * model} processes, or pass --mesh {world}x{model}")
-    return Mesh(data=data, model=model, rank=dist.get_rank(), device=resolve_device(platform))
+                         f"start {data * model} processes, or pass --mesh {fits}")
+    device = resolve_device(platform)
+    if model == 1:
+        return Mesh(data=data, model=1, rank=dist.get_rank(), device=device)
+    rank, model_rank = divmod(dist.get_rank(), model)
+    data_groups, model_groups = _subgroups(data, model)
+    return Mesh(data=data, model=model, rank=rank, device=device, model_rank=model_rank,
+                data_group=data_groups[model_rank], model_group=model_groups[rank])
 
 
 def pad_to_multiple(n: int, m: int) -> int:
@@ -133,33 +171,34 @@ def shard_batch(x, mesh: Mesh):
     return rows, n
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (the same shape on each) concatenated in rank
-    order on the leading axis; no gradient."""
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, x.contiguous())
+def all_gather_rows(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Every rank's ``x`` (the same shape on each) of ``group`` (None: the
+    default group) concatenated in rank order on the leading axis; no
+    gradient."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
 
 
 class _GatherWithGrad(torch.autograd.Function):
     """:func:`all_gather_rows` whose backward sums the gradient of the
-    gathered rows over the ranks and returns this rank's slice."""
+    gathered rows over the group's ranks and returns this rank's slice."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.rows = x.shape[0]
-        return all_gather_rows(x)
+    def forward(ctx, x, group):
+        ctx.rows, ctx.group = x.shape[0], group
+        return all_gather_rows(x, group)
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous()
-        dist.all_reduce(grad)
-        start = dist.get_rank() * ctx.rows
-        return grad[start : start + ctx.rows]
+        dist.all_reduce(grad, group=ctx.group)
+        start = dist.get_rank(ctx.group) * ctx.rows
+        return grad[start : start + ctx.rows], None
 
 
-def all_gather_with_grad(x: torch.Tensor) -> torch.Tensor:
-    """All ranks' rows of ``x`` in rank order, differentiable: when every
-    rank computes ``loss / world`` from the gathered rows, each rank's
-    gradient of its own rows is that of the whole loss."""
-    return _GatherWithGrad.apply(x)
+def all_gather_with_grad(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """All ranks' rows of ``x`` over ``group`` in rank order, differentiable:
+    when every rank computes ``loss / size`` from the gathered rows, each
+    rank's gradient of its own rows is that of the whole loss."""
+    return _GatherWithGrad.apply(x, group)

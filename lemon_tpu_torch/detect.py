@@ -26,11 +26,12 @@ and the device. A warm repeat builds no encoder, uploads no embedding and,
 with a procedural dataset, renders no pixel. A hit hands the same tensors to
 a later run, so nothing downstream writes them in place.
 
-Under ``mesh_shape`` (``--mesh DATAx1``, lemon_tpu/detect.py:237-269,
-:504-530) one process drives each device: every rank embeds its rows of
-each batch and gathers every embedding, searches its shard of the
-comparison set (knn/index.py), and computes the components, the fit and the
-metrics, which come out the same on every rank; only rank 0 writes the
+Under ``mesh_shape`` (``--mesh DATAxMODEL``, lemon_tpu/detect.py:237-269,
+:504-530) one process drives each device: every rank embeds its data
+rank's rows of each batch and gathers every embedding, searches its data
+rank's shard of the comparison set (knn/index.py), and computes the
+components, the fit and the metrics, which come out the same on every rank;
+the model axis replicates the work, and only global rank 0 writes the
 output files.
 """
 
@@ -473,7 +474,7 @@ def run_detection(cfg: DetectionConfig, out_dir: Optional[Path] = None) -> Dict:
     print(f"Phase timing: {timing}")
 
     res = {"df": df} if not agg else {"df": df, "agg_results": agg}
-    if out_dir is not None and (mesh is None or mesh.rank == 0):
+    if out_dir is not None and (mesh is None or mesh.lead):
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         with open(out_dir / "res.pkl", "wb") as f:

@@ -25,9 +25,10 @@ falls back to ``lax.top_k`` above 128). The fused gather + top-k K4
 
 With a mesh (:mod:`lemon_tpu_torch.core.mesh`, lemon_tpu/knn/index.py:388-432
 and :505-522) the database is split over the data axis in contiguous
-shards: each rank zero-pads its shard and searches it with K1 and K2 under
-the shard's own ``n_valid`` (so a padding row never competes with a real
-one), turns its ids global, and all-gathers the (B, k) candidates; the
+shards (replicated over the model axis): each rank zero-pads its shard and
+searches it with K1 and K2 under the shard's own ``n_valid`` (so a padding
+row never competes with a real one), turns its ids global, and all-gathers
+the (B, k) candidates over the data group; the
 rank-major concatenation is merged with one more K2 top-k. Within a rank's
 list equal scores stand in ascending id, and the ranks' id ranges ascend,
 so every group of equal scores stands in ascending global id, the order of
@@ -259,8 +260,9 @@ class ExactKnnIndex:
             shard = torch.cat([shard, shard.new_zeros(per - valid, shard.shape[1])])
         vals, idx = self._search(xq, shard, k, valid)
         idx = torch.where(torch.isneginf(vals), torch.full_like(idx, n), idx + start)
-        cat_v = all_gather_rows(vals[None]).permute(1, 0, 2).reshape(len(xq), world * k).contiguous()
-        cat_i = all_gather_rows(idx[None]).permute(1, 0, 2).reshape(len(xq), world * k)
+        group = self.mesh.data_group
+        cat_v = all_gather_rows(vals[None], group).permute(1, 0, 2).reshape(len(xq), world * k).contiguous()
+        cat_i = all_gather_rows(idx[None], group).permute(1, 0, 2).reshape(len(xq), world * k)
         vals, pos = topk(cat_v, k)
         idx = cat_i.gather(1, pos)
         return vals, torch.where(torch.isneginf(vals), torch.full_like(idx, n), idx)

@@ -39,6 +39,18 @@ the JAX tower takes ``jax.nn.gelu``'s tanh approximation; a patch bias; no
 pre-LayerNorm; :57, :75-76). Left out: attention packing, a TPU
 layout workaround (the port never packs, so the pooled vision rows are
 ``[[0]]`` and the flash route has nothing to turn off).
+
+Tensor parallelism (``ClipModel(..., mesh=...)`` with ``mesh.model > 1``,
+the layout of lemon_tpu/train/contrastive.py:91-136): each block's ``qkv``
+and ``mlp_fc`` are column-parallel, ``attn.out`` and ``mlp_proj``
+row-parallel over the mesh's model group, Megatron's split. The fused
+``qkv`` is split by heads: rank ``m`` holds heads ``[m H/M, (m+1) H/M)`` of
+each of q, k and v (JAX's ``P(None, 'model')`` cuts the ``[q | k | v]``
+columns into contiguous blocks and GSPMD reshards them). A sublayer whose
+heads (attention) or hidden width (MLP) the model axis does not divide is
+built whole, with no collective, as ``train_state_shardings`` replicates a
+leaf it cannot split. Embeddings, LayerNorms, the final projections and
+``logit_scale`` are replicated. The fp32 and bf16 training towers only.
 """
 
 from __future__ import annotations
@@ -50,9 +62,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from lemon_tpu_torch.core.mesh import Mesh
 from lemon_tpu_torch.core.precision import Precision
 from lemon_tpu_torch.ops.attention import flash_attention
 
@@ -360,38 +374,106 @@ def _take_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 _MASK = -1e9  # additive mask value of the JAX towers (finite: no inf - inf)
 
 
+def model_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over a model group, into a new tensor of ``x``'s dtype;
+    the sum is taken in fp32 (one rounding to a lower precision, after it).
+    ``model_sum.bytes`` counts the bytes all-reduced."""
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device).copy_(x)
+    model_sum.bytes += y.numel() * y.element_size()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+model_sum.bytes = 0
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The input of a column-parallel product: identity forward; backward,
+    the gradient summed over the model group (each rank's shard of the
+    product contributes a part of the replicated input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return model_sum(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The output of a row-parallel product: the partial products summed
+    over the model group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return model_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _split(mesh: Optional[Mesh], n: int) -> Optional[Mesh]:
+    """``mesh`` where its model axis splits ``n`` heads or hidden units,
+    else None (the sublayer is built whole)."""
+    return mesh if mesh is not None and mesh.model > 1 and n % mesh.model == 0 else None
+
+
+def _column_input(x: torch.Tensor, tp: Optional[Mesh]) -> torch.Tensor:
+    return x if tp is None else _CopyToModel.apply(x, tp.model_group)
+
+
+def _row_parallel(linear: Linear, x: torch.Tensor, tp: Optional[Mesh]) -> torch.Tensor:
+    """``linear(x)`` where ``linear`` holds this rank's input features: the
+    partial products summed over the model group, then the bias, added once
+    (added on each rank, it would count ``model`` times)."""
+    if tp is None:
+        return linear(x)
+    cd = linear.compute_dtype
+    return _ReduceFromModel.apply(F.linear(x, linear.weight.to(cd)), tp.model_group) + linear.bias.to(cd)
+
+
 class Attention(nn.Module):
     """Multi-head self-attention with a fused QKV projection; ``causal``
     lets token i see tokens j <= i. The plain route adds a -1e9 mask, the
     flash route (K3) masks itself (lemon_tpu/models/clip.py:511-514).
     ``rows`` (B, S) restricts the queries, the output projection and the
     result to those token rows (K and V still span every token); ``ln``
-    folds the preceding LayerNorm into the QKV projection."""
+    folds the preceding LayerNorm into the QKV projection. With ``tp`` (a
+    mesh whose model axis divides ``heads``) this rank holds ``heads /
+    model`` heads: its rows of q, k and v in ``qkv`` and their input columns
+    of ``out``."""
 
     def __init__(self, width: int, heads: int, impl: str = "plain", causal: bool = False,
                  precision: Precision = Precision(), quant: bool = False, pooled: bool = False, fold: bool = False,
-                 master: bool = False):
+                 master: bool = False, tp: Optional[Mesh] = None):
         super().__init__()
-        self.heads = heads
+        self.tp = tp
+        self.head_dim = width // heads
+        self.heads = heads if tp is None else heads // tp.model  # this rank's heads
         self.impl = impl
         self.causal = causal
         self.compute_dtype = precision.compute_dtype
         self.softmax_dtype = precision.softmax_dtype
+        inner = self.heads * self.head_dim
         # qkv stays W8A8 in the pooled block: its input is full-length
-        self.qkv = _linear(width, 3 * width, precision, quant, fp32=fold, master=master)
-        self.out = _linear(width, width, precision, quant, weight_only=pooled, master=master)
+        self.qkv = _linear(width, 3 * inner, precision, quant, fp32=fold, master=master)
+        self.out = _linear(inner, width, precision, quant, weight_only=pooled, master=master)
 
     def forward(self, x: torch.Tensor, rows: Optional[torch.Tensor] = None, ln: Optional[nn.LayerNorm] = None) -> torch.Tensor:
-        b, l, d = x.shape
-        hd = d // self.heads
+        b, l, _ = x.shape
+        hd = self.head_dim
+        d = self.heads * hd
         if ln is not None:
             qkv = ln_folded_dense(x, self.qkv.weight, self.qkv.bias, ln.weight, ln.bias, compute_dtype=self.compute_dtype)
         else:
-            qkv = self.qkv(x)
+            qkv = self.qkv(_column_input(x, self.tp))
         # (B, L, H, hd) views of the fused projection, the JAX layout
         q, k, v = (t.reshape(b, l, self.heads, hd) for t in qkv.split(d, dim=-1))
         if self.impl == "flash":
-            return self.out(flash_attention(q, k, v, causal=self.causal).reshape(b, l, d))
+            return _row_parallel(self.out, flash_attention(q, k, v, causal=self.causal).reshape(b, l, d), self.tp)
         if rows is not None:
             q = _take_rows(q, rows)
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -402,17 +484,19 @@ class Attention(nn.Module):
             hidden = torch.arange(l, device=x.device)[None, None, :] > query[:, :, None]  # (B or 1, S, L)
             logits = logits + torch.where(hidden, _MASK, 0.0).to(logits.dtype)[:, None]
         out = torch.softmax(logits, dim=-1).to(v.dtype) @ v
-        return self.out(out.transpose(1, 2).reshape(b, q.shape[2], d))
+        return _row_parallel(self.out, out.transpose(1, 2).reshape(b, q.shape[2], d), self.tp)
 
 
 class TransformerBlock(nn.Module):
     """Pre-LN residual block (chexzero_clip.py:190-200). ``pooled``: this is
     the pooled last block, run on the rows ``forward`` is given (its int8
-    projections after the attention core run weight-only)."""
+    projections after the attention core run weight-only). ``tp``: the mesh
+    whose model axis splits the attention's heads and the MLP's hidden
+    units, each where it divides them."""
 
     def __init__(self, width: int, heads: int, impl: str = "plain", causal: bool = False,
                  precision: Precision = Precision(), quant: bool = False, pooled: bool = False, quick: bool = True,
-                 master: bool = False):
+                 master: bool = False, tp: Optional[Mesh] = None):
         super().__init__()
         # quick=False: the exact GELU of timm's ViT (BiomedCLIP). The JAX
         # towers call jax.nn.gelu, whose default is the tanh approximation
@@ -422,10 +506,13 @@ class TransformerBlock(nn.Module):
         self.fold = precision.fold_ln and impl != "flash"
         self.compute_dtype = precision.compute_dtype
         self.ln_1 = FpLayerNorm(width, precision.ln_dtype)
-        self.attn = Attention(width, heads, impl, causal, precision, quant, pooled, self.fold, master)
+        self.attn = Attention(width, heads, impl, causal, precision, quant, pooled, self.fold, master,
+                              _split(tp, heads))
         self.ln_2 = FpLayerNorm(width, precision.ln_dtype)
-        self.mlp_fc = _linear(width, 4 * width, precision, quant, weight_only=pooled, fp32=self.fold, master=master)
-        self.mlp_proj = _linear(4 * width, width, precision, quant, weight_only=pooled, master=master)
+        self.mlp_tp = _split(tp, 4 * width)
+        hidden = 4 * width if self.mlp_tp is None else 4 * width // tp.model  # this rank's hidden units
+        self.mlp_fc = _linear(width, hidden, precision, quant, weight_only=pooled, fp32=self.fold, master=master)
+        self.mlp_proj = _linear(hidden, width, precision, quant, weight_only=pooled, master=master)
 
     def forward(self, x: torch.Tensor, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         base = x if rows is None else _take_rows(x, rows)
@@ -435,8 +522,8 @@ class TransformerBlock(nn.Module):
                                 compute_dtype=self.compute_dtype)
         else:
             x = base + self.attn(self.ln_1(x), rows)
-            y = self.mlp_fc(self.ln_2(x))
-        return x + self.mlp_proj(self.act(y))
+            y = self.mlp_fc(_column_input(self.ln_2(x), self.mlp_tp))
+        return x + _row_parallel(self.mlp_proj, self.act(y), self.mlp_tp)
 
 
 class VisionTower(nn.Module):
@@ -447,7 +534,7 @@ class VisionTower(nn.Module):
     captioners' image prefix)."""
 
     def __init__(self, cfg: ClipConfig, precision: Precision = Precision(), master: bool = False,
-                 tokens_only: bool = False):
+                 tokens_only: bool = False, tp: Optional[Mesh] = None):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = cd = precision.compute_dtype
@@ -464,7 +551,7 @@ class VisionTower(nn.Module):
         last = cfg.vision_layers - 1
         self.blocks = nn.ModuleList(
             TransformerBlock(w, cfg.v_heads, cfg.attention_impl, precision=precision, quant=precision.matmul_int8,
-                             pooled=self.pooled and i == last, quick=cfg.quick_gelu, master=master)
+                             pooled=self.pooled and i == last, quick=cfg.quick_gelu, master=master, tp=tp)
             for i in range(cfg.vision_layers)
         )
         self.ln_post = FpLayerNorm(w)  # fp32 tail in every mode (:732, :741)
@@ -496,7 +583,8 @@ class TextTower(nn.Module):
     """Causal text transformer with first-EOT pooling (chexzero_clip.py:355-376).
     Never quantised: the int8 modes cover the vision tower only."""
 
-    def __init__(self, cfg: ClipConfig, precision: Precision = Precision(), master: bool = False):
+    def __init__(self, cfg: ClipConfig, precision: Precision = Precision(), master: bool = False,
+                 tp: Optional[Mesh] = None):
         super().__init__()
         w = cfg.text_width
         self.compute_dtype = cd = precision.compute_dtype
@@ -506,7 +594,7 @@ class TextTower(nn.Module):
         last = cfg.text_layers - 1
         self.blocks = nn.ModuleList(
             TransformerBlock(w, cfg.text_heads, cfg.attention_impl, causal=True, precision=precision,
-                             pooled=self.pooled and i == last, quick=cfg.quick_gelu, master=master)
+                             pooled=self.pooled and i == last, quick=cfg.quick_gelu, master=master, tp=tp)
             for i in range(cfg.text_layers)
         )
         self.ln_final = FpLayerNorm(w, precision.ln_dtype)
@@ -536,12 +624,18 @@ class ClipModel(nn.Module):
     at use, as JAX trains ``Precision.bf16()`` (``param_dtype`` fp32,
     lemon_tpu/core/precision.py:84-96); the inference models hold them in
     the compute dtype, cast once when the weights load. Both give the same
-    products."""
+    products. A ``mesh`` with ``model > 1`` builds this rank's shard of the
+    tensor-parallel model (module docstring); its state dict holds the
+    shards (train/contrastive.py gathers and splits them)."""
 
-    def __init__(self, cfg: ClipConfig, precision: Precision = Precision(), fp32_master: bool = False):
+    def __init__(self, cfg: ClipConfig, precision: Precision = Precision(), fp32_master: bool = False,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         if precision.fold_ln and precision.matmul_int8:
             raise ValueError("Precision.fold_ln and matmul_int8 are mutually exclusive (as in the JAX package)")
+        tp = mesh if mesh is not None and mesh.model > 1 else None
+        if tp is not None and (cfg.is_resnet or precision.fold_ln or precision.matmul_int8):
+            raise ValueError("tensor parallelism splits the ViT towers of the fp32 and bf16 modes only")
         self.cfg = cfg
         self.precision = precision
         if cfg.is_resnet:
@@ -551,8 +645,8 @@ class ClipModel(nn.Module):
                 raise ValueError("the int8 modes and fp32 master weights cover the ViT towers only")
             self.visual = ResNetVisionTower(cfg, precision.compute_dtype)
         else:
-            self.visual = VisionTower(cfg, precision, fp32_master)
-        self.text = TextTower(cfg, precision, fp32_master)
+            self.visual = VisionTower(cfg, precision, fp32_master, tp=tp)
+        self.text = TextTower(cfg, precision, fp32_master, tp=tp)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):

@@ -22,9 +22,10 @@ scales on the first image batch the encoder embeds (``encode_images`` or
 takes the fast resize (no uint8 rounding emulation, one bf16 pass).
 
 With a ``mesh`` (:mod:`lemon_tpu_torch.core.mesh`) every rank builds the same
-batches, padded as on one device, embeds its rows of each and all-gathers
-the embeddings (lemon_tpu/models/encoder.py:125-135), so every rank holds
-every embedding.
+batches, padded as on one device, embeds its data rank's rows of each and
+all-gathers the embeddings over the data group
+(lemon_tpu/models/encoder.py:125-135), so every rank holds every embedding;
+the model axis replicates the work.
 """
 
 from __future__ import annotations
@@ -82,7 +83,7 @@ class ClipEncoder:
         if self.mesh is None:
             return embed(batch)
         rows, n = shard_batch(batch, self.mesh)
-        return all_gather_rows(embed(rows))[:n]
+        return all_gather_rows(embed(rows), self.mesh.data_group)[:n]
 
     @torch.inference_mode()
     def _embed_tokens(self, tokens: np.ndarray) -> torch.Tensor:

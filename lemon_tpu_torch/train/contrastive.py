@@ -9,6 +9,14 @@
   back-propagates ``loss / world`` and the gradients are summed over the
   ranks: every rank then holds the single-process gradient and takes the
   single-process step.
+- **Tensor parallelism** (``--mesh DxM``, ``M > 1``; JAX:
+  ``train_state_shardings``, :91-136): every rank builds the full model
+  from the seed (or the state dict) and keeps its shard (models/clip.py's
+  Megatron split; :func:`tp_layout`). The features are gathered and the
+  gradients summed over the data group only: a shard's gradient is whole
+  on its rank, and the replicated parameters' gradients are equal across
+  a model group. The optimizer is elementwise, so its moments stay
+  sharded beside their parameters.
 - AdamW (optax's defaults: b1 0.9, b2 0.999, eps 1e-8, decay ``lr·wd·p`` on
   every parameter) or SGD with momentum (``trace = g + m·trace``), at the
   rate of optax's ``warmup_cosine_decay_schedule`` read at the update count
@@ -16,7 +24,9 @@
 - Checkpoints: ``torch.save`` of the model's state dict, the optimizer state
   and the step, one directory per step under ``<output_dir>/ckpt``, written
   synchronously and atomically (temporary directory + ``os.replace``) by
-  rank 0, keeping the last 3. JAX writes orbax checkpoints asynchronously
+  rank 0, keeping the last 3. Under tensor parallelism the shards are
+  gathered first, so the file is the one a single process writes, and a
+  restore splits it for any mesh. JAX writes orbax checkpoints asynchronously
   from every host; the port's files are torch's (ROADMAP: handled
   divergences).
 
@@ -32,7 +42,7 @@ import math
 import os
 import shutil
 from pathlib import Path
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +51,7 @@ from torch.profiler import record_function
 
 from lemon_tpu_torch.core.mesh import Mesh, all_gather_with_grad
 from lemon_tpu_torch.core.precision import Precision
-from lemon_tpu_torch.models.clip import ClipConfig, ClipModel, init_weights
+from lemon_tpu_torch.models.clip import Attention, ClipConfig, ClipModel, init_weights
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults
 
@@ -172,27 +182,100 @@ def clip_loss(logits_per_image: torch.Tensor, logits_per_text: torch.Tensor) -> 
     return (li + lt) / 2.0
 
 
+def _tp_spec(name: str) -> Optional[Tuple[int, int]]:
+    """How the tensor-parallel layout splits the parameter ``name`` of a
+    ``ClipModel`` (JAX's ``_tp_spec``, keyed on the name's suffix):
+    ``(dim, groups)``, the dimension of torch's ``(out, in)`` layout and the
+    number of blocks it holds, each split alike (3 for the fused ``[q | k |
+    v]`` rows, split by heads); None when replicated. A row-parallel bias is
+    replicated: it is added once, after the sum."""
+    if name.endswith(("attn.qkv.weight", "attn.qkv.bias")):
+        return 0, 3
+    if name.endswith(("mlp_fc.weight", "mlp_fc.bias")):
+        return 0, 1
+    if name.endswith(("attn.out.weight", "mlp_proj.weight")):
+        return 1, 1
+    return None
+
+
+def tp_layout(model: ClipModel) -> Dict[str, Tuple[int, int]]:
+    """``{name: (dim, groups)}`` of every parameter ``model`` holds split
+    (JAX's ``train_state_shardings``): the divisibility fallback is the
+    model's own, which builds a sublayer whole where the model axis does not
+    divide its heads or hidden width. Empty without tensor parallelism."""
+    layout = {}
+    for name, _ in model.named_parameters():
+        spec = _tp_spec(name)
+        if spec is not None:
+            owner = model.get_submodule(name.rsplit(".", 2)[0])  # the Attention, or the block of an MLP layer
+            if (owner.tp if isinstance(owner, Attention) else owner.mlp_tp) is not None:
+                layout[name] = spec
+    return layout
+
+
+def _shard(t: torch.Tensor, spec: Tuple[int, int], mesh: Mesh) -> torch.Tensor:
+    """This rank's part of the full ``t`` on the mesh's model axis (a copy)."""
+    dim, groups = spec
+    shape, size = t.shape, mesh.model
+    blocks = t.reshape(*shape[:dim], groups, size, shape[dim] // (groups * size), *shape[dim + 1 :])
+    return blocks.select(dim + 1, mesh.model_rank).reshape(*shape[:dim], shape[dim] // size, *shape[dim + 1 :]).clone()
+
+
+def _unshard(parts: List[torch.Tensor], spec: Tuple[int, int]) -> torch.Tensor:
+    """The full tensor of every model rank's part, in model-rank order."""
+    dim, groups = spec
+    shape = parts[0].shape
+    blocks = torch.stack([p.reshape(*shape[:dim], groups, shape[dim] // groups, *shape[dim + 1 :]) for p in parts],
+                         dim + 1)
+    return blocks.reshape(*shape[:dim], shape[dim] * len(parts), *shape[dim + 1 :])
+
+
+def _gather_shard(t: torch.Tensor, spec: Tuple[int, int], mesh: Mesh) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(mesh.model)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.model_group)
+    return _unshard(parts, spec)
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters are the state's), the optimizer and its
-    state, and the number of steps taken."""
+    state, and the number of steps taken. Under a mesh with ``model > 1``
+    the model and the moments hold this rank's shards; :meth:`state_dict`
+    and :meth:`load_state_dict` speak the full, single-process form."""
 
     model: ClipModel
     tx: Optimizer
     opt_state: Dict
     step: int = 0
+    mesh: Optional[Mesh] = None
 
     @property
     def params(self) -> List[torch.nn.Parameter]:
         return list(self.model.parameters())
 
+    def _names(self) -> List[str]:
+        return [name for name, _ in self.model.named_parameters()]  # the order of the moments' lists
+
     def state_dict(self) -> Dict:
-        return {"model": self.model.state_dict(), "opt_state": self.opt_state, "step": self.step}
+        """The full state. Under tensor parallelism the shards are gathered
+        over the model group: every rank of the group must call it."""
+        layout = tp_layout(self.model)
+        model, opt_state = self.model.state_dict(), self.opt_state
+        if layout:
+            model = {k: _gather_shard(v, layout[k], self.mesh) if k in layout else v for k, v in model.items()}
+            opt_state = {k: [_gather_shard(t, layout[n], self.mesh) if n in layout else t
+                             for n, t in zip(self._names(), v)] if isinstance(v, list) else v
+                         for k, v in opt_state.items()}
+        return {"model": model, "opt_state": opt_state, "step": self.step}
 
     def load_state_dict(self, blob: Dict) -> None:
-        self.model.load_state_dict(blob["model"])
+        """Load a full state; under tensor parallelism this rank keeps its
+        shards."""
+        layout = tp_layout(self.model)
+        split = (lambda n, t: _shard(t, layout[n], self.mesh) if n in layout else t)  # noqa: E731
+        self.model.load_state_dict({k: split(k, v) for k, v in blob["model"].items()})
         device = self.params[0].device
-        self.opt_state = {k: [t.to(device) for t in v] if isinstance(v, list) else v
+        self.opt_state = {k: [split(n, t).to(device) for n, t in zip(self._names(), v)] if isinstance(v, list) else v
                           for k, v in blob["opt_state"].items()}
         self.step = int(blob["step"])
 
@@ -201,35 +284,47 @@ def create_train_state(model_cfg: ClipConfig, train_cfg: TrainConfig, mesh: Opti
                        device: Optional[torch.device] = None, state_dict: Optional[Dict] = None):
     """(model, state): fp32 master weights from ``init_weights(seed)``, or
     ``state_dict`` when given (the same on every rank, so the replicas
-    start equal), on the mesh's device or ``device``."""
+    start equal), on the mesh's device or ``device``. Under tensor
+    parallelism every rank builds the full model so and keeps its shard,
+    so a run starts from the single-process run's weights."""
     if device is None:
         if mesh is None:
             raise ValueError("create_train_state needs a mesh or a device")
         device = mesh.device
+    tp = mesh is not None and mesh.model > 1
+    if tp and train_cfg.fused_optimizer:
+        raise ValueError("fused_optimizer under tensor parallelism: its flat state over this rank's shards has no "
+                         "checkpoint form")
     precision = Precision.bf16() if train_cfg.precision == "bf16" else Precision()
     model = ClipModel(model_cfg, precision, fp32_master=True)
     if state_dict is None:
         init_weights(model, seed=train_cfg.seed)
     else:
         model.load_state_dict(state_dict)
+    if tp:
+        full = model.state_dict()
+        model = ClipModel(model_cfg, precision, fp32_master=True, mesh=mesh)
+        layout = tp_layout(model)
+        model.load_state_dict({k: _shard(v, layout[k], mesh) if k in layout else v for k, v in full.items()})
     model.to(device).train()
     tx = make_optimizer(train_cfg)
-    return model, TrainState(model=model, tx=tx, opt_state=tx.init(list(model.parameters())))
+    return model, TrainState(model=model, tx=tx, opt_state=tx.init(list(model.parameters())), mesh=mesh)
 
 
-def _all_reduce_grads(grads: List[torch.Tensor]) -> None:
-    """Sum the gradients over the ranks, in one collective."""
+def _all_reduce_grads(grads: List[torch.Tensor], group=None) -> None:
+    """Sum the gradients over ``group``'s ranks (None: the default group),
+    in one collective."""
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)])
 
 
 def make_train_step(model: ClipModel, mesh: Optional[Mesh] = None):
     """``step(state, pixels, tokens) -> (state, loss)``, one update in
     place. Without a mesh ``pixels`` and ``tokens`` are the batch; with one,
-    this rank's rows of it, and the loss is the global batch's. The
-    profiler ranges ``forward``, ``backward`` and ``optimizer`` split the
-    step."""
+    this rank's rows of it (the same on every rank of a model group), and
+    the loss is the global batch's. The profiler ranges ``forward``,
+    ``backward`` and ``optimizer`` split the step."""
     params = list(model.parameters())
 
     def step(state: TrainState, pixels: torch.Tensor, tokens: torch.Tensor):
@@ -241,13 +336,14 @@ def make_train_step(model: ClipModel, mesh: Optional[Mesh] = None):
                 scaled = loss
             else:
                 img, txt = model.features(pixels, tokens)
-                loss = clip_loss(*model.logits(all_gather_with_grad(img), all_gather_with_grad(txt)))
+                group = mesh.data_group
+                loss = clip_loss(*model.logits(all_gather_with_grad(img, group), all_gather_with_grad(txt, group)))
                 scaled = loss / mesh.data
         with record_function("backward"):
             scaled.backward()
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
             if mesh is not None:
-                _all_reduce_grads(grads)
+                _all_reduce_grads(grads, mesh.data_group)
         with record_function("optimizer"):
             state.tx.update(params, grads, state.opt_state)
         state.step += 1
@@ -272,7 +368,8 @@ class CheckpointWriter:
     writes each into a temporary directory and renames it into place (the
     file alone when the step is saved again), so a reader never sees a
     partial checkpoint, nor no checkpoint of a step that had one; the last
-    ``max_to_keep`` stay.
+    ``max_to_keep`` stay. Under tensor parallelism the ranks of rank 0's
+    model group gather the full state first (a collective of theirs).
     Under several ranks every rank waits for the write (a barrier)."""
 
     def __init__(self, ckpt_dir: Path, max_to_keep: int = 3):
@@ -281,12 +378,15 @@ class CheckpointWriter:
 
     def save(self, step: int, state: TrainState) -> None:
         multi = dist.is_initialized() and dist.get_world_size() > 1
-        if not dist.is_initialized() or dist.get_rank() == 0:
+        writes = not dist.is_initialized() or dist.get_rank() == 0
+        mesh = state.mesh
+        if writes or (mesh is not None and mesh.model > 1 and mesh.rank == 0):
+            blob = state.state_dict()
+        if writes:
             self.ckpt_dir.mkdir(parents=True, exist_ok=True)
             tmp = self.ckpt_dir / f".tmp-{step}-{os.getpid()}"
             shutil.rmtree(tmp, ignore_errors=True)
             tmp.mkdir()
-            blob = state.state_dict()
             blob = {"model": {k: v.cpu() for k, v in blob["model"].items()},
                     "opt_state": {k: [t.cpu() for t in v] if isinstance(v, list) else v
                                   for k, v in blob["opt_state"].items()},
@@ -314,8 +414,9 @@ class CheckpointWriter:
         return torch.load(self.ckpt_dir / str(step) / "state.pt", map_location="cpu", weights_only=True)
 
     def restore(self, template_state: TrainState, step: Optional[int] = None) -> TrainState:
-        """Load the checkpoint into ``template_state`` (its model and
-        device) and return it."""
+        """Load the checkpoint into ``template_state`` (its model, device
+        and mesh: a checkpoint written under any mesh resumes under any
+        other) and return it."""
         template_state.load_state_dict(self.load(step))
         return template_state
 

@@ -19,6 +19,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from lemon_tpu_torch.train.contrastive import TrainState
+
 
 def preemption_dir() -> Optional[Path]:
     job_id = os.environ.get("SLURM_JOB_ID")
@@ -37,11 +39,22 @@ def has_checkpoint(base: Optional[Path] = None) -> bool:
 def save_checkpoint(state, step: int, extra: Dict[str, Any] | None = None, base: Optional[Path] = None) -> bool:
     """Snapshot ``state`` (a state dict, or any structure of tensors that
     ``torch.load(weights_only=True)`` reads); returns False when no
-    preemption directory is configured. Each file is written to a temporary
-    name and renamed into place; ``meta.json`` goes last."""
+    preemption directory is configured. A ``TrainState`` is saved as its
+    full state: under a mesh every rank calls this, the shards of a
+    tensor-parallel model are gathered over the model group as for a
+    checkpoint (``TrainState.state_dict``), and global rank 0 writes. Each
+    file is written to a temporary name and renamed into place;
+    ``meta.json`` goes last."""
     base = base or preemption_dir()
     if base is None:
         return False
+    if isinstance(state, TrainState):
+        mesh = state.mesh
+        if mesh is not None and mesh.model > 1 and mesh.rank != 0:
+            return True  # not in the model group that gathers
+        state = state.state_dict()
+        if mesh is not None and not mesh.lead:
+            return True
     target = (base / "preempt").absolute()
     (target / "state").mkdir(parents=True, exist_ok=True)
     path = target / "state" / f"{step}.pt"

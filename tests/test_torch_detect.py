@@ -214,15 +214,23 @@ def test_no_gpu_and_no_cpu_flag_raises(monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    """What the port still lacks raises: tensor parallelism (``--mesh`` with
-    MODEL > 1; data-parallel meshes run since the slice that ported them,
-    tests/test_torch_mesh.py). The ``cifar10c`` robustness set is ported
-    (tests/test_torch_downstream.py): without a corruption it raises as the
-    JAX package's does, not as an unported name."""
+    """Nothing of these options is left unported. Tensor parallelism
+    (``--mesh`` with MODEL > 1) runs (tests/test_torch_tensor_parallel.py):
+    in a world of one a ``4x2`` mesh raises only for the eight processes it
+    needs, as any mesh larger than the world does. The ``cifar10c``
+    robustness set is ported (tests/test_torch_downstream.py): without a
+    corruption it raises as the JAX package's does, not as an unported
+    name."""
+    import torch.distributed as dist
+
     from lemon_tpu_torch.cli.run_lemon import main
 
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        main(["--output_dir", str(tmp_path), "--platform", "cpu", "--mesh", "4x2"])
+    try:
+        with pytest.raises(ValueError, match="mesh 4x2 needs 8 processes; the world has 1"):
+            main(["--output_dir", str(tmp_path), "--platform", "cpu", "--mesh", "4x2"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     from lemon_tpu_torch.data.datasets import get_dataset
 
     with pytest.raises(ValueError, match="cifar10c needs corruption_name"):

@@ -39,19 +39,19 @@ DETECT_ARGV = ["--dataset", "synthetic_caption", "--noise_type", "random", "--cl
                "--batch_size", "64", "--synthetic_n", "160", "--knn_tile", "32", "--platform", "cpu"]
 
 
-def _entry(rank, name, world, tmp, args):
+def _entry(rank, fn, world, tmp, args):
     torch.set_num_threads(2)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=world)
     try:
-        torch.save(globals()[name](rank, world, Path(tmp), *args), Path(tmp) / f"rank{rank}.pt")
+        torch.save(fn(rank, world, Path(tmp), *args), Path(tmp) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def spawn(name, world, tmp_path, *args):
-    """``name(rank, world, tmp_path, *args)`` on ``world`` gloo ranks; the
-    list of what each rank returned."""
-    mp.spawn(_entry, args=(name, world, str(tmp_path), args), nprocs=world, join=True)
+def spawn(fn, world, tmp_path, *args):
+    """``fn(rank, world, tmp_path, *args)`` (a function of a test module) on
+    ``world`` gloo ranks; the list of what each rank returned."""
+    mp.spawn(_entry, args=(fn, world, str(tmp_path), args), nprocs=world, join=True)
     return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -88,7 +88,7 @@ def _dp_worker(rank, world, tmp, optimizer):
 
 @pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
 def test_dp_step_matches_single_process(tmp_path, optimizer):
-    ranks = spawn("_dp_worker", 2, tmp_path, optimizer)
+    ranks = spawn(_dp_worker, 2, tmp_path, optimizer)
     ref = _steps(None, optimizer)
     for out in ranks:
         np.testing.assert_allclose(out["loss"], ref["loss"], rtol=0, atol=1e-4)
@@ -127,7 +127,7 @@ def test_train_clip_cli_under_a_mesh(tmp_path):
     argv = ["--dataset", "synthetic_caption", "--model_size", "tiny", "--batch_size", "8", "--total_steps", "3",
             "--save_interval", "2", "--optimizer", "sgd", "--lr", "0.05", "--warmup_steps", "1", "--platform", "cpu"]
     (tmp_path / "dist").mkdir()
-    ranks = spawn("_train_cli_worker", 2, tmp_path / "dist", ["--output_dir", str(tmp_path / "mesh"), *argv, "--mesh", "2x1"])
+    ranks = spawn(_train_cli_worker, 2, tmp_path / "dist", ["--output_dir", str(tmp_path / "mesh"), *argv, "--mesh", "2x1"])
     stdout, stderr = sys.stdout, sys.stderr
     try:
         single = main(["--output_dir", str(tmp_path / "single"), *argv]).model.state_dict()
@@ -192,7 +192,7 @@ def _search_worker(rank, world, tmp):
 
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
-    return spawn("_search_worker", 4, tmp_path_factory.mktemp("search"))
+    return spawn(_search_worker, 4, tmp_path_factory.mktemp("search"))
 
 
 @pytest.mark.parametrize("metric", ["ip", "l2"])
@@ -249,7 +249,7 @@ def test_run_lemon_mesh_matches_one_device(tmp_path):
     from lemon_tpu_torch.cli.run_lemon import main
 
     (tmp_path / "dist").mkdir()
-    spawn("_run_lemon_worker", 2, tmp_path / "dist", ["--output_dir", str(tmp_path / "mesh"), *DETECT_ARGV,
+    spawn(_run_lemon_worker, 2, tmp_path / "dist", ["--output_dir", str(tmp_path / "mesh"), *DETECT_ARGV,
                                                        "--mesh", "2x1"])
     stdout, stderr = sys.stdout, sys.stderr
     try:
@@ -278,15 +278,18 @@ def world_of_one():
 
 
 def test_tensor_parallel_meshes_raise(tmp_path, world_of_one):
+    """A tensor-parallel mesh is held to the world's size like any other:
+    in a world of one, ``2x2`` raises in ``get_mesh`` and in both CLIs,
+    naming the processes it needs (on four ranks it runs:
+    tests/test_torch_tensor_parallel.py::test_tensor_parallel_mesh_groups)."""
     from lemon_tpu_torch.cli.run_lemon import main as run_lemon
     from lemon_tpu_torch.cli.train_clip import main as train_clip
 
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="mesh 2x2 needs 4 processes; the world has 1"):
         get_mesh(2, 2, platform="cpu")
     for main in (run_lemon, train_clip):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        with pytest.raises(ValueError, match="mesh 2x2 needs 4 processes"):
             main(["--output_dir", str(tmp_path), "--platform", "cpu", "--mesh", "2x2"])
-    assert not dist.is_initialized()  # refused before any group was built
 
 
 def test_world_of_one(world_of_one):
@@ -310,7 +313,7 @@ def test_a_mesh_smaller_than_the_world_is_refused_with_its_reason(tmp_path):
     """The JAX package takes the first ``data * model`` devices of one
     process; the port runs one process a device, so a rank past the mesh
     would have no work. The message says so and names the mesh that fits."""
-    assert spawn("_smaller_mesh_rank", 2, tmp_path) == [
+    assert spawn(_smaller_mesh_rank, 2, tmp_path) == [
         "mesh 1x1 needs 1 processes; the world has 2. Each process drives one device of the mesh, so the mesh "
         "must span the world: start 1 processes, or pass --mesh 2x1"] * 2
 
