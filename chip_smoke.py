@@ -11,8 +11,12 @@ imports nothing of JAX. Phases, each printed on its own lines:
 3. K1 (``scores_blockmax``) against its plain PyTorch version on the card:
    q 8192x512 against db 16000x512 with n_valid < T, ip/l2 x highest/high,
    max absolute error at most 1e-5, strip maxima exact, and the times of
-   both; the split pass of ``high`` bit for bit against its plain version;
-   ``torch.matmul(q, db.T)`` alone (cuBLAS SGEMM, TF32 off) as a reference;
+   both; ``highest`` (the TPU's six bf16 products) also within 1e-6 of
+   ``scores_blockmax_bf16x6_plain`` and no further from a float64 product
+   than the fp32 plain version plus 1e-6 (the three float64 errors printed
+   with ``high``'s); both split passes bit for bit against their plain
+   versions; ``torch.matmul(q, db.T)`` alone (cuBLAS SGEMM, TF32 off) as
+   ``highest``'s library yardstick;
 4. K2 (``topk``) against its plain version at the main path's (8192, 125)
    and (8192, 768) k=6, and at (8192, 640) k=5, (8192, 6528) k=51 and
    (8192, 1024) k=200, with ties and -inf rows: values and indices exact,
@@ -78,7 +82,8 @@ imports nothing of JAX. Phases, each printed on its own lines:
     P3 (``block_maxima``) at q 8192 against 131072 rows and P2
     (``scores_blockmax_t``) at 4096 against 65536 with n_valid < T, at both
     precisions, within 1e-5 of the plain version and bit-equal to K1's
-    block maxima (and P2's scores to K1's); P1 (``topk_colids``) at
+    block maxima (and P2's scores to K1's), ``highest`` beside the fp32
+    ``torch.matmul(q, db.T)`` alone; P1 (``topk_colids``) at
     (8192, 6528) k=51 with ties and -inf rows, values and ids exact
     (``torch.topk``). Then each probe program's ``main()`` once in-process
     (``lemon_tpu_torch.benchmarks``), every kernel count set to 0 just
@@ -235,10 +240,11 @@ Every kernel line prints its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
 operations over the peak rate of their type (989 TFLOP/s bf16, 1979 TOP/s
 int8 and 495 TFLOP/s TF32 on the tensor cores, 67 TFLOP/s fp32), and the
-share of the bound that the kernel reaches. K3's lines also print the fp32 bound of its products on
-the CUDA cores, the bound of the kernel it replaced.
+share of the bound that the kernel reaches. K3's lines and K1 ``highest``'s
+also print the fp32 bound of their products on the CUDA cores, the bound of
+the kernel each replaced.
 K1's launches are counted by precision: its entry ``scores_blockmax`` is
-``high``'s, ``scores_blockmax_highest`` the fp32 mode's.
+``high``'s, ``scores_blockmax_highest`` the bf16x6 mode's.
 The second-to-last line is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 """
@@ -257,6 +263,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 K1_TOL = 1e-5
+K1_BF16X6_TOL = 1e-6  # K1 'highest' vs its bf16x6 plain version: the same exact products, fp32 sums in another order
+K1_F64_MARGIN = 1e-6  # K1 'highest' against float64: at most the fp32 plain version's own error plus this
 K3_TOL = 2e-5  # tests/test_attention.py:26: fp32 with another summation order
 EMBED_TOL = 1e-4  # tests/test_attention.py:56-57: the towers, plain vs flash
 BF16_FLASH_COS = 0.999  # per row, bf16 flash vs bf16 plain: the plain route's logits and softmax are bf16
@@ -343,6 +351,9 @@ def unit_rows(torch, g, n, d, device):
 
 
 def phase_k1(torch, scoremax, device):
+    """K1 at both precisions against its plain versions, and ``highest``
+    against float64. Returns (worst error, {(metric, precision): (ms, plain
+    ms, bound, max_abs_err)}, ``torch.matmul`` ms)."""
     b, t, d = 8192, 16000, 512
     g = torch.Generator().manual_seed(0)
     q = unit_rows(torch, g, b, d, device)
@@ -352,12 +363,19 @@ def phase_k1(torch, scoremax, device):
     worst = 0.0
     times = {}
     for x, name in ((q, "q"), (db, "db")):
-        (hi, lo), (hi0, lo0) = scoremax.split_bf16(x), scoremax.split_bf16_plain(x)
-        torch.cuda.synchronize()
-        check(all(bool(torch.equal(a.view(torch.int16), a0.view(torch.int16))) for a, a0 in ((hi, hi0), (lo, lo0))),
-              f"K1 split pass of {name}: differs from the plain split")
-    print("K1 split pass (bf16 hi/lo of q and db, D padded to 64): bit-equal to the plain split", flush=True)
+        for split, plain in ((scoremax.split_bf16, scoremax.split_bf16_plain),
+                             (scoremax.split_bf16x3, scoremax.split_bf16x3_plain)):
+            pieces, pieces0 = split(x), plain(x)
+            torch.cuda.synchronize()
+            check(all(bool(torch.equal(a.view(torch.int16), a0.view(torch.int16))) for a, a0 in zip(pieces, pieces0)),
+                  f"K1 split pass of {name} ({split.__name__}): differs from the plain split")
+    print("K1 split passes (bf16 hi/lo and hi/mid/lo of q and db, D padded to 64): bit-equal to the plain splits",
+          flush=True)
     for metric in ("ip", "l2"):
+        s64 = q.double() @ db.double().T
+        if metric == "l2":
+            s64 = -(((q.double() ** 2).sum(1, keepdim=True) - 2 * s64) + dbsq.double()[None, :])
+        f64_err = {}
         for precision in ("highest", "high"):
             args = (q, db, metric, dbsq if metric == "l2" else None, 0, n_valid, precision)
             s, bm = scoremax.scores_blockmax(*args)
@@ -369,19 +387,40 @@ def phase_k1(torch, scoremax, device):
             err = (s - s0)[fin].abs().max().item()
             berr = (bm - bm0).abs().max().item()
             check(bool(torch.equal(bm, s.view(8192, -1, 128).amax(2))), f"K1 {metric}/{precision}: bmax != strip max")
+            f64_err[precision] = (s.double() - s64)[fin].abs().max().item()
+            extra = ""
+            if precision == "highest":
+                s6, bm6 = scoremax.scores_blockmax_bf16x6_plain(*args[:-1])
+                err6 = max((s - s6)[fin].abs().max().item(), (bm - bm6).abs().max().item())
+                f64_err["fp32 plain"] = (s0.double() - s64)[fin].abs().max().item()
+                del s6, bm6
+                extra = f"; against the bf16x6 plain {err6:.3e} (tol {K1_BF16X6_TOL})"
+                check(err6 <= K1_BF16X6_TOL, f"K1 {metric}/highest: {err6} from the bf16x6 plain > {K1_BF16X6_TOL}")
+            del s, bm, s0, bm0
             ms, plain_ms = paired_ms(torch, lambda: scoremax.scores_blockmax(*args), lambda: scoremax.scores_blockmax_plain(*args), 10)
-            high = precision == "high"
-            bnd = bound(4 * (b * d + t * d + (t if metric == "l2" else 0) + b * t + b * t // 128),
-                        (3 if high else 1) * 2 * b * t * d, "bf16" if high else "fp32")
+            n_bytes = 4 * (b * d + t * d + (t if metric == "l2" else 0) + b * t + b * t // 128)
+            # 'high': 3 bf16 products; 'highest': 6, beside the bound of fp32 products on the CUDA cores
+            bnd = bound(n_bytes, (3 if precision == "high" else 6) * 2 * b * t * d, "bf16")
+            timing = f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; {bound_text(bnd, ms)}"
+            if precision == "highest":
+                plain6_ms = cuda_ms(lambda: scoremax.scores_blockmax_bf16x6_plain(*args[:-1]), 3)
+                timing += (f"; fp32 products' {bound_text(bound(n_bytes, 2 * b * t * d, 'fp32'), ms)}; "
+                           f"bf16x6 plain {plain6_ms:.3f} ms")
             times[(metric, precision)] = (ms, plain_ms, bnd, max(err, berr))
             print(f"K1 scores_blockmax {metric}/{precision} (8192x512 . 16000x512): max_abs_err {err:.3e} "
-                  f"(bmax {berr:.3e}, tol {K1_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-                  f"{bound_text(bnd, ms)}", flush=True)
+                  f"(bmax {berr:.3e}, tol {K1_TOL}){extra}; {timing}", flush=True)
             check(err <= K1_TOL and berr <= K1_TOL, f"K1 {metric}/{precision}: error {err} > {K1_TOL}")
             worst = max(worst, err, berr)
+        del s64
+        print(f"K1 {metric} against float64: 'highest' kernel {f64_err['highest']:.3e}, fp32 plain "
+              f"{f64_err['fp32 plain']:.3e}, 'high' kernel {f64_err['high']:.3e}", flush=True)
+        check(f64_err["highest"] <= f64_err["fp32 plain"] + K1_F64_MARGIN,
+              f"K1 {metric}/highest: {f64_err['highest']} from float64, more than the fp32 plain's "
+              f"{f64_err['fp32 plain']} + {K1_F64_MARGIN}")
     mm_ms = cuda_ms(lambda: torch.matmul(q, db.T), 10)
-    print(f"K1 reference: torch.matmul(q, db.T) alone (cuBLAS SGEMM, TF32 off) {mm_ms:.3f} ms", flush=True)
-    return worst, times
+    print(f"K1 library yardstick: torch.matmul(q, db.T) alone (cuBLAS SGEMM, TF32 off) {mm_ms:.3f} ms; K1 ip/highest "
+          f"{times[('ip', 'highest')][0]:.3f} ms", flush=True)
+    return worst, times, mm_ms
 
 
 def topk_inputs(torch, g, b, w, device):
@@ -1334,11 +1373,17 @@ def phase_probe_kernels(torch, scoremax, select, matmul, device):
             check(err <= K1_TOL, f"{label} {precision}: error {err} > {K1_TOL}")
             ms, plain_ms = paired_ms(torch, kernel, plain, 3)
             k1_ms = cuda_ms(lambda: scoremax.scores_blockmax(q, db, "ip", None, 0, n_valid, precision), 3)
-            bnd = bound(n_bytes, (3 if high else 1) * 2 * b * t * 512, "bf16" if high else "fp32")
-            out[(name, precision)] = (err, ms, plain_ms, bnd, None)
+            bnd = bound(n_bytes, (3 if high else 6) * 2 * b * t * 512, "bf16")  # bf16x3 or bf16x6
+            lib_ms, extra = None, ""
+            if not high:  # the fp32 bound of the kernel it replaced, and the fp32 product alone as its yardstick
+                lib_ms = cuda_ms(lambda: torch.matmul(q, db.T), 3)
+                extra = (f"; fp32 products' {bound_text(bound(n_bytes, 2 * b * t * 512, 'fp32'), ms)}; "
+                         f"torch.matmul(q, db.T) alone (TF32 off) {lib_ms:.3f} ms")
+            out[(name, precision)] = (err, ms, plain_ms, bnd, lib_ms)
             print(f"{label} {name} {precision} ({b}x512 . {t}x512): max_abs_err {err:.3e} (tol {K1_TOL}), "
                   f"{'maxima' if label == 'P3' else 'scores and maxima'} bit-equal to K1's; kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms, K1 at this shape {k1_ms:.3f} ms; {bound_text(bnd, ms)}", flush=True)
+                  f"plain {plain_ms:.3f} ms, K1 at this shape {k1_ms:.3f} ms; {bound_text(bnd, ms)}{extra}",
+                  flush=True)
         del q, db
 
     b, w, kk = P1_SHAPE
@@ -2696,7 +2741,7 @@ def main() -> None:
         if "registers" in line or "spill" in line and "0 bytes spill" not in line:
             print(f"  ptxas: {line.strip()}")
 
-    k1_err, k1_times = phase_k1(torch, scoremax, device)
+    k1_err, k1_times, k1_mm_ms = phase_k1(torch, scoremax, device)
     k2_err, k2_times = phase_k2(torch, topk, device)
     phase_knn(torch, scoremax, topk, ExactKnnIndex, device)
     b32, b32_timing, _ = phase_run_lemon(torch, scoremax, topk)
@@ -2781,9 +2826,10 @@ def main() -> None:
          "replaces": "lemon_tpu/ops/scoremax.py:119", **launches("scores_blockmax"),
          **numbers(k1_err, k1_ms, k1_plain, k1_bound, None)},
         {"name": "scores_blockmax_highest", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
-         "kernel": "K1 at precision 'highest' (fp32 products on the CUDA cores), ip 8192x512 . 16000x512",
+         "kernel": "K1 at precision 'highest': the TPU's six bf16 products on wgmma (split pass into hi/mid/lo, "
+                   "then scores_highest_kernel: TMA ring, two m64n128 consumers, persistent), ip 8192x512 . 16000x512",
          "replaces": "lemon_tpu/ops/scoremax.py:119", **launches("scores_blockmax_highest"),
-         **numbers(k1h_err, k1h_ms, k1h_plain, k1h_bound, None)},
+         **numbers(k1h_err, k1h_ms, k1h_plain, k1h_bound, k1_mm_ms)},  # library: torch.matmul(q, db.T) alone
         {"name": "topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/topk.cu",
          "replaces": "lemon_tpu/ops/topk.py:80", **launches("topk"),
          **numbers(k2_err, k2_ms, k2_plain, k2_bound, k2_sort)},

@@ -84,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--knn_tile", default=0, type=int,
                    help="DB tile rows (rounded up to a multiple of 128); 0 = adaptive")
     p.add_argument("--knn_precision", default="auto", choices=["auto", "highest", "high"],
-                   help="kNN score precision: 'highest' = fp32, 'high' = bf16x3; "
+                   help="kNN score precision: 'highest' = fp32 products on the CPU, six bf16 products "
+                        "(the TPU's HIGHEST) on the card; 'high' = bf16x3; "
                         "'auto' = bf16x3 unless --strict_hparam_parity")
     p.add_argument("--embedding_cache", default=None)
     p.add_argument("--checkpoint", default=None)

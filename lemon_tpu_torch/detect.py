@@ -94,8 +94,9 @@ class DetectionConfig:
     # framework extensions (no reference counterpart)
     synthetic_n: int = 600
     knn_tile: int = 0  # 0 = adaptive tile (knn/index.py:auto_tile)
-    # kNN score precision: 'highest' = fp32, 'high' = bf16x3; 'auto' is
-    # 'high' unless strict_hparam_parity (see _resolve_knn_precision)
+    # kNN score precision: 'highest' = fp32 products on the CPU and six bf16
+    # products on wgmma on the card (the TPU's HIGHEST), 'high' = bf16x3;
+    # 'auto' is 'high' unless strict_hparam_parity (see _resolve_knn_precision)
     knn_precision: str = "auto"
     mesh_shape: Optional[Tuple[int, int]] = None  # (data, model); None = one device
     embedding_cache: Optional[str] = None
@@ -107,7 +108,9 @@ class DetectionConfig:
 def _resolve_knn_precision(cfg: DetectionConfig) -> str:
     """'auto' -> 'high' (bf16x3) for non-strict runs, as the JAX package
     resolves it (lemon_tpu/detect.py:100-110); strict-parity runs always
-    stay fp32 ('highest')."""
+    take 'highest': fp32 products on the CPU, six bf16 products on the card,
+    as the JAX package's HIGHEST is fp32 on XLA:CPU and six bf16 passes on
+    the TPU."""
     if cfg.strict_hparam_parity:
         return "highest"
     if cfg.knn_precision == "auto":

@@ -155,8 +155,9 @@ class ExactKnnIndex:
         ``torch.device("cpu")`` to search on the CPU. ``tile=None`` picks the
         widest tile whose score block fits a 4 GiB budget per query chunk; a
         given tile is rounded up to a multiple of 128 (exact search: the tile
-        changes no result). ``precision='high'`` is the bf16x3 score product
-        (see ops/scoremax.py). With a ``mesh`` every rank adds the same
+        changes no result). ``precision='high'`` is the bf16x3 score product,
+        ``'highest'`` fp32 products on the CPU and six bf16 products on the
+        card (see ops/scoremax.py). With a ``mesh`` every rank adds the same
         database and searches the same queries, and every rank gets the
         result. ``backend="cpp"`` searches on the host (the device is not
         used); a failed build of the library raises."""

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lemon_tpu_torch.core.device import resolve_device
 from lemon_tpu_torch.models.blip_itm import VISION_NAMES, BlipVisionTower, rename, unbatch
 from lemon_tpu_torch.models.captioner import CaptionerConfig, CaptioningModel, LoraLinear, init_captioner
 from lemon_tpu_torch.models.clip import ClipConfig, FpLayerNorm, attend
@@ -316,9 +317,12 @@ def convert_blip2_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.
 def load_blip2(checkpoint_dir, lora_rank: int = 0, max_text_len: int = 40, seed: int = 0,
                device: Optional[torch.device] = None) -> tuple[Blip2Captioner, Blip2Config]:
     """A local HF BLIP-2 (OPT) directory -> (model on ``device``, config).
-    Every non-LoRA parameter must come from the checkpoint with its shape,
-    and the checkpoint may name none the model lacks; the LoRA factors keep
-    their init (B = 0: the adapters start as the identity)."""
+    ``device=None`` is the CUDA card, and raises without one before anything
+    is read: pass ``torch.device("cpu")`` to load on the CPU. Every non-LoRA
+    parameter must come from the checkpoint with its shape, and the
+    checkpoint may name none the model lacks; the LoRA factors keep their
+    init (B = 0: the adapters start as the identity)."""
+    device = resolve_device("cuda") if device is None else device
     d = Path(checkpoint_dir)
     cfg = blip2_config_from_hf(json.loads((d / "config.json").read_text()), lora_rank=lora_rank,
                                max_text_len=max_text_len)

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lemon_tpu_torch.core.device import resolve_device
 from lemon_tpu_torch.models.clip import (ClipConfig, FpLayerNorm, VisionTower, attend, init_layers_, init_vit_,
                                          quick_gelu)
 
@@ -216,9 +217,11 @@ def init_weights_(model: CaptioningModel, seed: int = 0) -> CaptioningModel:
 
 def init_captioner(cfg: CaptionerConfig, seed: int = 0, device: Optional[torch.device] = None) -> CaptioningModel:
     """The captioner of the config's type, randomly initialised on
-    ``device`` (default CPU): a ``Blip2Config`` the HF-exact BLIP-2
-    (:mod:`blip2`), a ``QFormerConfig`` the Q-Former captioner
-    (:mod:`qformer`), a plain ``CaptionerConfig`` the GIT-style model."""
+    ``device`` (default: the CUDA card, raising without one; pass
+    ``torch.device("cpu")`` to build on the CPU): a ``Blip2Config`` the
+    HF-exact BLIP-2 (:mod:`blip2`), a ``QFormerConfig`` the Q-Former
+    captioner (:mod:`qformer`), a plain ``CaptionerConfig`` the GIT-style
+    model."""
     from lemon_tpu_torch.models.blip2 import Blip2Captioner, Blip2Config
     from lemon_tpu_torch.models.qformer import QFormerCaptioner, QFormerConfig
 
@@ -228,7 +231,7 @@ def init_captioner(cfg: CaptionerConfig, seed: int = 0, device: Optional[torch.d
         cls = QFormerCaptioner
     else:
         cls = CaptioningModel
-    with torch.device(device or "cpu"):
+    with torch.device(resolve_device("cuda") if device is None else device):
         model = cls(cfg)
     return init_weights_(model, seed)
 

@@ -1,14 +1,16 @@
 // Hopper building blocks shared by the kernels on the tensor cores: K1's
-// `high` (scoremax.cu), K3 (attention.cu) and P4 (matmul.cu). None replaces a
-// TPU kernel itself; each kernel's file says which one it ports.
+// `high` and `highest` (scoremax.cu), K3 (attention.cu) and P4 (matmul.cu).
+// None replaces a TPU kernel itself; each kernel's file says which one it
+// ports.
 //
-// - cp.async and the wgmma descriptor of a K-major 128-byte-swizzled operand
-//   (K1 and K3's fp32 kernel stage their operands themselves);
-// - the TMA pipeline of K3's bf16 kernel and P4: tensor maps encoded on the
-//   host (cuTensorMapEncodeTiled, looked up in libcuda at run time, so
-//   the library links no -lcuda), bulk tensor loads that complete on an
-//   mbarrier, bulk tensor stores, named barriers and the register hand-over
-//   between warpgroups (setmaxnreg).
+// - cp.async and the wgmma descriptors of K-major 128- and 64-byte-swizzled
+//   operands (K1's `high` and K3's fp32 kernel stage their operands
+//   themselves);
+// - the TMA pipeline of K1's `highest`, K3's bf16 kernel and P4: tensor
+//   maps encoded on the host (cuTensorMapEncodeTiled, looked up in libcuda
+//   at run time, so the library links no -lcuda), bulk tensor loads that
+//   complete on an mbarrier, bulk tensor stores, named barriers and the
+//   register hand-over between warpgroups (setmaxnreg).
 //
 // What bounds the kernels built on it is that the tensor cores wait: on
 // loads, on the previous product, on an epilogue. A ring of stages in shared
@@ -19,10 +21,12 @@
 // or a few, walking a static order of work items), so one item's epilogue
 // overlaps the next one's loads. TMA writes the 128-byte swizzle
 // (CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk j of 128-byte row r at chunk
-// j ^ (r % 8), 1024-byte aligned atoms) that smem_desc reads.
+// j ^ (r % 8), 1024-byte aligned atoms) that smem_desc reads, or the 64-byte
+// one that smem_desc_sw64 reads.
 //
-// P4 is warp-specialised (PIPE_THREADS): warpgroup 0 is the producer, its
-// registers cut to PRODUCER_REGS, one thread issuing every TMA load;
+// K1's `highest` and P4 are warp-specialised (PIPE_THREADS): warpgroup 0 is
+// the producer, its registers cut to PRODUCER_REGS, one thread issuing every
+// TMA load;
 // warpgroups 1 and 2 are consumers, raised to CONSUMER_REGS, that release a
 // stage through its "empty" mbarrier (one arrival from each). K3's bf16
 // kernel runs one warpgroup a block that feeds its own ring (attention.cu
@@ -58,6 +62,14 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for 64-byte-swizzled rows of 64 B (CU_TENSOR_MAP_SWIZZLE_64B:
+// 16-byte chunk j of row r at chunk j ^ ((r / 2) % 4), 512-byte atoms):
+// 8-row groups 512 B apart, swizzle mode 2.
+__device__ __forceinline__ uint64_t smem_desc_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
 }
 
 // Keeps a wgmma accumulator in its registers across the asynchronous product.
@@ -133,11 +145,12 @@ constexpr int CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 <= 65536
 
 // Host: a tiled tensor map of `rank` dimensions (innermost first), with the
 // byte strides of dimensions 1..rank-1, a box of `box` elements and the
-// 128-byte swizzle. Elements of a box past the tensor's bounds load as zeros
-// (and still count toward the barrier's bytes), and are not written by a
-// store. Returns 0 or a cudaError_t.
+// 128-byte swizzle (or `swizzle`). Elements of a box past the tensor's
+// bounds load as zeros (and still count toward the barrier's bytes), and
+// are not written by a store. Returns 0 or a cudaError_t.
 inline int encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-                             const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                             const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                               CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -157,7 +170,7 @@ inline int encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int ran
   }
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims, strides, box,
-                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -281,6 +294,20 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Tile `tile` of the grouped order over n_m x n_n output tiles: GROUP_M row
+// tiles walk the column tiles together, so that the blocks in flight share
+// their operand tiles in L2.
+template <int GROUP_M>
+__device__ __forceinline__ void tile_at(int tile, int n_m, int n_n, int& tm, int& tn) {
+  const int per_group = GROUP_M * n_n;
+  const int group = tile / per_group;
+  const int first = group * GROUP_M;
+  const int rows = min(n_m - first, GROUP_M);
+  const int in_group = tile - group * per_group;
+  tm = first + in_group % rows;
+  tn = in_group / rows;
 }
 
 // One side's position in a ring of S stages: the stage and the parity of the

@@ -118,18 +118,6 @@ struct Bf16Mma {
   }
 };
 
-// Tile `tile` of the grouped order: GROUP_M row tiles walk the column tiles
-// together, so the blocks in flight share their w tiles (and a tiles) in L2.
-__device__ __forceinline__ void tile_at(int tile, int n_m, int n_n, int& tm, int& tn) {
-  const int per_group = GROUP_M * n_n;
-  const int group = tile / per_group;
-  const int first = group * GROUP_M;
-  const int rows = min(n_m - first, GROUP_M);
-  const int in_group = tile - group * per_group;
-  tm = first + in_group % rows;
-  tn = in_group / rows;
-}
-
 template <typename Mma>
 __global__ void __launch_bounds__(PIPE_THREADS, 1)
 matmul_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
@@ -163,7 +151,7 @@ matmul_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
       RingPos<STAGES> pos;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         int tm, tn;
-        tile_at(tile, n_m, n_n, tm, tn);
+        tile_at<GROUP_M>(tile, n_m, n_n, tm, tn);
         for (int kt = 0; kt < n_k; ++kt) {
           mbar_wait(empty(pos.stage), pos.phase ^ 1);
           const uint32_t st = ring + pos.stage * STAGE_BYTES;
@@ -186,7 +174,7 @@ matmul_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
     int n_stores = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       int tm, tn;
-      tile_at(tile, n_m, n_n, tm, tn);
+      tile_at<GROUP_M>(tile, n_m, n_n, tm, tn);
       typename Mma::Acc acc[128];
 #pragma unroll
       for (int i = 0; i < 128; ++i) acc[i] = 0;

@@ -16,7 +16,7 @@
 // 'high' (the search's default) is the TPU kernel's bf16x3 product,
 // hi.hi + (hi.lo + lo.hi) with hi = bf16(x), lo = bf16(x - hi) and lo.lo
 // dropped, on Hopper's tensor cores:
-// - split pass (split_bf16_kernel): q and db become hi/lo bf16 copies, K-major
+// - split pass (split_bf16_kernel<false>): q and db become hi/lo bf16 copies, K-major
 //   with D zero-padded to a multiple of 64, so every row is whole 128-byte
 //   swizzle atoms and 16-byte aligned for any D;
 // - main loop (scores_high_kernel): a 128 x 128 output tile per block of two
@@ -38,18 +38,50 @@
 // The stores of s are not overlapped with the next tile's loads (one tile
 // per block, one block per SM for its 193 KB of shared memory).
 //
-// 'highest' is exact fp32 products on the CUDA cores (67 TFLOP/s): a 64 x 128
-// output tile per 256-thread block, q and db staged through shared memory 16
-// columns of D at a time (the next slice loaded into registers during the
-// current one's products), 8 x 4 accumulators per thread, the strip max a
-// warp shuffle reduction.
+// 'highest' is the TPU's Precision.HIGHEST (lemon_tpu/ops/scoremax.py:66,
+// "HIGHEST's 6" bf16 MXU passes, :56): x = hi + mid + lo with hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16((x - hi) - mid) (exact for normal x), and
+// the six products hi.hi + (hi.mid + mid.hi + hi.lo + mid.mid + lo.hi);
+// mid.lo, lo.mid and lo.lo are below 2^-26 of each term and dropped. (On the
+// CPU the port computes 'highest' in fp32, as XLA:CPU does.)
+// - split pass: split_bf16_kernel<true> writes the three pieces, laid out as
+//   'high''s two (whose hi and lo are this hi and mid);
+// - main loop (scores_highest_kernel): hopper.cuh's warp-specialised TMA
+//   pipeline. A 128 x 128 output tile; a producer warpgroup whose one thread
+//   loads, per 32-deep stage, the six 128-row pieces (8 KB each, 64-byte rows
+//   in the 64-byte swizzle) into a ring of 4 stages (192 KB); two consumer
+//   warpgroups run, per 16-deep step, six m64n128k16 products: hi.hi into
+//   one fp32 accumulator and the five smaller ones into a second, so that
+//   they are not rounded at the large sum's ulp; the epilogue adds the two as
+//   'high''s does. A consumer keeps one stage's products in flight
+//   (wait_group 1) and hands the stage before back. The grid is persistent,
+//   one block an SM, over the tiles in grouped order (8 row tiles walk the
+//   column tiles together, so the pieces in flight stay in L2), and a tile's
+//   epilogue (l2 transform, mask, strip max by quad shuffles, s stored with
+//   the streaming hint) overlaps the loads of the next tile's stages.
+// What bounds it on an H100. At the main path's shape, 6 bf16 products are
+// 805 GFLOP, 0.814 ms at 989 TFLOP/s, against the same 0.16 ms of bytes:
+// compute (fp32 products on the CUDA cores, the kernel this one replaced,
+// are bound at 2.003 ms). At the full rate a tile's 32-deep stage is 48 KB of
+// pieces for 6.3 MFLOP, 7.5 TB/s from L2 over 132 SMs, and the shared
+// memory of an SM takes the TMA writes (32 B a clock) and the wgmma operand
+// reads of m64n128 (96 B a clock) at its 128 B a clock. The stages are 32
+// deep so that four fit and the loads run three stages ahead of the
+// products (64-deep stages would fit two). Registers decide the tile: two
+// accumulators of m64n128 are 128 of a consumer's 232, which rules out
+// m64n256 (one accumulator for all six products loses the small terms
+// below the large sum's ulp). Measured on an H100
+// (lemon_tpu_torch/benchmarks/k1_highest_limits.py): without its loads the
+// kernel takes nearly as long, so the products with their shared-memory
+// operand reads bound it and not L2; a cluster that multicasts the shared
+// operand would cut only the L2 bytes, and is not used.
 //
 // Two probes' kernels are template flags (Out) of both kernels, 'ip' only:
 // - P3, Out::kMaxOnly, replaces benchmarks/probe_knn_decomp.py `_bmax_kernel`
 //   (launched by `bmax_only`, :95): the block maxima alone, no mask and no
 //   store of s. Against K1 it prices the store of s: at q 8192 against a
 //   131072-row tile that is 4.3 GB (1.28 ms at 3.35 TB/s), while P3 moves
-//   0.3 GB and is bound by its products (3.34 ms 'high', 16.4 ms 'highest').
+//   0.3 GB and is bound by its products (3.34 ms 'high', 6.67 ms 'highest').
 // - P2, Out::kTransposed, replaces benchmarks/probe_scoremax2.py `_kernel_t`
 //   (launched by `fused_t`, :61): K1 with the block maxima written
 //   transposed, (T/128, B). On the TPU that dodged a lane-store rule; here it
@@ -72,15 +104,6 @@ using namespace lemon_hopper;
 
 constexpr unsigned FULL = 0xffffffffu;
 
-// ---------------------------------------------------------------- highest
-
-constexpr int BM = 64;   // query rows per block
-constexpr int BN = 128;  // database columns per block: one block-max strip
-constexpr int BK = 16;   // depth of one shared-memory stage
-constexpr int THREADS = 256;
-constexpr int ROWS = BM / (THREADS / 32);  // 8 rows per warp
-constexpr int COLS = BN / 32;              // 4 columns per lane, strided by 32
-
 // What a kernel writes: K1's s and row-major block maxima, P3's block maxima
 // alone, or P2's s and transposed block maxima.
 enum class Out { kScoresRowMax, kMaxOnly, kTransposed };
@@ -92,111 +115,36 @@ __device__ __forceinline__ long long bmax_at(int row, int strip, int B, int n_st
                                  : static_cast<long long>(row) * n_strips + strip;
 }
 
-template <bool L2, Out OUT>
-__global__ void __launch_bounds__(THREADS)
-scores_highest_kernel(const float* __restrict__ q, const float* __restrict__ db, const float* __restrict__ qsq,
-                      const float* __restrict__ dbsq, float* __restrict__ s, float* __restrict__ bmax, int B, int T,
-                      int D, long long start, long long n_valid) {
-  // +1 padding spreads the transposed stores over the banks.
-  __shared__ float a_s[BK][BM + 1];
-  __shared__ float b_s[BK][BN + 1];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  float acc[ROWS][COLS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) acc[i][j] = 0.f;
-
-  // The next 16-deep slice is loaded into registers while this one is
-  // multiplied out of shared memory.
-  constexpr int A_PER = BM * BK / THREADS, B_PER = BN * BK / THREADS;
-  float ra[A_PER], rb[B_PER];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int it = 0; it < A_PER; ++it) {
-      const int idx = tid + it * THREADS;
-      const int gr = row0 + idx / BK, gk = k0 + idx % BK;
-      ra[it] = (gr < B && gk < D) ? q[(long long)gr * D + gk] : 0.f;
-    }
-#pragma unroll
-    for (int it = 0; it < B_PER; ++it) {
-      const int idx = tid + it * THREADS;
-      const int gc = col0 + idx / BK, gk = k0 + idx % BK;
-      rb[it] = (gc < T && gk < D) ? db[(long long)gc * D + gk] : 0.f;
-    }
-  };
-  load(0);
-  for (int k0 = 0; k0 < D; k0 += BK) {
-#pragma unroll
-    for (int it = 0; it < A_PER; ++it) a_s[(tid + it * THREADS) % BK][(tid + it * THREADS) / BK] = ra[it];
-#pragma unroll
-    for (int it = 0; it < B_PER; ++it) b_s[(tid + it * THREADS) % BK][(tid + it * THREADS) / BK] = rb[it];
-    __syncthreads();
-    if (k0 + BK < D) load(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[ROWS], b[COLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) a[i] = a_s[kk][warp * ROWS + i];
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) b[j] = b_s[kk][lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  const int n_strips = T / BN;
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int gr = row0 + warp * ROWS + i;
-    const bool row_ok = gr < B;
-    float m = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      const int c = col0 + lane + 32 * j;
-      float v = acc[i][j];
-      if (L2) v = -(((row_ok ? qsq[gr] : 0.f) - 2.f * v) + dbsq[c]);
-      if (start + c >= n_valid) v = -CUDART_INF_F;
-      if (OUT != Out::kMaxOnly && row_ok) s[(long long)gr * T + c] = v;
-      m = fmaxf(m, v);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
-    if (lane == 0 && row_ok) bmax[bmax_at<OUT>(gr, blockIdx.x, B, n_strips)] = m;
-  }
-}
-
 // ---------------------------------------------------------------- split
 
 // One thread per 8 consecutive outputs of a row: hi = bf16_rn(x),
-// lo = bf16_rn(x - hi), zero past D.
+// mid = bf16_rn(x - hi) and, with THREE, lo = bf16_rn((x - hi) - mid); zero
+// past D. Both differences are exact in fp32, so for a normal x the three
+// pieces sum to x exactly.
+template <bool THREE>
 __global__ void split_bf16_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ hi,
-                                  __nv_bfloat16* __restrict__ lo, long long N, int D, int Dp) {
+                                  __nv_bfloat16* __restrict__ mid, __nv_bfloat16* __restrict__ lo, long long N,
+                                  int D, int Dp) {
   const int groups = Dp / 8;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= N * groups) return;
   const long long r = i / groups;
   const int d0 = static_cast<int>(i % groups) * 8;
   __align__(16) __nv_bfloat16 h[8];
+  __align__(16) __nv_bfloat16 m[8];
   __align__(16) __nv_bfloat16 l[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int d = d0 + j;
     const float v = d < D ? x[r * D + d] : 0.f;
     h[j] = __float2bfloat16_rn(v);
-    l[j] = __float2bfloat16_rn(v - __bfloat162float(h[j]));
+    const float rest = v - __bfloat162float(h[j]);
+    m[j] = __float2bfloat16_rn(rest);
+    if (THREE) l[j] = __float2bfloat16_rn(rest - __bfloat162float(m[j]));
   }
   *reinterpret_cast<uint4*>(hi + r * Dp + d0) = *reinterpret_cast<const uint4*>(h);
-  *reinterpret_cast<uint4*>(lo + r * Dp + d0) = *reinterpret_cast<const uint4*>(l);
+  *reinterpret_cast<uint4*>(mid + r * Dp + d0) = *reinterpret_cast<const uint4*>(m);
+  if (THREE) *reinterpret_cast<uint4*>(lo + r * Dp + d0) = *reinterpret_cast<const uint4*>(l);
 }
 
 // ---------------------------------------------------------------- high
@@ -315,6 +263,155 @@ scores_high_kernel(const __nv_bfloat16* __restrict__ q_hi, const __nv_bfloat16* 
   }
 }
 
+// ---------------------------------------------------------------- highest
+
+constexpr int XM = 128;                  // query rows of a tile: 2 consumer warpgroups x 64
+constexpr int XN = 128;                  // database columns of a tile: one strip
+constexpr int XK = 32;                   // depth of a stage: one 64-byte swizzle row of bf16
+constexpr int XSTAGES = 4;
+constexpr int XGROUP_M = 8;              // row tiles a group of the tile order spans
+constexpr int XTILE_BYTES = 128 * XK * 2;        // one piece of one operand: 128 rows of 64 B
+constexpr int XSTAGE_BYTES = 6 * XTILE_BYTES;    // q hi, mid, lo; db hi, mid, lo
+constexpr int XBAR_OFF = XSTAGES * XSTAGE_BYTES;  // full[XSTAGES], empty[XSTAGES]
+constexpr int HIGHEST_SMEM = XBAR_OFF + 2 * XSTAGES * 8 + 1024;  // + slack to align the ring to 1024 B
+
+// The TMA maps of the three pieces of each operand, (rows, Dp) bf16.
+struct SplitMaps {
+  CUtensorMap q[3];
+  CUtensorMap db[3];
+};
+
+template <bool L2, Out OUT>
+__global__ void __launch_bounds__(PIPE_THREADS, 1)
+scores_highest_kernel(const __grid_constant__ SplitMaps maps, const float* __restrict__ qsq,
+                      const float* __restrict__ dbsq, float* __restrict__ s, float* __restrict__ bmax, int B, int T,
+                      int Dp, long long start, long long n_valid) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms are 1024-aligned
+  auto full = [&](int st) { return ring + XBAR_OFF + 8 * st; };
+  auto empty = [&](int st) { return ring + XBAR_OFF + 8 * (XSTAGES + st); };
+  const int n_m = (B + XM - 1) / XM, n_n = T / XN;
+  const int n_tiles = n_m * n_n;
+  const int n_k = Dp / XK;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < XSTAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 2);  // one arrival from each consumer warpgroup
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer: one thread keeps the ring full, across tiles. Query rows
+    // past B load as zeros.
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      RingPos<XSTAGES> pos;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        int tm, tn;
+        tile_at<XGROUP_M>(tile, n_m, n_n, tm, tn);
+        for (int kt = 0; kt < n_k; ++kt) {
+          mbar_wait(empty(pos.stage), pos.phase ^ 1);
+          const uint32_t st = ring + pos.stage * XSTAGE_BYTES;
+          mbar_arrive_expect_tx(full(pos.stage), XSTAGE_BYTES);
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            tma_load_2d(st + p * XTILE_BYTES, &maps.q[p], full(pos.stage), kt * XK, tm * XM);
+            tma_load_2d(st + (3 + p) * XTILE_BYTES, &maps.db[p], full(pos.stage), kt * XK, tn * XN);
+          }
+          pos.advance();
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;  // this consumer's 64 rows of the tile
+  const int tid = threadIdx.x & 127;
+  const bool lead = tid == 0;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int n_strips = T / XN;
+  RingPos<XSTAGES> pos;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    int tm, tn;
+    tile_at<XGROUP_M>(tile, n_m, n_n, tm, tn);
+    float acc[64], acc_x[64];  // hi.hi, and the five smaller products
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = acc_x[i] = 0.f;
+    int prev = 0;
+    for (int kt = 0; kt < n_k; ++kt) {
+      mbar_wait(full(pos.stage), pos.phase);
+      const uint32_t a = ring + pos.stage * XSTAGE_BYTES + cw * 64 * XK * 2;  // q hi; mid, lo a tile further each
+      const uint32_t b = ring + pos.stage * XSTAGE_BYTES + 3 * XTILE_BYTES;  // db hi; mid, lo likewise
+      fence_operands(acc);
+      fence_operands(acc_x);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < XK / 16; ++kk) {
+        const uint32_t o = kk * 32;  // 16 bf16 further along K, inside the 64-byte row
+        const uint64_t qh = smem_desc_sw64(a + o), qm = smem_desc_sw64(a + XTILE_BYTES + o),
+                       ql = smem_desc_sw64(a + 2 * XTILE_BYTES + o);
+        const uint64_t dh = smem_desc_sw64(b + o), dm = smem_desc_sw64(b + XTILE_BYTES + o),
+                       dl = smem_desc_sw64(b + 2 * XTILE_BYTES + o);
+        wgmma_m64n128k16(acc, qh, dh);
+        wgmma_m64n128k16(acc_x, qh, dm);
+        wgmma_m64n128k16(acc_x, qm, dh);
+        wgmma_m64n128k16(acc_x, qh, dl);
+        wgmma_m64n128k16(acc_x, qm, dm);
+        wgmma_m64n128k16(acc_x, ql, dh);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: hand it back
+      fence_operands(acc);
+      fence_operands(acc_x);
+      if (kt > 0 && lead) mbar_arrive(empty(prev));
+      prev = pos.stage;
+      pos.advance();
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    fence_operands(acc_x);
+    if (lead) mbar_arrive(empty(prev));
+
+    // Epilogue, while the producer already loads the next tile. Accumulator
+    // layout (m64nNk16, fp32): warp w holds rows 16w + lane/4 (registers 4i,
+    // 4i+1) and 16w + lane/4 + 8 (4i+2, 4i+3) at columns 8i + 2(lane%4) and
+    // the next one. s is stored with the streaming hint: it is not read
+    // again here, and the operands should keep L2.
+    const int col0 = tn * XN;
+    const int rloc = tm * XM + cw * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = rloc + 8 * h;
+      const bool row_ok = gr < B;
+      const float qs = (L2 && row_ok) ? qsq[gr] : 0.f;
+      float m = -CUDART_INF_F;
+#pragma unroll
+      for (int i = 0; i < XN / 8; ++i) {
+        const int c = col0 + 8 * i + 2 * (lane & 3);
+        float v0 = acc[4 * i + 2 * h] + acc_x[4 * i + 2 * h];
+        float v1 = acc[4 * i + 2 * h + 1] + acc_x[4 * i + 2 * h + 1];
+        if (L2) {
+          v0 = -((qs - 2.f * v0) + dbsq[c]);
+          v1 = -((qs - 2.f * v1) + dbsq[c + 1]);
+        }
+        if (start + c >= n_valid) v0 = -CUDART_INF_F;
+        if (start + c + 1 >= n_valid) v1 = -CUDART_INF_F;
+        if (OUT != Out::kMaxOnly && row_ok)
+          __stcs(reinterpret_cast<float2*>(s + static_cast<long long>(gr) * T + c), make_float2(v0, v1));
+        m = fmaxf(m, fmaxf(v0, v1));
+      }
+      m = fmaxf(m, __shfl_xor_sync(FULL, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(FULL, m, 2));
+      if ((lane & 3) == 0 && row_ok) bmax[bmax_at<OUT>(gr, tn, B, n_strips)] = m;
+    }
+  }
+}
+
 }  // namespace
 
 // Shapes are checked by the Python wrapper (lemon_tpu_torch/ops/scoremax.py).
@@ -324,9 +421,21 @@ scores_high_kernel(const __nv_bfloat16* __restrict__ q_hi, const __nv_bfloat16* 
 extern "C" int lemon_split_bf16(const float* x, void* hi, void* lo, long long N, int D, int Dp, void* stream) {
   const long long n = N * (Dp / 8);
   const int threads = 256;
-  split_bf16_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(x, static_cast<__nv_bfloat16*>(hi),
-                                                           static_cast<__nv_bfloat16*>(lo), N, D, Dp);
+  split_bf16_kernel<false><<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(x, static_cast<__nv_bfloat16*>(hi),
+                                                                  static_cast<__nv_bfloat16*>(lo), nullptr, N, D, Dp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hi, mid, lo (N, Dp) bf16 from x (N, D) fp32, as lemon_split_bf16 with a
+// third piece; hi and mid are lemon_split_bf16's hi and lo.
+extern "C" int lemon_split_bf16x3(const float* x, void* hi, void* mid, void* lo, long long N, int D, int Dp,
+                                  void* stream) {
+  const long long n = N * (Dp / 8);
+  const int threads = 256;
+  split_bf16_kernel<true><<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      x, static_cast<__nv_bfloat16*>(hi), static_cast<__nv_bfloat16*>(mid), static_cast<__nv_bfloat16*>(lo), N, D, Dp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -346,10 +455,16 @@ int launch_high(const __nv_bfloat16* qh, const __nv_bfloat16* ql, const __nv_bfl
 }
 
 template <bool L2, Out OUT>
-int launch_highest(const float* q, const float* db, const float* qsq, const float* dbsq, float* s, float* bmax, int B,
-                   int T, int D, long long start, long long n_valid, cudaStream_t st) {
-  const dim3 grid(T / BN, (B + BM - 1) / BM);
-  scores_highest_kernel<L2, OUT><<<grid, THREADS, 0, st>>>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid);
+int launch_highest(const SplitMaps& maps, const float* qsq, const float* dbsq, float* s, float* bmax, int B, int T,
+                   int Dp, long long start, long long n_valid, cudaStream_t st) {
+  static int cached[64] = {};
+  int sms = 0;
+  const int e = prepare_launch(reinterpret_cast<const void*>(scores_highest_kernel<L2, OUT>), HIGHEST_SMEM, cached,
+                               &sms);
+  if (e != 0) return e;
+  const int n_tiles = ((B + XM - 1) / XM) * (T / XN);
+  scores_highest_kernel<L2, OUT><<<n_tiles < sms ? n_tiles : sms, PIPE_THREADS, HIGHEST_SMEM, st>>>(
+      maps, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -375,14 +490,34 @@ extern "C" int lemon_scores_blockmax_high(const void* q_hi, const void* q_lo, co
   return launch_high<false, Out::kScoresRowMax>(qh, ql, dh, dl, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, st);
 }
 
-// 'highest': T a multiple of 128 and 0 < B <= 65535 * 64; out as for 'high'.
-extern "C" int lemon_scores_blockmax_highest(const float* q, const float* db, const float* qsq, const float* dbsq,
-                                             float* s, float* bmax, int B, int T, int D, long long start,
-                                             long long n_valid, int l2, int out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// 'highest' from the three-piece split operands (lemon_split_bf16x3): T a
+// multiple of 128, Dp a multiple of 64, (B / 128 rounded up) * (T / 128) < 2^31
+// tiles; qsq, dbsq and out as for 'high'. Returns the first error of the
+// tensor maps' encoding or of the launch.
+extern "C" int lemon_scores_blockmax_highest(const void* q_hi, const void* q_mid, const void* q_lo,
+                                             const void* db_hi, const void* db_mid, const void* db_lo,
+                                             const float* qsq, const float* dbsq, float* s, float* bmax, int B, int T,
+                                             int Dp, long long start, long long n_valid, int l2, int out,
+                                             void* stream) {
   if (l2 && out != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (l2) return launch_highest<true, Out::kScoresRowMax>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, st);
-  if (out == 1) return launch_highest<false, Out::kMaxOnly>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, st);
-  if (out == 2) return launch_highest<false, Out::kTransposed>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, st);
-  return launch_highest<false, Out::kScoresRowMax>(q, db, qsq, dbsq, s, bmax, B, T, D, start, n_valid, st);
+  SplitMaps maps;
+  const void* q[3] = {q_hi, q_mid, q_lo};
+  const void* db[3] = {db_hi, db_mid, db_lo};
+  const cuuint64_t dims_q[2] = {static_cast<cuuint64_t>(Dp), static_cast<cuuint64_t>(B)};
+  const cuuint64_t dims_db[2] = {static_cast<cuuint64_t>(Dp), static_cast<cuuint64_t>(T)};
+  const cuuint64_t row[1] = {static_cast<cuuint64_t>(Dp) * 2};
+  const cuuint32_t box[2] = {XK, 128};  // 64 B x 128 rows: XM == XN
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw64 = CU_TENSOR_MAP_SWIZZLE_64B;
+  int e = 0;
+  for (int p = 0; p < 3 && e == 0; ++p) {
+    e = encode_tensor_map(&maps.q[p], bf16, 2, q[p], dims_q, row, box, sw64);
+    if (e == 0) e = encode_tensor_map(&maps.db[p], bf16, 2, db[p], dims_db, row, box, sw64);
+  }
+  if (e != 0) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (l2) return launch_highest<true, Out::kScoresRowMax>(maps, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, st);
+  if (out == 1) return launch_highest<false, Out::kMaxOnly>(maps, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, st);
+  if (out == 2) return launch_highest<false, Out::kTransposed>(maps, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, st);
+  return launch_highest<false, Out::kScoresRowMax>(maps, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, st);
 }

@@ -4,9 +4,18 @@ Port of ``lemon_tpu/ops/scoremax.py`` (``fused_scores_blockmax``). The exact
 kNN search needs, per (query block, database tile), the fp32 score block
 (for the candidate gather) and the maximum of each 128-column strip (the
 blockmax prefilter input). The CUDA kernels ``csrc/scoremax.cu`` emit both
-in one pass over the score tile: ``high`` (bf16x3) on the tensor cores with
-``wgmma``, after a split pass that writes the bf16 hi/lo operands
-(:func:`split_bf16`); ``highest`` (exact fp32 products) on the CUDA cores.
+in one pass over the score tile, on the tensor cores with ``wgmma``, after a
+split pass that writes bf16 pieces of the operands, as the TPU computes its
+two precisions on the MXU:
+
+- ``high`` is the TPU kernel's bf16x3: ``hi.hi + (hi.lo + lo.hi)`` of the
+  two pieces of :func:`split_bf16`;
+- ``highest`` is the TPU's ``Precision.HIGHEST``, six bf16 products of the
+  three pieces of :func:`split_bf16x3`: ``hi.hi`` plus ``hi.mid + mid.hi +
+  hi.lo + mid.mid + lo.hi`` (:func:`scores_blockmax_bf16x6_plain` repeats
+  it on any device). On the CPU, ``highest`` is plain fp32 products, as the
+  JAX package's ``HIGHEST`` is on XLA:CPU.
+
 Two probe kernels are the same kernels with another output:
 :func:`block_maxima` (P3, no store of s) and :func:`scores_blockmax_t` (P2,
 the block maxima transposed).
@@ -34,32 +43,59 @@ def padded_depth(d: int) -> int:
     return -(-d // SPLIT_ALIGN) * SPLIT_ALIGN
 
 
+def _split_plain(x: torch.Tensor, pieces: int):
+    out = []
+    rest = x
+    for _ in range(pieces):
+        piece = rest.to(torch.bfloat16)
+        out.append(piece)
+        rest = rest - piece.float()
+    pad = padded_depth(x.shape[1]) - x.shape[1]
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in out)
+
+
 def split_bf16_plain(x: torch.Tensor):
     """Plain version of :func:`split_bf16`: ``hi = bf16(x)``,
     ``lo = bf16(x - hi)`` (round to nearest even), as bf16 (N, Dp) with D
     zero-padded to :func:`padded_depth`."""
-    hi = x.to(torch.bfloat16)
-    lo = (x - hi.float()).to(torch.bfloat16)
-    pad = padded_depth(x.shape[1]) - x.shape[1]
-    return torch.nn.functional.pad(hi, (0, pad)), torch.nn.functional.pad(lo, (0, pad))
+    return _split_plain(x, 2)
+
+
+def split_bf16x3_plain(x: torch.Tensor):
+    """Plain version of :func:`split_bf16x3`: ``hi = bf16(x)``,
+    ``mid = bf16(x - hi)``, ``lo = bf16((x - hi) - mid)`` (round to nearest
+    even; both differences are exact in fp32, so for normal x the pieces sum
+    to x exactly), as bf16 (N, Dp) with D zero-padded."""
+    return _split_plain(x, 3)
+
+
+def _split(x: torch.Tensor, pieces: int, name: str):
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous 2-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return _split_plain(x, pieces)
+    n, d = x.shape
+    dp = padded_depth(d)
+    out = tuple(torch.empty((n, dp), dtype=torch.bfloat16, device=x.device) for _ in range(pieces))
+    code = getattr(_build.library(), f"lemon_{name}")(x.data_ptr(), *(t.data_ptr() for t in out), n, d, dp,
+                                                       _build.stream_handle(x))
+    _build.check(code, name)
+    return out
 
 
 def split_bf16(x: torch.Tensor):
     """The bf16x3 operands of ``x`` (N, D) contiguous float32: (hi, lo), each
     (N, Dp) bf16, K-major, D zero-padded to a multiple of 64. CPU tensors
     take the plain version; CUDA tensors run the split pass of K1."""
-    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"split_bf16: need a contiguous 2-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return split_bf16_plain(x)
-    n, d = x.shape
-    dp = padded_depth(d)
-    hi = torch.empty((n, dp), dtype=torch.bfloat16, device=x.device)
-    lo = torch.empty((n, dp), dtype=torch.bfloat16, device=x.device)
-    code = _build.library().lemon_split_bf16(x.data_ptr(), hi.data_ptr(), lo.data_ptr(), n, d, dp,
-                                             _build.stream_handle(x))
-    _build.check(code, "split_bf16")
-    return hi, lo
+    return _split(x, 2, "split_bf16")
+
+
+def split_bf16x3(x: torch.Tensor):
+    """The bf16x6 operands of ``x`` (N, D) contiguous float32: (hi, mid,
+    lo), each (N, Dp) bf16 as in :func:`split_bf16`, whose (hi, lo) are this
+    (hi, mid). CPU tensors take the plain version; CUDA tensors run the
+    split pass of K1 with its third piece."""
+    return _split(x, 3, "split_bf16x3")
 
 
 def _inner_products(q: torch.Tensor, db: torch.Tensor, precision: str) -> torch.Tensor:
@@ -71,12 +107,18 @@ def _inner_products(q: torch.Tensor, db: torch.Tensor, precision: str) -> torch.
     return q @ db.T
 
 
-def scores_blockmax_plain(q, db, metric="ip", db_sqnorm=None, start=0, n_valid=None, precision="highest"):
-    """Plain PyTorch version of :func:`scores_blockmax` (any device)."""
-    _check(q, db, metric, db_sqnorm, precision)
-    b, t = q.shape[0], db.shape[0]
+def _bf16x6_products(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    # six bf16 products, each exact in fp32: hi.hi apart, the five smaller
+    # ones summed together, then added, as the kernel's two accumulators
+    q_hi, q_mid, q_lo = (t.float() for t in split_bf16x3_plain(q))
+    db_hi, db_mid, db_lo = (t.float() for t in split_bf16x3_plain(db))
+    return q_hi @ db_hi.T + (q_hi @ db_mid.T + q_mid @ db_hi.T + q_hi @ db_lo.T + q_mid @ db_mid.T
+                             + q_lo @ db_hi.T)
+
+
+def _masked_blockmax(q, s, metric, db_sqnorm, start, n_valid):
+    b, t = s.shape
     n_valid = t + start if n_valid is None else n_valid
-    s = _inner_products(q, db, precision)
     if metric == "l2":
         s = -(((q * q).sum(1, keepdim=True) - 2.0 * s) + db_sqnorm[None, :])
     col = start + torch.arange(t, device=q.device)
@@ -84,12 +126,28 @@ def scores_blockmax_plain(q, db, metric="ip", db_sqnorm=None, start=0, n_valid=N
     return s, s.view(b, t // LANES, LANES).amax(dim=2)
 
 
+def scores_blockmax_plain(q, db, metric="ip", db_sqnorm=None, start=0, n_valid=None, precision="highest"):
+    """Plain PyTorch version of :func:`scores_blockmax` (any device): what
+    a CPU tensor gets, fp32 products at ``highest``."""
+    _check(q, db, metric, db_sqnorm, precision)
+    return _masked_blockmax(q, _inner_products(q, db, precision), metric, db_sqnorm, start, n_valid)
+
+
+def scores_blockmax_bf16x6_plain(q, db, metric="ip", db_sqnorm=None, start=0, n_valid=None):
+    """Plain PyTorch version (any device) of what the card's kernel computes
+    at ``highest``: the six bf16 products of :func:`split_bf16x3`'s pieces,
+    ``hi.hi + (hi.mid + mid.hi + hi.lo + mid.mid + lo.hi)``, in fp32."""
+    _check(q, db, metric, db_sqnorm, "highest")
+    return _masked_blockmax(q, _bf16x6_products(q, db), metric, db_sqnorm, start, n_valid)
+
+
 def scores_blockmax(q, db, metric="ip", db_sqnorm=None, start=0, n_valid=None, precision="highest"):
     """(scores (B, T), block maxima (B, T/128)) of ``q`` (B, D) against the
     database tile ``db`` (T, D), both fp32 and contiguous, T a multiple of
     128. ``db_sqnorm`` (T,) is required for 'l2'. ``n_valid=None`` masks
-    nothing. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (``scores_blockmax.launches`` counts the launches of both
+    nothing. CPU tensors take the plain version (fp32 products at
+    ``highest``); CUDA tensors launch the kernel (six bf16 products at
+    ``highest``; ``scores_blockmax.launches`` counts the launches of both
     precisions, ``scores_blockmax.launches_highest`` those of ``highest``)."""
     _check(q, db, metric, db_sqnorm, precision)
     if q.device.type == "cpu":
@@ -158,10 +216,14 @@ def _launch(name, q, db, metric, db_sqnorm, start, n_valid, precision, out):
     """One launch of K1's kernels writing ``out``: (s, bmax), s None for P3."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    b, d = q.shape
+    b = q.shape[0]
     t = db.shape[0]
-    if b > 65535 * 64:
-        raise ValueError(f"{name}: {b} query rows exceed the launch grid")
+    if precision == "high":  # a block per (strip, 128 query rows), at most 65535 of the latter
+        fits = b <= 65535 * 128
+    else:  # a persistent grid walking (B/128) * (T/128) tiles, counted in int32
+        fits = -(-b // 128) * (t // LANES) < 2**31
+    if not fits:
+        raise ValueError(f"{name}: {b} query rows x {t} columns exceed the launch grid")
     s = None if out == _OUT_MAX_ONLY else torch.empty((b, t), dtype=torch.float32, device=q.device)
     shape = (t // LANES, b) if out == _OUT_TRANSPOSED else (b, t // LANES)
     bmax = torch.empty(shape, dtype=torch.float32, device=q.device)
@@ -170,17 +232,11 @@ def _launch(name, q, db, metric, db_sqnorm, start, n_valid, precision, out):
     norms = (None if qsq is None else qsq.data_ptr(), None if db_sqnorm is None else db_sqnorm.data_ptr())
     tail = (None if s is None else s.data_ptr(), bmax.data_ptr(), b, t)
     lib = _build.library()
-    if precision == "high":
-        (q_hi, q_lo), (db_hi, db_lo) = split_bf16(q), split_bf16(db)
-        code = lib.lemon_scores_blockmax_high(
-            q_hi.data_ptr(), q_lo.data_ptr(), db_hi.data_ptr(), db_lo.data_ptr(), *norms, *tail,
-            q_hi.shape[1], int(start), int(n_valid), int(metric == "l2"), out, _build.stream_handle(q),
-        )
-    else:
-        code = lib.lemon_scores_blockmax_highest(
-            q.data_ptr(), db.data_ptr(), *norms, *tail, d, int(start), int(n_valid), int(metric == "l2"), out,
-            _build.stream_handle(q),
-        )
+    split = split_bf16 if precision == "high" else split_bf16x3
+    q_parts, db_parts = split(q), split(db)
+    kernel = lib.lemon_scores_blockmax_high if precision == "high" else lib.lemon_scores_blockmax_highest
+    code = kernel(*(p.data_ptr() for p in (*q_parts, *db_parts)), *norms, *tail, q_parts[0].shape[1], int(start),
+                  int(n_valid), int(metric == "l2"), out, _build.stream_handle(q))
     _build.check(code, name)
     return s, bmax
 

@@ -5,6 +5,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import torch
 
 
 def port_config(jax_cfg):
@@ -34,7 +35,7 @@ def port_model(params, jax_cfg):
     from lemon_tpu_torch.models.convert import captioner_from_flax
 
     cfg = port_config(jax_cfg)
-    model = init_captioner(cfg, 0)
+    model = init_captioner(cfg, 0, torch.device("cpu"))
     model.load_state_dict(captioner_from_flax(params, cfg))
     return model.eval()
 

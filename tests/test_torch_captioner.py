@@ -196,7 +196,7 @@ def test_load_blip2_matches_hf_without_transformers(tiny_hf_blip2, monkeypatch):
 
     ckpt, hf = tiny_hf_blip2
     monkeypatch.setitem(sys.modules, "transformers", None)  # the port must not need it
-    model, cfg = load_blip2(ckpt, lora_rank=4, max_text_len=10)
+    model, cfg = load_blip2(ckpt, lora_rank=4, max_text_len=10, device=torch.device("cpu"))
     assert (cfg.vocab_size, cfg.n_queries, cfg.vision_mlp_dim, cfg.decoder_mlp_dim) == (120, 4, 48, 48)
     rng = np.random.default_rng(0)
     pixels = rng.random((3, 56, 56, 3), np.float32)

@@ -106,7 +106,7 @@ def test_frozen_vision_is_bit_stable_and_the_rest_trains():
 
     splits = _splits(synthetic_captioning, 40)
     mc = QFormerConfig.tiny()
-    before = {k: v.clone() for k, v in init_captioner(mc, 0).state_dict().items()}
+    before = {k: v.clone() for k, v in init_captioner(mc, 0, CPU).state_dict().items()}
     cfg = pcap.CaptionTrainConfig(epochs=1, batch_size=16, model_cfg=mc, learning_rate=1e-2, weight_decay=0.5)
     after = pcap.train_captioner(cfg, splits, device=CPU)["model"].state_dict()
     for k, v in before.items():

@@ -154,7 +154,7 @@ def sharded_blip2(tmp_path_factory):
 def _port_logits(ckpt, pixels, ids):
     from lemon_tpu_torch.models.blip2 import load_blip2
 
-    model, _ = load_blip2(ckpt, max_text_len=ids.shape[1])
+    model, _ = load_blip2(ckpt, max_text_len=ids.shape[1], device=torch.device("cpu"))
     with torch.no_grad():
         return model.eval()(torch.from_numpy(pixels), torch.from_numpy(ids)).numpy()
 
@@ -195,10 +195,10 @@ def test_missing_shard_raises(sharded_blip2, tmp_path):
     shard = sorted(broken.glob("model-*.safetensors"))[1]
     shard.unlink()
     with pytest.raises(FileNotFoundError, match=shard.name):
-        load_blip2(broken)
+        load_blip2(broken, device=torch.device("cpu"))
     (broken / "model.safetensors.index.json").unlink()
     with pytest.raises(FileNotFoundError, match="model.safetensors"):
-        load_blip2(broken)
+        load_blip2(broken, device=torch.device("cpu"))
 
 
 def test_save_blip2_round_trip_and_hf_reads_it(tmp_path):
@@ -213,7 +213,7 @@ def test_save_blip2_round_trip_and_hf_reads_it(tmp_path):
     from lemon_tpu_torch.models.captioner import init_captioner
 
     cfg = Blip2Config.tiny()
-    model = init_captioner(cfg, seed=1).eval()
+    model = init_captioner(cfg, seed=1, device=torch.device("cpu")).eval()
     files = save_blip2(model, tmp_path / "ckpt", max_shard_bytes=20_000)
     names = {f.name for f in files}
     assert "model.safetensors.index.json" in names and len([n for n in names if n.startswith("model-")]) > 2
@@ -223,7 +223,7 @@ def test_save_blip2_round_trip_and_hf_reads_it(tmp_path):
                                 max_text_len=cfg.max_text_len)
     assert (read.vision_mlp_dim, read.qformer_mlp_dim, read.decoder_mlp_dim, read.max_positions) == (
         4 * cfg.vision.vision_width, 4 * cfg.qformer_width, 4 * cfg.decoder_width, cfg.max_text_len + cfg.n_queries)
-    back, _ = load_blip2(tmp_path / "ckpt", max_text_len=cfg.max_text_len)
+    back, _ = load_blip2(tmp_path / "ckpt", max_text_len=cfg.max_text_len, device=torch.device("cpu"))
     want = model.state_dict()
     assert all(torch.equal(t, want[k]) for k, t in back.state_dict().items() if "lora" not in k)
 
