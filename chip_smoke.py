@@ -14,8 +14,12 @@ imports nothing of JAX. Phases, each printed on its own lines:
    both; ``highest`` (the TPU's six bf16 products) also within 1e-6 of
    ``scores_blockmax_bf16x6_plain`` and no further from a float64 product
    than the fp32 plain version plus 1e-6 (the three float64 errors printed
-   with ``high``'s); both split passes bit for bit against their plain
-   versions; ``torch.matmul(q, db.T)`` alone (cuBLAS SGEMM, TF32 off) as
+   with ``high``'s); ``high``'s s and maxima, ip and l2, bit for bit those
+   of the cp.async kernel that one template's two-piece instance replaced
+   (SHA-256 of the raw bits against ``K1_HIGH_SHA256``); both split passes
+   bit for bit against their plain versions, and at each precision the
+   split of q, the split of db and the main kernel timed apart;
+   ``torch.matmul(q, db.T)`` alone (cuBLAS SGEMM, TF32 off) as
    ``highest``'s library yardstick;
 4. K2 (``topk``) against its plain version at the main path's (8192, 125)
    and (8192, 768) k=6, and at (8192, 640) k=5, (8192, 6528) k=51 and
@@ -82,7 +86,8 @@ imports nothing of JAX. Phases, each printed on its own lines:
     P3 (``block_maxima``) at q 8192 against 131072 rows and P2
     (``scores_blockmax_t``) at 4096 against 65536 with n_valid < T, at both
     precisions, within 1e-5 of the plain version and bit-equal to K1's
-    block maxima (and P2's scores to K1's), ``highest`` beside the fp32
+    block maxima (and P2's scores to K1's), at ``high`` bit-equal to the
+    replaced kernel's (``P3_P2_HIGH_SHA256``), ``highest`` beside the fp32
     ``torch.matmul(q, db.T)`` alone; P1 (``topk_colids``) at
     (8192, 6528) k=51 with ties and -inf rows, values and ids exact
     (``torch.topk``). Then each probe program's ``main()`` once in-process
@@ -252,6 +257,7 @@ The second-to-last line is a JSON object describing each kernel; the last is
 from __future__ import annotations
 
 import ast
+import hashlib
 import json
 import os
 import pickle
@@ -294,6 +300,23 @@ PROBES = ("probe_pallas_int8", "probe_knn_decomp", "probe_scoremax2", "probe_knn
 P4_SIZE = 4096
 P3_P2_SHAPES = (("P3", 8192, 131072, None), ("P2", 4096, 65536, 65000))
 P1_SHAPE = (8192, 6528, 51)
+# SHA-256 of the raw bits of (s, bmax) that K1's cp.async kernel at 'high'
+# (its main-loop kernel until the two-piece instance of one template took
+# its place) wrote on an H100 at phase 3's inputs and n_valid, and (s or
+# None, bmax) of P3 and P2 at phase 14's: the template's 'high' must write
+# them bit for bit
+K1_HIGH_SHA256 = {
+    "ip": ("480ed7f1b15dafbbe2d7dbe186c19a340a7771dae7898a2b52c585df6d3f52dd",
+           "8fb6fa8054b9c867b2bf598983efc3cda0c9e47d32e3d4884befc8248523d815"),
+    "l2": ("a679ea91a491b5ab7d7d7fef602bc505b57897908cd37b2252a26be3f8963e6f",
+           "b0ca6fcda7a63b5f998d00b7c6b8f76476b36f2781e09fbd46bf223326bbefb1")}
+P3_P2_HIGH_SHA256 = {
+    "P3": (None, "adbadbb1b5eb24f3d49ef9279f47196c8a1f7ea311c15e82981c1be1dc251bbb"),
+    "P2": ("8ebdeb17240b0ee55e2e4c0001c7f22a551a33cec6bd0b81ee24052f7d00e840",
+           "ceb6580daec6af52ce81789c34e14873b4f82e7e5155e76e02e464b6de9e0eb0")}
+# K1's main-loop kernel at both precisions (csrc/scoremax.cu), by its piece count
+K1_KERNEL = ("scores_split_kernel<{}>: a TMA producer warpgroup, a 4-stage ring of 32-deep stages, two m64n128 "
+             "consumers, persistent, s staged and stored by TMA")
 
 
 def fail(msg: str) -> None:
@@ -345,15 +368,22 @@ def row_cos(torch, a, b):
     return c.min().item(), c.mean().item()
 
 
+def sha256(t) -> str:
+    """SHA-256 of a tensor's raw bits."""
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
 def unit_rows(torch, g, n, d, device):
     x = torch.randn(n, d, generator=g)
     return (x / x.norm(dim=1, keepdim=True)).to(device)
 
 
 def phase_k1(torch, scoremax, device):
-    """K1 at both precisions against its plain versions, and ``highest``
-    against float64. Returns (worst error, {(metric, precision): (ms, plain
-    ms, bound, max_abs_err)}, ``torch.matmul`` ms)."""
+    """K1 at both precisions against its plain versions, ``highest``
+    against float64 and ``high`` against the replaced kernel's bits. Returns
+    (worst error, {(metric, precision): (ms, plain ms, bound, max_abs_err)},
+    ``torch.matmul`` ms, {precision: ip's split passes and main kernel
+    timed apart})."""
     b, t, d = 8192, 16000, 512
     g = torch.Generator().manual_seed(0)
     q = unit_rows(torch, g, b, d, device)
@@ -389,6 +419,10 @@ def phase_k1(torch, scoremax, device):
             check(bool(torch.equal(bm, s.view(8192, -1, 128).amax(2))), f"K1 {metric}/{precision}: bmax != strip max")
             f64_err[precision] = (s.double() - s64)[fin].abs().max().item()
             extra = ""
+            if precision == "high":
+                check((sha256(s), sha256(bm)) == K1_HIGH_SHA256[metric],
+                      f"K1 {metric}/high: s or bmax differ from the replaced kernel's bits")
+                extra = "; s and bmax bit-equal to the replaced kernel's (SHA-256)"
             if precision == "highest":
                 s6, bm6 = scoremax.scores_blockmax_bf16x6_plain(*args[:-1])
                 err6 = max((s - s6)[fin].abs().max().item(), (bm - bm6).abs().max().item())
@@ -417,10 +451,19 @@ def phase_k1(torch, scoremax, device):
         check(f64_err["highest"] <= f64_err["fp32 plain"] + K1_F64_MARGIN,
               f"K1 {metric}/highest: {f64_err['highest']} from float64, more than the fp32 plain's "
               f"{f64_err['fp32 plain']} + {K1_F64_MARGIN}")
+    parts = {}
+    for precision, split in (("high", scoremax.split_bf16), ("highest", scoremax.split_bf16x3)):
+        pq, pdb = split(q), split(db)
+        parts[precision] = {"split_q_ms": cuda_ms(lambda: split(q), 10), "split_db_ms": cuda_ms(lambda: split(db), 10),
+                            "main_ms": cuda_ms(lambda: scoremax.launch_split(pq, pdb, n_valid=n_valid), 10)}
+        del pq, pdb
+        print(f"K1 ip/{precision} apart: split of q {parts[precision]['split_q_ms']:.4f} ms, split of db "
+              f"{parts[precision]['split_db_ms']:.4f} ms, main kernel {parts[precision]['main_ms']:.4f} ms "
+              f"(the call {times[('ip', precision)][0]:.4f} ms)", flush=True)
     mm_ms = cuda_ms(lambda: torch.matmul(q, db.T), 10)
     print(f"K1 library yardstick: torch.matmul(q, db.T) alone (cuBLAS SGEMM, TF32 off) {mm_ms:.3f} ms; K1 ip/highest "
           f"{times[('ip', 'highest')][0]:.3f} ms", flush=True)
-    return worst, times, mm_ms
+    return worst, times, mm_ms, parts
 
 
 def topk_inputs(torch, g, b, w, device):
@@ -1352,6 +1395,8 @@ def phase_probe_kernels(torch, scoremax, select, matmul, device):
                 plain = lambda: scoremax.block_maxima_plain(q, db, precision)  # noqa: E731
                 torch.cuda.synchronize()
                 check(bool(torch.equal(bm, bm1)), f"P3 {precision}: block maxima differ from K1's")
+                check(not high or (None, sha256(bm)) == P3_P2_HIGH_SHA256["P3"],
+                      "P3 high: block maxima differ from the replaced kernel's bits")
                 err = (bm - bm0).abs().max().item()
                 n_bytes = 4 * (b * 512 + t * 512 + b * t // 128)
             else:
@@ -1363,6 +1408,8 @@ def phase_probe_kernels(torch, scoremax, select, matmul, device):
                 torch.cuda.synchronize()
                 check(bool(torch.equal(s2, s1)) and bool(torch.equal(bt.T, bm1)),
                       f"P2 {precision}: scores or block maxima differ from K1's")
+                check(not high or (sha256(s2), sha256(bt)) == P3_P2_HIGH_SHA256["P2"],
+                      "P2 high: scores or block maxima differ from the replaced kernel's bits")
                 check(bool(torch.isneginf(s2[:, n_valid:]).all()), f"P2 {precision}: columns >= n_valid not -inf")
                 fin = torch.isfinite(s0)
                 err = max((s2 - s0)[fin].abs().max().item(), (bt - bt0).abs().max().item())
@@ -1381,7 +1428,8 @@ def phase_probe_kernels(torch, scoremax, select, matmul, device):
                          f"torch.matmul(q, db.T) alone (TF32 off) {lib_ms:.3f} ms")
             out[(name, precision)] = (err, ms, plain_ms, bnd, lib_ms)
             print(f"{label} {name} {precision} ({b}x512 . {t}x512): max_abs_err {err:.3e} (tol {K1_TOL}), "
-                  f"{'maxima' if label == 'P3' else 'scores and maxima'} bit-equal to K1's; kernel {ms:.3f} ms, "
+                  f"{'maxima' if label == 'P3' else 'scores and maxima'} bit-equal to K1's"
+                  f"{' and to the replaced kernel' if high else ''}; kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, K1 at this shape {k1_ms:.3f} ms; {bound_text(bnd, ms)}{extra}",
                   flush=True)
         del q, db
@@ -2741,7 +2789,7 @@ def main() -> None:
         if "registers" in line or "spill" in line and "0 bytes spill" not in line:
             print(f"  ptxas: {line.strip()}")
 
-    k1_err, k1_times, k1_mm_ms = phase_k1(torch, scoremax, device)
+    k1_err, k1_times, k1_mm_ms, k1_parts = phase_k1(torch, scoremax, device)
     k2_err, k2_times = phase_k2(torch, topk, device)
     phase_knn(torch, scoremax, topk, ExactKnnIndex, device)
     b32, b32_timing, _ = phase_run_lemon(torch, scoremax, topk)
@@ -2823,13 +2871,16 @@ def main() -> None:
 
     print(json.dumps({"kernels": [
         {"name": "scores_blockmax", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
+         "kernel": f"K1 at precision 'high': the TPU's three bf16 products on wgmma (split pass into hi/lo, then "
+                   f"{K1_KERNEL.format(2)}), ip 8192x512 . 16000x512",
          "replaces": "lemon_tpu/ops/scoremax.py:119", **launches("scores_blockmax"),
-         **numbers(k1_err, k1_ms, k1_plain, k1_bound, None)},
+         **numbers(k1_err, k1_ms, k1_plain, k1_bound, None), **k1_parts["high"]},
         {"name": "scores_blockmax_highest", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
-         "kernel": "K1 at precision 'highest': the TPU's six bf16 products on wgmma (split pass into hi/mid/lo, "
-                   "then scores_highest_kernel: TMA ring, two m64n128 consumers, persistent), ip 8192x512 . 16000x512",
+         "kernel": f"K1 at precision 'highest': the TPU's six bf16 products on wgmma (split pass into hi/mid/lo, "
+                   f"then {K1_KERNEL.format(3)}), ip 8192x512 . 16000x512",
          "replaces": "lemon_tpu/ops/scoremax.py:119", **launches("scores_blockmax_highest"),
-         **numbers(k1h_err, k1h_ms, k1h_plain, k1h_bound, k1_mm_ms)},  # library: torch.matmul(q, db.T) alone
+         **numbers(k1h_err, k1h_ms, k1h_plain, k1h_bound, k1_mm_ms),  # library: torch.matmul(q, db.T) alone
+         **k1_parts["highest"]},
         {"name": "topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/topk.cu",
          "replaces": "lemon_tpu/ops/topk.py:80", **launches("topk"),
          **numbers(k2_err, k2_ms, k2_plain, k2_bound, k2_sort)},
@@ -2848,9 +2899,13 @@ def main() -> None:
            "replaces": "benchmarks/probe_pallas_int8.py:53", **launches(name), **numbers(*p_times[name])}
           for name, mma in (("tiled_matmul_int8", "Int8Mma"), ("tiled_matmul_bf16", "Bf16Mma"))),
         {"name": "block_maxima", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
+         "kernel": f"K1's {K1_KERNEL.format(2)}; at 'high' without the store of s (Out::kMaxOnly), "
+                   "ip 8192x512 . 131072x512",
          "replaces": "benchmarks/probe_knn_decomp.py:95", **launches("block_maxima"),
          **numbers(*p_times[("block_maxima", "high")])},  # the search's precision, as K1
         {"name": "scores_blockmax_t", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
+         "kernel": f"K1's {K1_KERNEL.format(2)}; at 'high' with the block maxima transposed (Out::kTransposed), "
+                   "ip 4096x512 . 65536x512",
          "replaces": "benchmarks/probe_scoremax2.py:61", **launches("scores_blockmax_t"),
          **numbers(*p_times[("scores_blockmax_t", "high")])},
         {"name": "topk_colids", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/topk.cu",

@@ -39,12 +39,10 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # x, hi, lo, N, D, Dp, stream
     "lemon_split_bf16": [_P, _P, _P, _L, _I, _I, _P],
-    # q_hi, q_lo, db_hi, db_lo, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, l2, out, stream
-    "lemon_scores_blockmax_high": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
     # x, hi, mid, lo, N, D, Dp, stream
     "lemon_split_bf16x3": [_P, _P, _P, _P, _L, _I, _I, _P],
-    # q_hi, q_mid, q_lo, db_hi, db_mid, db_lo, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, l2, out, stream
-    "lemon_scores_blockmax_highest": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
+    # q0, q1, q2, db0, db1, db2, qsq, dbsq, s, bmax, B, T, Dp, start, n_valid, pieces, l2, out, stream
+    "lemon_scores_blockmax": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _P],
     # x, vals, idx, B, W, k, variant, stream
     "lemon_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, cid, vals, ids, B, W, k, variant, stream

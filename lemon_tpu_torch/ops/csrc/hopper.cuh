@@ -1,16 +1,14 @@
-// Hopper building blocks shared by the kernels on the tensor cores: K1's
-// `high` and `highest` (scoremax.cu), K3 (attention.cu) and P4 (matmul.cu).
-// None replaces a TPU kernel itself; each kernel's file says which one it
-// ports.
+// Hopper building blocks shared by the kernels on the tensor cores: K1
+// (scoremax.cu), K3 (attention.cu) and P4 (matmul.cu). None replaces a TPU
+// kernel itself; each kernel's file says which one it ports.
 //
-// - cp.async and the wgmma descriptors of K-major 128- and 64-byte-swizzled
-//   operands (K1's `high` and K3's fp32 kernel stage their operands
-//   themselves);
-// - the TMA pipeline of K1's `highest`, K3's bf16 kernel and P4: tensor
-//   maps encoded on the host (cuTensorMapEncodeTiled, looked up in libcuda
-//   at run time, so the library links no -lcuda), bulk tensor loads that
-//   complete on an mbarrier, bulk tensor stores, named barriers and the
-//   register hand-over between warpgroups (setmaxnreg).
+// - the wgmma descriptors of K-major 128- and 64-byte-swizzled operands
+//   (K3's fp32 kernel stages its operands itself, with plain stores);
+// - the TMA pipeline of K1, K3's bf16 kernel and P4: tensor maps encoded
+//   on the host (cuTensorMapEncodeTiled, looked up in libcuda at run time,
+//   so the library links no -lcuda), bulk tensor loads that complete on an
+//   mbarrier, bulk tensor stores, named barriers and the register hand-over
+//   between warpgroups (setmaxnreg).
 //
 // What bounds the kernels built on it is that the tensor cores wait: on
 // loads, on the previous product, on an epilogue. A ring of stages in shared
@@ -24,11 +22,11 @@
 // j ^ (r % 8), 1024-byte aligned atoms) that smem_desc reads, or the 64-byte
 // one that smem_desc_sw64 reads.
 //
-// K1's `highest` and P4 are warp-specialised (PIPE_THREADS): warpgroup 0 is
-// the producer, its registers cut to PRODUCER_REGS, one thread issuing every
-// TMA load;
-// warpgroups 1 and 2 are consumers, raised to CONSUMER_REGS, that release a
-// stage through its "empty" mbarrier (one arrival from each). K3's bf16
+// K1 and P4 are warp-specialised (PIPE_THREADS): warpgroup 0 is the
+// producer, its registers cut to PRODUCER_REGS, one thread issuing every TMA
+// load; warpgroups 1 and 2 are consumers, raised to CONSUMER_REGS, that
+// release a stage through its "empty" mbarrier (one arrival from each), and
+// stage their outputs for TMA stores in buffers of their own. K3's bf16
 // kernel runs one warpgroup a block that feeds its own ring (attention.cu
 // says why).
 
@@ -43,18 +41,6 @@ namespace lemon_hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; the bytes past `src_bytes` (0 or 16) are zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // K-major operand in 128-byte-swizzled rows of 128 B: 8-row groups 1024 B
@@ -104,8 +90,7 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Generic-proxy and cp.async stores to shared memory -> visible to wgmma,
-// then a barrier.
+// Generic-proxy stores to shared memory -> visible to wgmma, then a barrier.
 __device__ __forceinline__ void fence_async_barrier() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();

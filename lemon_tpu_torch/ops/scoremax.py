@@ -3,10 +3,11 @@
 Port of ``lemon_tpu/ops/scoremax.py`` (``fused_scores_blockmax``). The exact
 kNN search needs, per (query block, database tile), the fp32 score block
 (for the candidate gather) and the maximum of each 128-column strip (the
-blockmax prefilter input). The CUDA kernels ``csrc/scoremax.cu`` emit both
+blockmax prefilter input). The CUDA kernel ``csrc/scoremax.cu`` emits both
 in one pass over the score tile, on the tensor cores with ``wgmma``, after a
 split pass that writes bf16 pieces of the operands, as the TPU computes its
-two precisions on the MXU:
+two precisions on the MXU; one main-loop kernel, a template on the number
+of pieces, serves both:
 
 - ``high`` is the TPU kernel's bf16x3: ``hi.hi + (hi.lo + lo.hi)`` of the
   two pieces of :func:`split_bf16`;
@@ -16,7 +17,7 @@ two precisions on the MXU:
   it on any device). On the CPU, ``highest`` is plain fp32 products, as the
   JAX package's ``HIGHEST`` is on XLA:CPU.
 
-Two probe kernels are the same kernels with another output:
+Two probe kernels are the same kernel with another output:
 :func:`block_maxima` (P3, no store of s) and :func:`scores_blockmax_t` (P2,
 the block maxima transposed).
 
@@ -208,35 +209,42 @@ def scores_blockmax_t(q, db, start=0, n_valid=None, precision="highest"):
 
 scores_blockmax_t.launches = 0
 
-# what the kernels write (csrc/scoremax.cu, `Out`)
+# what the kernel writes (csrc/scoremax.cu, `Out`)
 _OUT_K1, _OUT_MAX_ONLY, _OUT_TRANSPOSED = 0, 1, 2
 
 
 def _launch(name, q, db, metric, db_sqnorm, start, n_valid, precision, out):
-    """One launch of K1's kernels writing ``out``: (s, bmax), s None for P3."""
+    """One call of K1's split passes and main kernel writing ``out``: (s,
+    bmax), s None for P3."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    b = q.shape[0]
-    t = db.shape[0]
-    if precision == "high":  # a block per (strip, 128 query rows), at most 65535 of the latter
-        fits = b <= 65535 * 128
-    else:  # a persistent grid walking (B/128) * (T/128) tiles, counted in int32
-        fits = -(-b // 128) * (t // LANES) < 2**31
-    if not fits:
-        raise ValueError(f"{name}: {b} query rows x {t} columns exceed the launch grid")
-    s = None if out == _OUT_MAX_ONLY else torch.empty((b, t), dtype=torch.float32, device=q.device)
-    shape = (t // LANES, b) if out == _OUT_TRANSPOSED else (b, t // LANES)
-    bmax = torch.empty(shape, dtype=torch.float32, device=q.device)
-    n_valid = t + start if n_valid is None else n_valid
-    qsq = (q * q).sum(1) if metric == "l2" else None
-    norms = (None if qsq is None else qsq.data_ptr(), None if db_sqnorm is None else db_sqnorm.data_ptr())
-    tail = (None if s is None else s.data_ptr(), bmax.data_ptr(), b, t)
-    lib = _build.library()
     split = split_bf16 if precision == "high" else split_bf16x3
-    q_parts, db_parts = split(q), split(db)
-    kernel = lib.lemon_scores_blockmax_high if precision == "high" else lib.lemon_scores_blockmax_highest
-    code = kernel(*(p.data_ptr() for p in (*q_parts, *db_parts)), *norms, *tail, q_parts[0].shape[1], int(start),
-                  int(n_valid), int(metric == "l2"), out, _build.stream_handle(q))
+    qsq = (q * q).sum(1) if metric == "l2" else None
+    return launch_split(split(q), split(db), qsq, db_sqnorm, start, n_valid, out, name)
+
+
+def launch_split(q_parts, db_parts, qsq=None, db_sqnorm=None, start=0, n_valid=None, out=0, name="scores_blockmax"):
+    """K1's main kernel alone on operands already split (what
+    :func:`split_bf16` or :func:`split_bf16x3` return: two pieces are
+    ``high``, three ``highest``), for timing it apart from the split passes.
+    ``qsq`` and ``db_sqnorm`` ((B,) and (T,)) select 'l2'. Counts nothing:
+    the wrappers above count their launches. Returns (s, bmax) as they do
+    (s None for P3, ``out`` 1)."""
+    if q_parts[0].device.type != "cuda":
+        raise ValueError(f"{name}: the main kernel runs on a CUDA card, not on {q_parts[0].device}")
+    b, t = q_parts[0].shape[0], db_parts[0].shape[0]
+    if -(-b // 128) * (t // LANES) >= 2**31:  # the persistent grid counts its tiles in int32
+        raise ValueError(f"{name}: {b} query rows x {t} columns exceed the launch grid")
+    s = None if out == _OUT_MAX_ONLY else torch.empty((b, t), dtype=torch.float32, device=q_parts[0].device)
+    shape = (t // LANES, b) if out == _OUT_TRANSPOSED else (b, t // LANES)
+    bmax = torch.empty(shape, dtype=torch.float32, device=q_parts[0].device)
+    n_valid = t + start if n_valid is None else n_valid
+    pad = (None,) * (3 - len(q_parts))
+    pieces = (*(p.data_ptr() for p in q_parts), *pad, *(p.data_ptr() for p in db_parts), *pad)
+    norms = (None if qsq is None else qsq.data_ptr(), None if db_sqnorm is None else db_sqnorm.data_ptr())
+    code = _build.library().lemon_scores_blockmax(
+        *pieces, *norms, None if s is None else s.data_ptr(), bmax.data_ptr(), b, t, q_parts[0].shape[1],
+        int(start), int(n_valid), len(q_parts), int(qsq is not None), out, _build.stream_handle(bmax))
     _build.check(code, name)
     return s, bmax
 

@@ -17,7 +17,8 @@ device. Held here:
 - on the card (marked ``cuda``): the kernel within 1e-6 of the bf16x6 plain
   version (fp32 sums in another order), within 1e-5 of the fp32 plain
   version, and no further from float64 than the fp32 plain version plus
-  1e-6; the split pass and the probe variants (P2, P3) bit for bit.
+  1e-6; ``high``, the same kernel at two pieces, within 1e-5 of its plain
+  version; the split pass and the probe variants (P2, P3) bit for bit.
 """
 
 import numpy as np
@@ -158,20 +159,41 @@ def test_cpu_highest_stays_fp32_products_and_launches_nothing():
     s6, _ = scoremax.scores_blockmax_bf16x6_plain(q, db, "ip", None, 0, 1000)
     gap = (s6 - s)[fin].abs().max().item()
     assert 0 < gap <= F64_TOL  # another function, within the bar
+    with pytest.raises(ValueError, match="CUDA card"):  # the main kernel alone has no plain version
+        scoremax.launch_split(scoremax.split_bf16x3(q), scoremax.split_bf16x3(db))
 
 
-def test_limits_benchmark_edits_the_kernel_it_times():
-    """``benchmarks/k1_highest_limits.py`` builds edited copies of the
-    kernel: the edits must still find their lines."""
-    from lemon_tpu_torch.benchmarks.k1_highest_limits import variant_sources
+def _instance_products(src: str, pieces: int) -> int:
+    """The wgmma products a 32-deep step of the kernel's main loop runs in
+    the instance with ``pieces`` pieces: the ``if constexpr (PIECES == 3)``
+    block counts only at three."""
+    loop = src[src.index("wgmma_fence();"):src.index("wgmma_commit();")]
+    head, _, block = loop.partition("if constexpr (PIECES == 3) {")
+    return head.count("wgmma_m64n128k16(") + (block.count("wgmma_m64n128k16(") if pieces == 3 else 0)
+
+
+@pytest.mark.parametrize("precision,pieces,products", [("high", 2, 3), ("highest", 3, 6)])
+def test_limits_benchmark_edits_the_kernel_it_times(precision, pieces, products):
+    """``benchmarks/k1_limits.py`` builds edited copies of the kernel and
+    times each at both precisions: the edits must still find their lines in
+    the instance of each piece count."""
+    from lemon_tpu_torch.benchmarks.k1_limits import PRECISIONS, variant_sources
     from lemon_tpu_torch.ops import _build
 
+    assert precision in PRECISIONS
     src = (_build.CSRC / "scoremax.cu").read_text()
     builds = variant_sources(src)
-    assert builds["as_built"] == src and len(set(builds.values())) == 3
-    assert builds["one_product"].count("wgmma_m64n128k16(") == src.count("wgmma_m64n128k16(") - 5
+    assert builds["as_built"] == src and len(set(builds.values())) == 4
+    assert _instance_products(src, pieces) == products
+    assert _instance_products(builds["no_loads"], pieces) == products
+    assert "continue;" in builds["no_loads"] and "continue;" not in src
+    assert _instance_products(builds["one_product"], pieces) == 1  # hi.hi alone
+    direct = builds["direct_store"]  # every product kept, s stored from registers
+    assert _instance_products(direct, pieces) == products
+    assert "__stcs(" in direct and "tma_store_2d(" not in direct and "maps.s_out = s;" in direct
+    last = {"high": "wgmma_m64n128k16(acc_x, q1, d0);", "highest": "wgmma_m64n128k16(acc_x, q2, d0);"}[precision]
     with pytest.raises(ValueError, match="no longer holds"):
-        variant_sources(src.replace("wgmma_m64n128k16(acc_x, ql, dh);", ""))
+        variant_sources(src.replace(last, ""))
 
 
 @pytest.fixture
@@ -181,29 +203,44 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (B, T, D, start, n_valid): odd B, D of 37 and 770, start > 0; then B not a
+# multiple of 128 over more tiles than the card has SMs, so that the
+# persistent walk wraps
+CARD_SHAPES = [(300, 4096, 512, 128, 4000), (77, 640, 37, 0, 600), (129, 256, 770, 0, 256),
+               (1000, 128 * 140, 96, 0, 128 * 140 - 50)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(300, 4096, 512, 128, 4000), (77, 640, 37, 0, 600), (129, 256, 770, 0, 256)])
-def test_kernel_matches_both_plain_versions_on_the_card(cuda_device, shape):
-    b, t, d, start, n_valid = shape
-    rng = np.random.default_rng(7)
-    q, db = (torch.from_numpy(_unit_rows(rng, n, d)).to(cuda_device) for n in (b, t))
-    dbsq = (db * db).sum(1)
-    for metric in ("ip", "l2"):
-        args = (q, db, metric, dbsq if metric == "l2" else None, start, n_valid)
-        before = scoremax.scores_blockmax.launches_highest
-        s, bm = scoremax.scores_blockmax(*args, "highest")
-        assert scoremax.scores_blockmax.launches_highest == before + 1
-        s6, _ = scoremax.scores_blockmax_bf16x6_plain(*args)
-        s32, _ = scoremax.scores_blockmax_plain(*args, "highest")
-        fin = torch.isfinite(s32)
-        assert torch.equal(torch.isfinite(s), fin)
-        assert (s - s6)[fin].abs().max().item() <= 1e-6
-        assert (s - s32)[fin].abs().max().item() <= 1e-5
-        s64 = torch.from_numpy(_f64_scores(q.cpu().numpy(), db.cpu().numpy(), dbsq.cpu().numpy(), metric))
-        s64 = s64.to(cuda_device)
-        err, err32 = ((x.double() - s64)[fin].abs().max().item() for x in (s, s32))
-        assert err <= err32 + F64_TOL
-        assert torch.equal(bm, s.view(b, -1, 128).amax(2))
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_kernel_matches_both_plain_versions_on_the_card(cuda_device, precision):
+    """``highest`` within 1e-6 of its bf16x6 plain version, 1e-5 of the fp32
+    one and no further from float64 than the latter plus 1e-6; ``high``
+    within 1e-5 of its plain version (the same bf16x3 products, fp32 sums in
+    another order). One item a precision, the shapes inside: the suite's
+    wall depends on each file's item count."""
+    for b, t, d, start, n_valid in CARD_SHAPES:
+        rng = np.random.default_rng(7)
+        q, db = (torch.from_numpy(_unit_rows(rng, n, d)).to(cuda_device) for n in (b, t))
+        dbsq = (db * db).sum(1)
+        for metric in ("ip", "l2"):
+            args = (q, db, metric, dbsq if metric == "l2" else None, start, n_valid)
+            before = (scoremax.scores_blockmax.launches, scoremax.scores_blockmax.launches_highest)
+            s, bm = scoremax.scores_blockmax(*args, precision)
+            assert (scoremax.scores_blockmax.launches, scoremax.scores_blockmax.launches_highest) == (
+                before[0] + 1, before[1] + (precision == "highest"))
+            s32, _ = scoremax.scores_blockmax_plain(*args, precision)
+            fin = torch.isfinite(s32)
+            assert torch.equal(torch.isfinite(s), fin)
+            assert (s - s32)[fin].abs().max().item() <= 1e-5
+            assert torch.equal(bm, s.view(b, -1, 128).amax(2))
+            if precision == "high":
+                continue
+            s6, _ = scoremax.scores_blockmax_bf16x6_plain(*args)
+            assert (s - s6)[fin].abs().max().item() <= 1e-6
+            s64 = torch.from_numpy(_f64_scores(q.cpu().numpy(), db.cpu().numpy(), dbsq.cpu().numpy(), metric))
+            s64 = s64.to(cuda_device)
+            err, err32 = ((x.double() - s64)[fin].abs().max().item() for x in (s, s32))
+            assert err <= err32 + F64_TOL
 
 
 @pytest.mark.cuda
