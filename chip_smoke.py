@@ -23,13 +23,19 @@ imports nothing of JAX. Phases, each printed on its own lines:
    ``highest``'s library yardstick;
 4. K2 (``topk``) against its plain version at the main path's (8192, 125)
    and (8192, 768) k=6, and at (8192, 640) k=5, (8192, 6528) k=51 and
-   (8192, 1024) k=200, with ties and -inf rows: values and indices exact,
-   for the variant the kernel picks and for each variant forced, with the
-   time of each and of ``torch.sort(stable=True)``; then both variants
-   where they cross over, and k=51 on rows of distinct values;
+   (8192, 1024) k=200, then the radix variant's rows of the paper's
+   ``--knn_k`` grid over a 16000-row tile, (8192, 1408) k=11, (8192, 125)
+   and (8192, 3968) k=31 and (8192, 16000) k=51 (with their launches in a
+   B/32 detection), with ties, -inf rows and a +-0 row: values bit for bit
+   and indices exact, for the variant the kernel picks and for each variant
+   forced, with the load path of the radix variant's rows, the time of each
+   and of ``torch.sort(stable=True)``; then both variants where they cross
+   over, and k=51 on rows of distinct values;
 5. ``ExactKnnIndex.search`` at k=5 and k=51 over 131072 rows against a plain
    whole-row search on the card, on inputs whose scores are exact in fp32
-   (so every tie is real and ids must follow the tie rule exactly);
+   (so every tie is real and ids must follow the tie rule exactly), its
+   time beside that of the threshold select that the row select replaced
+   (``PARENT_SEARCH_S``);
 6. ``python -m lemon_tpu_torch.cli.run_lemon`` in-process on 20000 synthetic
    caption pairs with ViT-B/32 at full width (random weights): output files,
    finite scores, test AUROC above 0.5, and K1 and K2 launched by that run;
@@ -44,8 +50,11 @@ imports nothing of JAX. Phases, each printed on its own lines:
 8. K4 (``fused_gather_topk``) against its plain version at q 8192 over 1024
    blocks of 128 columns, k=5 and k=51, with ties and -inf columns: values
    and ids exact; its time, the plain time and the time of the search's own
-   select tail (gather + K2). Then its path once: K1 over a 131072-row tile,
-   the block top-k, K4, held to the search's select tail;
+   select tail (gather + K2); then over a 16000-row tile's 125 blocks at
+   k=11, 31 and 51 with +-0, on a 16-byte-aligned tensor (bulk copies) and
+   one 4 bytes past it (plain loads), bit for bit. Then its path once: K1
+   over a 131072-row tile, the block top-k, K4, held to the search's select
+   tail;
 9. the from-scratch ViT-B/16 path (``mimic_clip_from_scratch_random``: 224 px
    in 16 px patches, text context 256, embed 768; random weights): 512 pairs
    embedded with one state dict under ``attention_impl="plain"`` and
@@ -89,11 +98,14 @@ imports nothing of JAX. Phases, each printed on its own lines:
     block maxima (and P2's scores to K1's), at ``high`` bit-equal to the
     replaced kernel's (``P3_P2_HIGH_SHA256``), ``highest`` beside the fp32
     ``torch.matmul(q, db.T)`` alone; P1 (``topk_colids``) at
-    (8192, 6528) k=51 with ties and -inf rows, values and ids exact
+    (8192, 6528) k=51, then (8192, 1408) k=11 and (8192, 16000) k=51, with
+    ties, -inf rows and a +-0 row, values bit for bit and ids exact
     (``torch.topk``). Then each probe program's ``main()`` once in-process
-    (``lemon_tpu_torch.benchmarks``), every kernel count set to 0 just
-    before it and read just after; each P kernel must have run in its
-    probe;
+    (``lemon_tpu_torch.benchmarks``, ``select_limits`` among them: the
+    select's split into staging, first histogram and the rest, and its
+    passes a row held to ``select_rounds_plain``), every kernel count set to
+    0 just before it and read just after; each P kernel, and K2, P1 and K4
+    in ``select_limits``, must have run in its probe;
 15. the warm repeat: phase 10's argv again in the same process. It must
     build no encoder, upload no embedding and render no pixel
     (``detect._cached_encoder.builds``, ``detect._device_embs.misses``,
@@ -287,19 +299,36 @@ FP32_FLOOR_COS = 0.9  # per row, a fast mode vs fp32 at full width: a sanity flo
 K3_SHAPES = ((197, 12, 64, False), (256, 8, 64, True), (50, 12, 64, False), (77, 8, 64, True),
              (197, 24, 32, False), (256, 4, 128, True))
 # (W, k) of K2: the main path's block maxima (T/128 of a 16000-row tile) and
-# candidates ((k+1)*128) at --knn_k 5, then k=5, k=51 and k=200 candidates
-K2_SHAPES = ((125, 6), (768, 6), (640, 5), (6528, 51), (1024, 200))
+# candidates ((k+1)*128) at --knn_k 5, then k=5, k=51 and k=200 candidates,
+# then the radix variant's rows at the paper's --knn_k grid over a 16000-row
+# tile (20000 B/32 pairs): the candidates at knn_k 10, the block maxima and
+# candidates at knn_k 30 (W = 125 is staged by plain loads), and the whole
+# tile at knn_k 50, where the prefilter does not pay
+K2_SHAPES = ((125, 6), (768, 6), (640, 5), (6528, 51), (1024, 200), (1408, 11), (125, 31), (3968, 31), (16000, 51))
+# K2 in one B/32 detection of 20000 pairs (lemon_tpu_torch.knn.index, six
+# searches; counted in a CPU run at each --knn_k): (W, k) of the grid ->
+# (launches at this shape, its --knn_k, the radix launches of that detection
+# in all; the val and test searches, 2000 queries, run k = knn_k)
+K2_DETECTION_LAUNCHES = {(1408, 11): (4, 10, 8), (125, 31): (4, 30, 16), (3968, 31): (4, 30, 16),
+                         (16000, 51): (4, 50, 8)}
 # (W, k, rows) where the two K2 variants are compared: their crossover on
 # tie-heavy rows, and k=51 on rows of distinct (Gaussian) values
 K2_CROSSOVER = ((1024, 16, "ties"), (1024, 32, "ties"), (640, 51, "ties"), (6528, 51, "gaussian"))
 # H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s, bf16, TF32 and int8 tensor-core and fp32 (FL)OP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "int8": 1979e12}
-PROBES = ("probe_pallas_int8", "probe_knn_decomp", "probe_scoremax2", "probe_knn_select3")
-# the probes' shapes: P4's M = K = N; P3's and P2's (queries, columns, n_valid); P1's (rows, width, k)
+PROBES = ("probe_pallas_int8", "probe_knn_decomp", "probe_scoremax2", "probe_knn_select3", "select_limits")
+# the probes' shapes: P4's M = K = N; P3's and P2's (queries, columns, n_valid); P1's (rows, width, k), the
+# probe's first, then the candidates at --knn_k 10 and the whole 16000-row tile at --knn_k 50
 P4_SIZE = 4096
 P3_P2_SHAPES = (("P3", 8192, 131072, None), ("P2", 4096, 65536, 65000))
-P1_SHAPE = (8192, 6528, 51)
+P1_SHAPES = ((8192, 6528, 51), (8192, 1408, 11), (8192, 16000, 51))
+# K4's (n_blocks, k) beyond phase 8's 1024 blocks: the 16000-row tile's 125 blocks at --knn_k 10, 30, 50
+K4_TILE_SHAPES = ((125, 11), (125, 31), (125, 51))
+# host seconds of phase 5's search (8192 queries x 131072 rows) with the
+# threshold select that the row select replaced, in a run of this script on an
+# NVIDIA H100 80GB HBM3 at 700 W
+PARENT_SEARCH_S = {5: 0.062, 51: 0.010}
 # SHA-256 of the raw bits of (s, bmax) that K1's cp.async kernel at 'high'
 # (its main-loop kernel until the two-piece instance of one template took
 # its place) wrote on an H100 at phase 3's inputs and n_valid, and (s or
@@ -471,7 +500,13 @@ def topk_inputs(torch, g, b, w, device):
     x[0] = -torch.inf
     x[1, 3:] = -torch.inf
     x[2, : w // 2] = -torch.inf
+    x[3] = torch.tensor([-0.0, 0.0, -0.5])[torch.arange(w) % 3]  # +-0 tie, and their sign bits are kept
     return x.to(device)
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (torch.equal takes -0.0 for +0.0)."""
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
 def phase_k2(torch, topk, device):
@@ -486,7 +521,7 @@ def phase_k2(torch, topk, device):
         for variant in variants:
             v, i = topk.topk(x, k, variant)
             torch.cuda.synchronize()
-            check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)),
+            check(same_bits(torch, v, v0) and bool(torch.equal(i, i0)),
                   f"K2 ({w}, k={k}) {variant}: differs from the plain version")
         fin = torch.isfinite(v0)
         worst = max(worst, (v - v0)[fin].abs().max().item())
@@ -495,9 +530,12 @@ def phase_k2(torch, topk, device):
         by_variant = {m: cuda_ms(lambda: topk.topk(x, k, m), 20) for m in variants[1:]}
         bnd = bound(4 * b * w + 12 * b * k, b * w, "fp32")
         times[(w, k)] = (ms, plain_ms, sort_ms, bnd)
-        print(f"K2 topk (8192, {w}) k={k}: values and indices exact ({', '.join(variants)}); kernel {ms:.4f} ms, "
+        print(f"K2 topk (8192, {w}) k={k}: values (bits) and indices exact ({', '.join(variants)}; radix rows "
+              f"staged by {topk.radix_load(x, k)}); kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, torch.sort(stable=True) {sort_ms:.4f} ms; by variant "
-              + ", ".join(f"{m} {t:.4f} ms" for m, t in by_variant.items()) + f"; {bound_text(bnd, ms)}", flush=True)
+              + ", ".join(f"{m} {t:.4f} ms" for m, t in by_variant.items()) + f"; {bound_text(bnd, ms)}"
+              + ("; launches in a B/32 detection of 20000 pairs at --knn_k {1}: {0} at this shape, {2} radix in all"
+                 .format(*K2_DETECTION_LAUNCHES[(w, k)]) if (w, k) in K2_DETECTION_LAUNCHES else ""), flush=True)
     for w, k, rows in K2_CROSSOVER:
         x = topk_inputs(torch, g, b, w, device) if rows == "ties" else torch.randn(b, w, generator=g).to(device)
         v0, i0 = topk.topk_plain(x, k)
@@ -505,7 +543,7 @@ def phase_k2(torch, topk, device):
         for variant in [m for m in ("warp", "radix") if m != "warp" or w <= topk.WARP_MAX_W]:
             v, i = topk.topk(x, k, variant)
             torch.cuda.synchronize()
-            check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)),
+            check(same_bits(torch, v, v0) and bool(torch.equal(i, i0)),
                   f"K2 ({w}, k={k}, {rows}) {variant}: differs from the plain version")
             by_variant[variant] = cuda_ms(lambda: topk.topk(x, k, variant), 20)
         print(f"K2 variants (8192, {w}) k={k}, {rows} rows: exact; "
@@ -620,16 +658,35 @@ def phase_k4(torch, scoremax, select, topk, blockmax_select, device):
         v, i = select.fused_gather_topk(sb, ids, k)
         v0, i0 = select.fused_gather_topk_plain(sb, ids, k)
         torch.cuda.synchronize()
-        check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)), f"K4 k={k}: differs from the plain version")
+        check(same_bits(torch, v, v0) and bool(torch.equal(i, i0)), f"K4 k={k}: differs from the plain version")
         ms, plain_ms = paired_ms(torch, lambda: select.fused_gather_topk(sb, ids, k),
                                  lambda: select.fused_gather_topk_plain(sb, ids, k), 20)
         tail_ms = cuda_ms(lambda: select.gather_then_topk(sb, ids, k, topk.topk), 20)
         bnd = bound(4 * b * k * 128 + 8 * b * k + 12 * b * k, b * k * 128, "fp32")
         times[k] = (ms, plain_ms, tail_ms, bnd)
-        print(f"K4 fused_gather_topk (8192, 1024 blocks) k={k}: values and ids exact; kernel {ms:.3f} ms, "
+        print(f"K4 fused_gather_topk (8192, 1024 blocks) k={k}: values and ids exact (rows staged by "
+              f"{select.gather_load(sb, k)}); kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, the search's select tail (gather + K2) {tail_ms:.3f} ms; "
               f"{bound_text(bnd, ms)}", flush=True)
     del s, sb, bmax
+    for nb, k in K4_TILE_SHAPES:  # the 16000-row tile, tie-heavy with +-0, aligned and not
+        s = torch.randint(0, 40, (b, nb * 128), device=device, generator=g, dtype=torch.int32).float() / 4
+        s[0] = -torch.inf
+        s[1, 300:] = -torch.inf
+        s[2, ::3] = -0.0
+        s[2, 1::3] = 0.0
+        buf = torch.empty(s.numel() + 1, device=device)
+        for sb in (s.view(b, nb, 128), buf[1:].view(b, nb, 128).copy_(s.view(b, nb, 128))):
+            ids = topk.topk(sb.amax(2), k)[1].sort(dim=1).values
+            v, i = select.fused_gather_topk(sb, ids, k)
+            v0, i0 = select.fused_gather_topk_plain(sb, ids, k)
+            torch.cuda.synchronize()
+            check(same_bits(torch, v, v0) and bool(torch.equal(i, i0)),
+                  f"K4 ({nb} blocks) k={k}: differs from the plain version")
+            ms = cuda_ms(lambda: select.fused_gather_topk(sb, ids, k), 20)
+            print(f"K4 fused_gather_topk (8192, {nb} blocks) k={k}: values and ids exact (rows staged by "
+                  f"{select.gather_load(sb, k)}); kernel {ms:.4f} ms", flush=True)
+        del s, buf, sb
 
     gen = torch.Generator().manual_seed(5)
     xq = unit_rows(torch, gen, b, 512, device)
@@ -677,7 +734,8 @@ def phase_knn(torch, scoremax, topk, ExactKnnIndex, device):
         t_plain = time.perf_counter() - t0
         check((s == v0).all() and (i == i0).all(), f"ExactKnnIndex k={k}: differs from the plain search")
         print(f"ExactKnnIndex.search 8192 queries x 131072 rows k={k}: scores and ids exact "
-              f"({t_search:.3f} s; plain whole-row sort {t_plain:.3f} s, host clock incl. copy-out)", flush=True)
+              f"({t_search:.3f} s; the threshold select {PARENT_SEARCH_S[k]:.3f} s; plain whole-row "
+              f"sort {t_plain:.3f} s, host clock incl. copy-out)", flush=True)
 
 
 RUNS = ROOT / "build" / "chip_smoke"
@@ -1345,7 +1403,7 @@ def int8_layer_check(torch, card_model, cpu_model, pixels) -> int:
     return n_card
 
 
-def phase_probe_kernels(torch, scoremax, select, matmul, device):
+def phase_probe_kernels(torch, scoremax, select, topk, matmul, device):
     """P1-P4 against their plain versions at the probes' shapes. Returns
     {kernel: (max_abs_err, ms, plain ms, bound, library ms)}."""
     out = {}
@@ -1434,20 +1492,27 @@ def phase_probe_kernels(torch, scoremax, select, matmul, device):
                   flush=True)
         del q, db
 
-    b, w, kk = P1_SHAPE
-    x = topk_inputs(torch, torch.Generator().manual_seed(16), b, w, device)
-    blocks = torch.rand(b, 1024, generator=g, device=device).argsort(dim=1)[:, : w // 128].sort(dim=1).values  # of 1024
-    cid = (blocks.to(torch.int32)[:, :, None] * 128 + torch.arange(128, device=device, dtype=torch.int32)).view(b, w)
-    v, i = select.topk_colids(x, cid, kk)
-    v0, i0 = select.topk_colids_plain(x, cid, kk)
-    torch.cuda.synchronize()
-    check(bool(torch.equal(v, v0)) and bool(torch.equal(i, i0)), f"P1 ({b}, {w}) k={kk}: differs from the plain version")
-    ms, plain_ms = paired_ms(torch, lambda: select.topk_colids(x, cid, kk), lambda: select.topk_colids_plain(x, cid, kk), 20)
-    lib_ms = cuda_ms(lambda: torch.topk(x, kk), 20)
-    bnd = bound(8 * b * w + 8 * b * kk, b * w, "fp32")
-    out["topk_colids"] = (0.0, ms, plain_ms, bnd, lib_ms)
-    print(f"P1 topk_colids ({b}, {w}) k={kk}: values and ids exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.topk {lib_ms:.4f} ms; {bound_text(bnd, ms)}", flush=True)
+    gen = torch.Generator().manual_seed(16)
+    for b, w, kk in P1_SHAPES:
+        x = topk_inputs(torch, gen, b, w, device)
+        blocks = torch.rand(b, 1024, generator=g, device=device).argsort(dim=1)[:, : w // 128].sort(dim=1).values
+        cid = (blocks.to(torch.int32)[:, :, None] * 128 + torch.arange(128, device=device, dtype=torch.int32)).view(b, w)
+        v, i = select.topk_colids(x, cid, kk)
+        v0, i0 = select.topk_colids_plain(x, cid, kk)
+        torch.cuda.synchronize()
+        check(same_bits(torch, v, v0) and bool(torch.equal(i, i0)),
+              f"P1 ({b}, {w}) k={kk}: differs from the plain version")
+        ms, plain_ms = paired_ms(torch, lambda: select.topk_colids(x, cid, kk),
+                                 lambda: select.topk_colids_plain(x, cid, kk), 20)
+        lib_ms = cuda_ms(lambda: torch.topk(x, kk), 20)
+        # x read once, one 32-byte sector of cid for each chosen id, the values and ids written
+        bnd = bound(4 * b * w + 32 * b * kk + 8 * b * kk, b * w, "fp32")
+        if (b, w, kk) == P1_SHAPES[0]:
+            out["topk_colids"] = (0.0, ms, plain_ms, bnd, lib_ms)
+        print(f"P1 topk_colids ({b}, {w}) k={kk}: values (bits) and ids exact (rows staged by "
+              f"{topk.radix_load(x, kk)}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms; {bound_text(bnd, ms)}", flush=True)
+        del x, cid, blocks
     return out
 
 
@@ -2804,7 +2869,7 @@ def main() -> None:
     b16_bf16, b16_bf16_timing, _ = phase_vit_b16_flash(torch, scoremax, topk, attention, device, "bf16", b16_embeddings)
     print_side_by_side("ViT-B/16 flash detection", b16_timing, b16_bf16_timing)
     phase_int8(torch, device)
-    p_times = phase_probe_kernels(torch, scoremax, select, matmul, device)
+    p_times = phase_probe_kernels(torch, scoremax, select, topk, matmul, device)
     # (function, attribute) of every kernel's count; the split ones are
     # reassembled below
     counters = {"scores_blockmax": (scoremax.scores_blockmax, "launches"),
@@ -2823,7 +2888,8 @@ def main() -> None:
         split_counts(counts)
     for kernel, probe in (("tiled_matmul_int8", "probe_pallas_int8"), ("tiled_matmul_bf16", "probe_pallas_int8"),
                           ("block_maxima", "probe_knn_decomp"), ("scores_blockmax_t", "probe_scoremax2"),
-                          ("topk_colids", "probe_knn_select3")):
+                          ("topk_colids", "probe_knn_select3"), ("topk", "select_limits"),
+                          ("topk_colids", "select_limits"), ("fused_gather_topk", "select_limits")):
         check(probes[probe][kernel] > 0, f"{probe}: {kernel} was not launched: {probes[probe]}")
     warm = phase_warm_repeat(torch, scoremax, topk, b32_bf16_run, b32_bf16_timing)
     stream = phase_stream(torch, scoremax, topk)

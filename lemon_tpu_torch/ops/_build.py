@@ -45,8 +45,10 @@ _SIGNATURES = {
     "lemon_scores_blockmax": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _P],
     # x, vals, idx, B, W, k, variant, stream
     "lemon_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # x, cid, vals, ids, B, W, k, variant, stream
+    # x, cid, vals, ids, B, W, k, stream
     "lemon_topk_colids": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, W, k: the radix variant's load path
+    "lemon_topk_radix_load": [_P, _I, _I],
     # a, w, c, M, N, K, stream
     "lemon_matmul_int8": [_P, _P, _P, _I, _I, _I, _P],
     "lemon_matmul_bf16": [_P, _P, _P, _I, _I, _I, _P],
@@ -55,6 +57,8 @@ _SIGNATURES = {
     "lemon_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, ctypes.c_float, _I, _P],
     # sb, block_ids, vals, idx, B, n_blocks, k, stream
     "lemon_gather_topk": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # sb, k: K4's load path
+    "lemon_gather_topk_load": [_P, _I],
 }
 
 

@@ -1,6 +1,8 @@
-// Hopper building blocks shared by the kernels on the tensor cores: K1
-// (scoremax.cu), K3 (attention.cu) and P4 (matmul.cu). None replaces a TPU
-// kernel itself; each kernel's file says which one it ports.
+// Hopper building blocks shared by the kernels on the tensor cores, K1
+// (scoremax.cu), K3 (attention.cu) and P4 (matmul.cu), and by the row
+// selects of K2, P1 and K4 (topk.cu, select.cu), which stage their rows with
+// plain bulk copies onto the same mbarriers. None replaces a TPU kernel
+// itself; each kernel's file says which one it ports.
 //
 // - the wgmma descriptors of K-major 128- and 64-byte-swizzled operands
 //   (K3's fp32 kernel stages its operands itself, with plain stores);
@@ -234,6 +236,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A plain bulk copy of `bytes` contiguous bytes from global to shared
+// memory, completing on `bar` (K2, P1 and K4 stage their rows with it):
+// src and dst 16-byte aligned, bytes a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
 }
 
 // TMA stores of one box from shared memory; the parts past the tensor's

@@ -19,16 +19,22 @@
 // What bounds it on an H100: bytes (the k*128 gathered scores of a row).
 // For k <= 8 one warp per row gathers its candidates straight into
 // registers and runs K2's warp selection (select_rows.cuh, warp_top_k); for
-// larger k one block per row stages its k*128 candidates (at most 64 KB;
-// each gathered block is 512 contiguous bytes) in shared memory, once, and
-// runs K2's threshold select there. Either way the candidate matrix never
-// makes the round trip through device memory that the port's unfused tail
-// (torch.gather + K2) pays. A block id outside [0, nb) reads as a block of
-// -inf (memory safety only: the contract excludes it).
+// larger k persistent CTAs gather each row with k bulk copies into shared
+// memory (at most 64 KB a row), the next row's copies in flight while the
+// current one's winners are ordered, and run K2's block select there (two
+// passes over the row, a sort of the threshold bin's short list, a one-warp
+// sort of up to 64 winners). Either way the candidate
+// matrix never makes the round trip through device memory that the port's
+// unfused tail (torch.gather + K2) pays. A block id outside [0, nb) reads
+// as a block of -inf (memory safety only: the contract excludes it).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <algorithm>
+#include <cstdint>
+
+#include "hopper.cuh"
 #include "select_rows.cuh"
 
 namespace {
@@ -36,30 +42,99 @@ namespace {
 constexpr int LANES = 128;
 constexpr int MAX_K = 128;
 
-template <int THREADS>
-__global__ void __launch_bounds__(THREADS)
+// k > 8: the block select of select_rows.cuh (K2's radix variant) on the
+// gathered row, in persistent CTAs, a few an SM, each walking rows in turn.
+// kBulk: warp 0 reads the next row's k block ids and issues k bulk copies
+// of 512 bytes, one a block, into the staged row as soon as the select has
+// filtered the current one (a block id outside [0, nb) is filled with -inf
+// by plain stores). kStaged, for sb not 16-byte aligned: plain loads. The
+// gathered row never touches global memory; the winners' values come from
+// their keys (a zero's sign from sb; a -inf fill never has the zero key).
+enum class Load { kBulk, kStaged };
+
+template <int THREADS, Load LOAD>
+__global__ void __launch_bounds__(THREADS, lemon_select::MIN_THREADS_PER_SM / THREADS)
 gather_topk_kernel(const float* __restrict__ sb, const long long* __restrict__ block_ids,
-                   float* __restrict__ vals, long long* __restrict__ idx, int nb, int k) {
-  extern __shared__ float cand[];  // k * 128
-  __shared__ long long ids[MAX_K];
-  __shared__ unsigned long long sorted[MAX_K];
-  __shared__ lemon_select::Scratch sm;
-  const long long r = blockIdx.x;
-  for (int s = threadIdx.x; s < k; s += THREADS) ids[s] = block_ids[r * k + s];
-  __syncthreads();
-  const float* row = sb + r * nb * LANES;
+                   float* __restrict__ vals, long long* __restrict__ idx, int B, int nb, int k) {
+  using namespace lemon_hopper;
+  extern __shared__ __align__(16) float row[];  // k * 128
+  __shared__ lemon_select::SelectSmem sm;
+  __shared__ unsigned long long cand[MAX_K];
+  __shared__ long long ids[2][MAX_K];  // this row's block ids and the next one's
+  __shared__ __align__(8) unsigned long long full;
+  const int lane = threadIdx.x & 31;
   const int w = k * LANES;
-  for (int e = threadIdx.x; e < w; e += THREADS) {
-    const long long blk = ids[e / LANES];
-    cand[e] = (blk >= 0 && blk < nb) ? row[blk * LANES + e % LANES] : -CUDART_INF_F;
+  // warp 0: row r's block ids into ids[b] and its blocks into the staged row
+  auto issue = [&](long long r, int b) {
+    const uint32_t bar = smem_u32(&full);
+    int valid = 0;
+    for (int s = lane; s < k; s += 32) {
+      const long long blk = block_ids[r * k + s];
+      ids[b][s] = blk;
+      valid += blk >= 0 && blk < nb;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) valid += __shfl_xor_sync(lemon_select::FULL, valid, off);
+    if (lane == 0) mbar_arrive_expect_tx(bar, static_cast<uint32_t>(valid) * LANES * sizeof(float));
+    __syncwarp();
+    for (int s = lane; s < k; s += 32) {
+      const long long blk = ids[b][s];
+      if (blk >= 0 && blk < nb) {
+        bulk_load(smem_u32(row + s * LANES), sb + (r * nb + blk) * LANES, LANES * sizeof(float), bar);
+      } else {
+        for (int e = 0; e < LANES; ++e) row[s * LANES + e] = -CUDART_INF_F;
+      }
+    }
+  };
+  if (LOAD == Load::kBulk && threadIdx.x == 0) {
+    mbar_init(smem_u32(&full), 1);
+    fence_mbar_init();
   }
+  lemon_select::clear_hist<THREADS>(sm);
   __syncthreads();
-  lemon_select::select_top_k<THREADS, MAX_K>(
-      [&](unsigned c) { return lemon_select::order_key(cand[c]); }, static_cast<unsigned>(w), k, sorted, sm,
-      [&](int j, int c) {
-        vals[r * k + j] = cand[c];
-        idx[r * k + j] = ids[c / LANES] * LANES + c % LANES;
-      });
+  if (LOAD == Load::kBulk && threadIdx.x < 32 && blockIdx.x < B) issue(blockIdx.x, 0);
+  __syncthreads();  // the first row's ids and -inf fills
+  int it = 0;
+  for (long long r = blockIdx.x; r < B; r += gridDim.x, ++it) {
+    const int b = it & 1;
+    if (LOAD == Load::kBulk) {
+      mbar_wait(smem_u32(&full), it & 1);
+    } else {
+      for (int s = threadIdx.x; s < k; s += THREADS) ids[b][s] = block_ids[r * k + s];
+      __syncthreads();
+      const float* src = sb + r * nb * LANES;
+      for (int e = threadIdx.x; e < w; e += THREADS) {
+        const long long blk = ids[b][e / LANES];
+        row[e] = (blk >= 0 && blk < nb) ? src[blk * LANES + e % LANES] : -CUDART_INF_F;
+      }
+      __syncthreads();
+    }
+    // every thread, once the row is read no more (all threads are past a
+    // barrier after their last read): warp 0 stages the next row; its ids
+    // and fills are read after the barrier that ends this row
+    auto release = [&]() {
+      if (LOAD == Load::kBulk && threadIdx.x < 32 && r + gridDim.x < B) {
+        fence_proxy_async();
+        issue(r + gridDim.x, b ^ 1);
+      }
+    };
+    if (lemon_select::STOP == 1) {  // select_limits.py: the staging alone
+      if (threadIdx.x == 0) vals[r * k] = row[w - 1];
+      __syncthreads();
+      release();
+      __syncthreads();
+      continue;
+    }
+    lemon_select::block_select<THREADS, MAX_K, true>(row, static_cast<unsigned>(w), true, k, cand, sm, release,
+                                               [&](int j, int c, unsigned key) {
+                                                 const long long blk = ids[b][c / LANES];
+                                                 vals[r * k + j] = key == lemon_select::ZERO_KEY
+                                                                       ? sb[(r * nb + blk) * LANES + c % LANES]
+                                                                       : lemon_select::key_value(key);
+                                                 idx[r * k + j] = blk * LANES + c % LANES;
+                                               });
+    if (lemon_select::STOP >= 2) __syncthreads();
+  }
 }
 
 // k <= 8 (W = k*128 <= 1024): one warp per row, 8 rows per block. Entry
@@ -102,20 +177,39 @@ int launch_warp(const float* sb, const long long* block_ids, float* vals, long l
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int THREADS>
-int launch(const float* sb, const long long* block_ids, float* vals, long long* idx, int B, int nb, int k,
-           cudaStream_t stream) {
+template <int THREADS, Load LOAD>
+int launch_as(const float* sb, const long long* block_ids, float* vals, long long* idx, int B, int nb, int k,
+              cudaStream_t stream) {
+  static lemon_select::GridCache cache;
   const size_t smem = static_cast<size_t>(k) * LANES * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(gather_topk_kernel<THREADS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  gather_topk_kernel<THREADS><<<B, THREADS, smem, stream>>>(sb, block_ids, vals, idx, nb, k);
+  constexpr size_t SMEM_MAX = MAX_K * LANES * sizeof(float);
+  int grid = 0;
+  const int e = lemon_select::persistent_grid(reinterpret_cast<const void*>(gather_topk_kernel<THREADS, LOAD>),
+                                              THREADS, smem, SMEM_MAX, B, cache, &grid);
+  if (e) return e;
+  gather_topk_kernel<THREADS, LOAD><<<grid, THREADS, smem, stream>>>(sb, block_ids, vals, idx, B, nb, k);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The load path by alignment: a bulk copy needs sb 16-byte aligned (each
+// block is 512 bytes at a multiple of 512 from it).
+template <int THREADS>
+int launch(const float* sb, const long long* block_ids, float* vals, long long* idx, int B, int nb, int k,
+           cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(sb) % 16 == 0)
+    return launch_as<THREADS, Load::kBulk>(sb, block_ids, vals, idx, B, nb, k, stream);
+  return launch_as<THREADS, Load::kStaged>(sb, block_ids, vals, idx, B, nb, k, stream);
+}
+
 }  // namespace
+
+// How the kernel stages the rows of sb at this k: -1 not at all (the warp
+// path, k <= 8), 0 by bulk copies, 1 by plain loads. chip_smoke.py prints
+// it.
+extern "C" int lemon_gather_topk_load(const float* sb, int k) {
+  if (k <= WARP_MAX_K) return -1;
+  return reinterpret_cast<uintptr_t>(sb) % 16 == 0 ? 0 : 1;
+}
 
 // Shapes are checked by the Python wrapper (lemon_tpu_torch/ops/select.py):
 // 0 < k <= min(nb, 128) and 0 < B < 2^31. Returns the launch's error code.
@@ -129,3 +223,15 @@ extern "C" int lemon_gather_topk(const float* sb, const long long* block_ids, fl
   if (k * LANES <= 2048) return launch<128>(sb, block_ids, vals, idx, B, nb, k, st);
   return launch<256>(sb, block_ids, vals, idx, B, nb, k, st);
 }
+
+#ifdef LEMON_SELECT_COUNT
+// benchmarks/select_limits.py: the block select's passes over whole rows
+// since the last call, then 0.
+extern "C" unsigned long long lemon_gather_topk_row_passes() {
+  unsigned long long n = 0;
+  const unsigned long long zero = 0;
+  cudaMemcpyFromSymbol(&n, lemon_select::row_passes, sizeof n);
+  cudaMemcpyToSymbol(lemon_select::row_passes, &zero, sizeof zero);
+  return n;
+}
+#endif

@@ -9,20 +9,25 @@
 //
 // What bounds it on an H100: bytes. The function reads B*W floats and
 // writes B*k (value, index) pairs, so at the main path's shapes its bound is
-// a few microseconds at 3.35 TB/s; the work per row is a few passes over
-// the row. Two variants, one launch per call, picked by (W, k) in
-// lemon_topk below:
+// a few microseconds at 3.35 TB/s. Two variants, one launch per call, picked
+// by (W, k) in lemon_topk below:
 //
 // - warp: one warp per row, 8 rows per block, the row in registers
 //   (W <= 32 * CAP, CAP entries a lane) and select_rows.cuh's warp_top_k:
 //   k rounds of 5 shuffles and CAP compares, no __syncthreads. For the
 //   narrow, small-k rows of the search (the block maxima, W = T/128, and
 //   the (k+1)*128 candidates) this costs less than reading the row.
-// - radix: one block per row (128 threads up to W = 2048, else 256), the
-//   row staged in shared memory (up to 48K floats; wider rows are read from
-//   global memory each pass), and the threshold select of select_rows.cuh:
-//   a few histogram passes and a bitonic sort of the k winners, with a
-//   barrier count that does not grow with W.
+// - radix: select_rows.cuh's block select in persistent CTAs, each walking
+//   rows in turn: 128 threads up to W = 2048, 256 up to 8192 (four CTAs an
+//   SM at W = 6528), else 512 (measured the faster at W = 16000, the slower
+//   at 6528). A row is staged by one bulk copy, issued as soon as the row
+//   before it has been filtered, so the load overlaps the ordering of the
+//   winners and the other CTAs' work; then two passes over the staged row
+//   (an 11-bit histogram, a filter), rounds over the threshold bin's list
+//   until at most 64 entries are left, and one-warp sorts of those and of
+//   up to 64 winners. Rows that a bulk copy cannot take (start or length
+//   not 16-byte aligned) are staged by plain loads, rows wider than shared
+//   memory read from global memory (plan_rows).
 //
 // P1, the top-k with global column ids (lemon_topk_colids), replaces
 // benchmarks/probe_knn_select3.py `_topk_colids_kernel` and
@@ -32,12 +37,17 @@
 // blocks' sorted global ids x 128 + lane), returning the values and the
 // chosen entries' ids. Ascending ids make position order id order, so the
 // same selections run unchanged and the emit step reads cid at the chosen
-// positions: ties go to the lowest id and -inf entries come out by
-// ascending id. What bounds it: bytes, x and cid read once (214 MB each at
-// the probe's (8192, 6528)), 0.13 ms at 3.35 TB/s.
+// positions only: ties go to the lowest id and -inf entries come out by
+// ascending id. What bounds it: bytes, x read once, one 32-byte sector of
+// cid a chosen entry and the outputs (231 MB at the probe's (8192, 6528)
+// k=51), 0.069 ms at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+
+#include "hopper.cuh"
 #include "select_rows.cuh"
 
 namespace {
@@ -48,7 +58,9 @@ constexpr int WARP_ROWS = 8;             // rows per block in the warp variant
 constexpr int WARP_MAX_W = 32 * 32;      // widest row of the warp variant
 constexpr int WARP_MAX_K = 24;           // auto: larger k goes to the radix variant
 constexpr int SORT_CAP = 2048;           // winners sorted at once (16 KB)
-constexpr int STAGE_MAX_FLOATS = 48 * 1024;
+// dynamic shared memory of the block select: the SM's 227 KB less the static
+// SelectSmem and the barriers
+constexpr size_t DYNAMIC_SMEM_MAX = 232448 - sizeof(lemon_select::SelectSmem) - 1024;
 
 // Each emitted entry writes its column to idx, or, when cid is given (P1),
 // its id cid[r, column] to ids.
@@ -73,27 +85,77 @@ topk_warp_kernel(const float* __restrict__ x, const int* __restrict__ cid, float
   });
 }
 
-template <int THREADS, bool STAGED>
-__global__ void __launch_bounds__(THREADS)
-topk_radix_kernel(const float* __restrict__ x, const int* __restrict__ cid, float* __restrict__ vals,
-                  long long* __restrict__ idx, int* __restrict__ ids, int W, int k) {
-  extern __shared__ unsigned long long smem[];  // cand[next_pow2(min(k, SORT_CAP))], then the row
-  __shared__ lemon_select::Scratch sm;
-  const long long r = blockIdx.x;
-  const float* xr = x + r * W;
+// The persistent block select: a few CTAs an SM, each taking rows
+// blockIdx.x + i * gridDim.x in turn. How a row reaches shared memory is
+// chosen by shape (plan_rows), and each path is a template instance:
+// kBulk, one bulk copy a row (W % 4 == 0, x 16-byte aligned, the row fits),
+// thread 0 issuing the next row's copy as soon as the select has read the
+// current row for the last time (after its filter), so the load overlaps
+// the ordering of the winners and the other CTAs' work; kStaged, plain
+// loads into the staged row (a start or length not 16-byte aligned, such
+// as the block maxima at W = 125); kGlobal, the row read from global memory
+// in each pass (wider than shared memory). The winners' values come from
+// their keys (a zero's sign from x), so the staged row is free once
+// filtered.
+enum class Load { kBulk, kStaged, kGlobal };
+
+template <int THREADS, Load LOAD>
+__global__ void __launch_bounds__(THREADS, lemon_select::MIN_THREADS_PER_SM / THREADS)
+topk_rows_kernel(const float* __restrict__ x, const int* __restrict__ cid, float* __restrict__ vals,
+                 long long* __restrict__ idx, int* __restrict__ ids, int B, int W, int k, int cand_slots) {
+  using namespace lemon_hopper;
+  extern __shared__ __align__(16) unsigned long long smem[];  // cand[cand_slots], then the row
+  __shared__ lemon_select::SelectSmem sm;
+  __shared__ __align__(8) unsigned long long full;
   unsigned long long* cand = smem;
-  float* staged = reinterpret_cast<float*>(smem + lemon_select::next_pow2(min(k, SORT_CAP)));
-  if (STAGED) {
-    for (int c = threadIdx.x; c < W; c += THREADS) staged[c] = xr[c];
-    __syncthreads();
+  float* staged = reinterpret_cast<float*>(smem + cand_slots);
+  const uint32_t bytes = static_cast<uint32_t>(W) * sizeof(float);
+  auto issue = [&](long long r) {  // thread 0: row r into the staged row
+    mbar_arrive_expect_tx(smem_u32(&full), bytes);
+    bulk_load(smem_u32(staged), x + r * W, bytes, smem_u32(&full));
+  };
+  if (LOAD == Load::kBulk && threadIdx.x == 0) {
+    mbar_init(smem_u32(&full), 1);
+    fence_mbar_init();
   }
-  const float* row = STAGED ? staged : xr;
-  lemon_select::select_top_k<THREADS, SORT_CAP>(
-      [&](unsigned c) { return order_key(row[c]); }, static_cast<unsigned>(W), k, cand, sm, [&](int j, int c) {
-        vals[r * k + j] = row[c];
-        if (cid) ids[r * k + j] = cid[r * W + c];
-        else idx[r * k + j] = c;
-      });
+  lemon_select::clear_hist<THREADS>(sm);
+  __syncthreads();
+  if (LOAD == Load::kBulk && threadIdx.x == 0 && blockIdx.x < B) issue(blockIdx.x);
+  int it = 0;
+  for (long long r = blockIdx.x; r < B; r += gridDim.x, ++it) {
+    float* row = LOAD == Load::kGlobal ? const_cast<float*>(x + r * W) : staged;  // never written when global
+    if (LOAD == Load::kBulk) {
+      mbar_wait(smem_u32(&full), it & 1);
+    } else if (LOAD == Load::kStaged) {
+      for (int c = threadIdx.x; c < W; c += THREADS) staged[c] = x[r * W + c];
+      __syncthreads();
+    }
+    // every thread, once the row is read no more (all threads are past a
+    // barrier after their last read): the next row's copy
+    auto release = [&]() {
+      if (LOAD == Load::kBulk && threadIdx.x == 0 && r + gridDim.x < B) {
+        fence_proxy_async();
+        issue(r + gridDim.x);
+      }
+    };
+    if (lemon_select::STOP == 1) {  // select_limits.py: the staging alone
+      if (threadIdx.x == 0) vals[r * k] = row[W - 1];
+      __syncthreads();
+      release();
+      continue;
+    }
+    const bool vec4 = W % 4 == 0 && reinterpret_cast<uintptr_t>(row) % 16 == 0;
+    lemon_select::block_select<THREADS, SORT_CAP, LOAD != Load::kGlobal>(row, static_cast<unsigned>(W), vec4, k, cand,
+                                                                          sm, release,
+                                                  [&](int j, int c, unsigned key) {
+                                                    vals[r * k + j] = key == lemon_select::ZERO_KEY
+                                                                          ? x[r * W + c]  // the sign of a zero
+                                                                          : lemon_select::key_value(key);
+                                                    if (cid) ids[r * k + j] = cid[r * W + c];
+                                                    else idx[r * k + j] = c;
+                                                  });
+    if (lemon_select::STOP >= 2) __syncthreads();
+  }
 }
 
 template <int CAP>
@@ -103,22 +165,43 @@ void launch_warp(const float* x, const int* cid, float* vals, long long* idx, in
   topk_warp_kernel<CAP><<<blocks, WARP_ROWS * 32, 0, stream>>>(x, cid, vals, idx, ids, B, W, k);
 }
 
-template <int THREADS>
-int launch_radix(const float* x, const int* cid, float* vals, long long* idx, int* ids, int B, int W, int k,
-                 cudaStream_t stream) {
-  const bool staged = W <= STAGE_MAX_FLOATS;
-  const size_t smem = lemon_select::next_pow2(k < SORT_CAP ? k : SORT_CAP) * sizeof(unsigned long long) +
-                      (staged ? static_cast<size_t>(W) * sizeof(float) : 0);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        staged ? reinterpret_cast<const void*>(topk_radix_kernel<THREADS, true>)
-               : reinterpret_cast<const void*>(topk_radix_kernel<THREADS, false>),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (staged) topk_radix_kernel<THREADS, true><<<B, THREADS, smem, stream>>>(x, cid, vals, idx, ids, W, k);
-  else topk_radix_kernel<THREADS, false><<<B, THREADS, smem, stream>>>(x, cid, vals, idx, ids, W, k);
+template <int THREADS, Load LOAD>
+int launch_rows_as(const float* x, const int* cid, float* vals, long long* idx, int* ids, int B, int W, int k,
+                   int cand_slots, size_t smem, cudaStream_t stream) {
+  static lemon_select::GridCache cache;
+  int grid = 0;
+  const int e = lemon_select::persistent_grid(reinterpret_cast<const void*>(topk_rows_kernel<THREADS, LOAD>), THREADS,
+                                              smem, DYNAMIC_SMEM_MAX, B, cache, &grid);
+  if (e) return e;
+  topk_rows_kernel<THREADS, LOAD><<<grid, THREADS, smem, stream>>>(x, cid, vals, idx, ids, B, W, k, cand_slots);
   return 0;
+}
+
+// The load path by shape (see topk_rows_kernel) and the shared memory it takes.
+struct RowPlan {
+  Load load;
+  int cand_slots;
+  size_t smem;
+};
+
+RowPlan plan_rows(const float* x, int W, int k) {
+  const int cand_slots = std::max(lemon_select::next_pow2(std::min(k, SORT_CAP)), 2);  // 16-byte multiple
+  const size_t cand_bytes = static_cast<size_t>(cand_slots) * sizeof(unsigned long long);
+  const size_t row_bytes = static_cast<size_t>(W) * sizeof(float);
+  if (cand_bytes + row_bytes > DYNAMIC_SMEM_MAX) return {Load::kGlobal, cand_slots, cand_bytes};
+  const bool aligned = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  return {aligned ? Load::kBulk : Load::kStaged, cand_slots, cand_bytes + row_bytes};
+}
+
+template <int THREADS>
+int launch_rows(const float* x, const int* cid, float* vals, long long* idx, int* ids, int B, int W, int k,
+                cudaStream_t stream) {
+  const RowPlan p = plan_rows(x, W, k);
+  if (p.load == Load::kBulk)
+    return launch_rows_as<THREADS, Load::kBulk>(x, cid, vals, idx, ids, B, W, k, p.cand_slots, p.smem, stream);
+  if (p.load == Load::kStaged)
+    return launch_rows_as<THREADS, Load::kStaged>(x, cid, vals, idx, ids, B, W, k, p.cand_slots, p.smem, stream);
+  return launch_rows_as<THREADS, Load::kGlobal>(x, cid, vals, idx, ids, B, W, k, p.cand_slots, p.smem, stream);
 }
 
 // One launch of the variant (W, k) picks (variant 0) or the one asked for.
@@ -133,8 +216,9 @@ int launch_topk(const float* x, const int* cid, float* vals, long long* idx, int
     else if (W <= 768) launch_warp<24>(x, cid, vals, idx, ids, B, W, k, st);
     else launch_warp<32>(x, cid, vals, idx, ids, B, W, k, st);
   } else {
-    const int e = W <= 2048 ? launch_radix<128>(x, cid, vals, idx, ids, B, W, k, st)
-                            : launch_radix<256>(x, cid, vals, idx, ids, B, W, k, st);
+    const int e = W <= 2048   ? launch_rows<128>(x, cid, vals, idx, ids, B, W, k, st)
+                  : W <= 8192 ? launch_rows<256>(x, cid, vals, idx, ids, B, W, k, st)
+                              : launch_rows<512>(x, cid, vals, idx, ids, B, W, k, st);
     if (e) return e;
   }
   return static_cast<int>(cudaGetLastError());
@@ -153,9 +237,28 @@ extern "C" int lemon_topk(const float* x, float* vals, long long* idx, int B, in
   return launch_topk(x, nullptr, vals, idx, nullptr, B, W, k, variant, static_cast<cudaStream_t>(stream));
 }
 
+// How the radix variant stages the rows of x (B, W) at this k: 0 by bulk
+// copies, 1 by plain loads, 2 not at all (read from global memory).
+// chip_smoke.py prints it.
+extern "C" int lemon_topk_radix_load(const float* x, int W, int k) {
+  return static_cast<int>(plan_rows(x, W, k).load);
+}
+
 // P1: vals (B, k) and ids (B, k) int32 = cid at the top k of x (B, W); cid
 // (B, W) int32 ascending along each row.
 extern "C" int lemon_topk_colids(const float* x, const int* cid, float* vals, int* ids, int B, int W, int k,
                                  void* stream) {
   return launch_topk(x, cid, vals, nullptr, ids, B, W, k, 0, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef LEMON_SELECT_COUNT
+// benchmarks/select_limits.py: the block select's passes over whole rows
+// since the last call, then 0.
+extern "C" unsigned long long lemon_topk_row_passes() {
+  unsigned long long n = 0;
+  const unsigned long long zero = 0;
+  cudaMemcpyFromSymbol(&n, lemon_select::row_passes, sizeof n);
+  cudaMemcpyToSymbol(lemon_select::row_passes, &zero, sizeof zero);
+  return n;
+}
+#endif

@@ -15,7 +15,8 @@ function, masked columns arrive and leave as ``-inf``: the port's K1 writes
 P1, :func:`topk_colids`, is the row top-k of candidates that arrive with a
 global column id each (``topk_colids``/``topk_pair`` of
 ``benchmarks/probe_knn_select3.py``): K2's kernel (``csrc/topk.cu``) reads
-the id of each chosen entry, so no index is reconstructed.
+the id of each chosen entry, so no index is reconstructed. K4's k > 8 and
+P1's rows run K2's radix variant's block select (``csrc/select_rows.cuh``).
 """
 
 from __future__ import annotations
@@ -71,6 +72,14 @@ def fused_gather_topk(sb: torch.Tensor, block_ids: torch.Tensor, k: int):
 
 
 fused_gather_topk.launches = 0
+
+
+def gather_load(sb: torch.Tensor, k: int) -> str:
+    """How the kernel stages the gathered rows of ``sb`` (on the card) at
+    this k, as ``csrc/select.cu`` picks it: ``"warp"`` (k <= 8: into
+    registers), ``"bulk"`` (k bulk copies of 512 bytes) or
+    ``"staged"`` (plain loads, for sb not 16-byte aligned)."""
+    return {-1: "warp", 0: "bulk", 1: "staged"}[_build.library().lemon_gather_topk_load(sb.data_ptr(), k)]
 
 
 def _check(sb: torch.Tensor, block_ids: torch.Tensor, k: int) -> None:

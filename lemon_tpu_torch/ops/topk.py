@@ -7,12 +7,16 @@ in the port's kNN goes through here: ``torch.topk`` does not promise the
 order of ties on CUDA. The CUDA kernel is ``csrc/topk.cu``; unlike the TPU
 kernel it has no bound on k below the row width. It has two variants, one
 launch per call: ``"warp"`` (one warp per row, the row in registers, W up to
-1024) and ``"radix"`` (one block per row, a threshold select);
+1024) and ``"radix"`` (persistent blocks that stage each row by a bulk copy
+and select in two passes over it, ``csrc/select_rows.cuh``);
 ``variant="auto"`` picks by (W, k) as the kernel's entry point does.
+:func:`select_rounds_plain` restates the radix variant's rounds for the
+tests and ``benchmarks/select_limits.py``; the port's paths do not call it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from lemon_tpu_torch.ops import _build
@@ -54,6 +58,16 @@ def topk(x: torch.Tensor, k: int, variant: str = "auto"):
 
 topk.launches = 0
 
+RADIX_LOADS = ("bulk", "staged", "global")
+
+
+def radix_load(x: torch.Tensor, k: int) -> str:
+    """How the radix variant stages the rows of ``x`` (on the card) at this
+    k, as ``csrc/topk.cu`` picks it: ``"bulk"``, a bulk copy a row;
+    ``"staged"``, plain loads (a row start or length not 16-byte aligned);
+    ``"global"``, none (rows wider than shared memory)."""
+    return RADIX_LOADS[_build.library().lemon_topk_radix_load(x.data_ptr(), x.shape[1], k)]
+
 
 def _check(x: torch.Tensor, k: int) -> None:
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
@@ -63,3 +77,125 @@ def _check(x: torch.Tensor, k: int) -> None:
         raise ValueError(f"topk: need 0 < k <= W={w}, got k={k}")
     if not 0 < b < 2**31 or w >= 2**31:
         raise ValueError(f"topk: unsupported shape {tuple(x.shape)}")
+
+
+# The block select of csrc/select_rows.cuh: its digits (shift, bits) of the
+# packed order from the top, the capacity of its list and of its sort.
+SELECT_DIGITS = ((53, 11), (45, 8), (37, 8), (32, 5), (24, 8), (16, 8), (8, 8), (0, 8))
+LIST_CAP = 2048
+SMALL = 64  # a threshold bin of at most this many is ordered by one warp
+SORT_CAP = 2048  # K2's and P1's; K4 sorts at most select.MAX_K = 128 at once
+
+
+def select_rounds_plain(x: torch.Tensor, k: int, sort_cap: int = SORT_CAP):
+    """The radix variant's rounds restated in numpy, row by row: (values
+    (B, k), indices (B, k) int64, full-row passes (B,) int64). Each entry is
+    the 64-bit packed order of the kernel ((order key << 32) | ~column, -0.0
+    as +0.0). A histogram of the first digit (11 bits) over the row finds
+    the threshold bin; a bin larger than ``LIST_CAP`` takes a round of the
+    next digit over the whole row until it fits (the column digits that no
+    column below W can change skipped); the filter takes the entries above
+    the bin as winners and lists the bin's entries; while the bin holds more
+    than ``SMALL``, rounds of the next digits over the list narrow it (after
+    any round, the digits that all of the bin's entries share are skipped),
+    and the list's entries above it join the winners; the ``rank`` largest of
+    the bin's entries (sorted) join them too, the rank-th being the
+    threshold T; the winners are sorted. k above ``sort_cap`` runs in chunks bounded above by
+    the previous chunk's T. The passes count the histograms and filters over
+    whole rows, as the kernel built with ``LEMON_SELECT_COUNT`` counts
+    them."""
+    _check(x, k)
+    p = _packed(x.detach().cpu().numpy())
+    cols = np.empty((p.shape[0], k), np.int64)
+    passes = np.zeros(p.shape[0], np.int64)
+    for r in range(p.shape[0]):
+        cols[r], passes[r] = _select_row(p[r], k, sort_cap)
+    idx = torch.from_numpy(cols).to(x.device)
+    return x.gather(1, idx), idx, passes
+
+
+def _packed(x: np.ndarray) -> np.ndarray:
+    bits = np.where(x == 0, np.float32(0), x).astype(np.float32).view(np.uint32)
+    key = np.where(bits & np.uint32(0x80000000), ~bits, bits | np.uint32(0x80000000))
+    col = np.arange(x.shape[1], dtype=np.uint32)
+    return (key.astype(np.uint64) << np.uint64(32)) | (~col).astype(np.uint64)
+
+
+def _find_bin(hist: np.ndarray, rank: int):
+    """(bin, entries above it, entries in it) of the rank-th entry from the top."""
+    top = np.cumsum(hist[::-1])
+    i = int(np.searchsorted(top, rank))
+    return len(hist) - 1 - i, int(top[i] - hist[-1 - i]), int(hist[-1 - i])
+
+
+def _next_digit(d: int, w: int, pre: int, shift: int):
+    """Skips the column digits that every column below w fills with ones."""
+    while SELECT_DIGITS[d][0] < 32 and (w - 1) >> SELECT_DIGITS[d][0] == 0:
+        s, bits = SELECT_DIGITS[d]
+        pre |= ((1 << bits) - 1) << s
+        shift = s
+        d += 1
+    return d, pre, shift
+
+
+def _round(p: np.ndarray, w: int, d: int, pre: int, shift: int, rank: int):
+    """The next digit's round over the entries of p in the bin `pre >> shift`:
+    (the digit after it, pre, shift, rank and size of the narrower bin)."""
+    d, pre, shift = _next_digit(d, w, pre, shift)
+    s, bits = SELECT_DIGITS[d]
+    inside = p[(p >> np.uint64(shift)) == np.uint64(pre >> shift)]
+    digit = ((inside >> np.uint64(s)) & np.uint64((1 << bits) - 1)).astype(np.int64)
+    b, before, in_bin = _find_bin(np.bincount(digit, minlength=1 << bits), rank)
+    return d + 1, pre | (b << s), s, rank - before, in_bin
+
+
+def _select_row(p: np.ndarray, k: int, sort_cap: int):
+    w = len(p)
+    upper = np.uint64(2**64 - 1)
+    passes = 0
+    out = []
+    for done_out in range(0, k, sort_cap):
+        n = min(sort_cap, k - done_out)
+        shift, bits = SELECT_DIGITS[0]
+        b, before, in_bin = _find_bin(np.bincount((p >> np.uint64(shift)).astype(np.int64), minlength=1 << bits),
+                                      done_out + n)
+        passes += 1
+        d, pre, rank = 1, b << shift, done_out + n - before
+        while in_bin != rank and in_bin > LIST_CAP:  # rounds over the row
+            d, pre, shift, rank, in_bin = _round(p, w, d, pre, shift, rank)
+            passes += 1
+        h, ph = p >> np.uint64(shift), np.uint64(pre >> shift)
+        done = in_bin == rank
+        cand = p[((h > ph) | (done & (h == ph))) & (p < upper)]  # the filter
+        passes += 1
+        threshold = np.uint64(pre)
+        if not done:
+            listed = p[h == ph]
+            first = d == 1  # no round over the row yet
+            while in_bin != rank and in_bin > SMALL:  # rounds over the list
+                if not first:  # skip the digits that all of the bin's entries share
+                    d, pre, shift = _next_digit(d, w, pre, shift)
+                    inside = listed[(listed >> np.uint64(shift)) == np.uint64(pre >> shift)]
+                    lo, hi = int(inside.min()), int(inside.max())
+                    while (lo ^ hi) >> SELECT_DIGITS[d][0] == 0:
+                        s, bits = SELECT_DIGITS[d]
+                        pre |= ((lo >> s) & ((1 << bits) - 1)) << s
+                        d, pre, shift = _next_digit(d + 1, w, pre, s)
+                d, pre, shift, rank, in_bin = _round(listed, w, d, pre, shift, rank)
+                first = False
+            h, ph = listed >> np.uint64(shift), np.uint64(pre >> shift)
+            done = in_bin == rank
+            above = listed[((h > ph) | (done & (h == ph))) & (listed < upper)]
+            cand = np.concatenate([cand, above])
+            if not done:
+                order = np.sort(listed[h == ph])[::-1]
+                threshold = order[rank - 1]
+                cand = np.concatenate([cand, order[:rank][order[:rank] < upper]])
+            else:
+                threshold = np.uint64(pre)
+        if len(cand) != n:
+            raise RuntimeError(f"select_rounds_plain: {len(cand)} winners for a chunk of {n}")
+        out.append(np.sort(cand)[::-1])
+        upper = threshold
+    order = np.concatenate(out)
+    return (~order & np.uint64(0xFFFFFFFF)).astype(np.int64), passes
