@@ -29,8 +29,9 @@ imports nothing of JAX. Phases, each printed on its own lines:
    B/32 detection), with ties, -inf rows and a +-0 row: values bit for bit
    and indices exact, for the variant the kernel picks and for each variant
    forced, with the load path of the radix variant's rows, the time of each
-   and of ``torch.sort(stable=True)``; then both variants where they cross
-   over, and k=51 on rows of distinct values;
+   (also device only: one replay of a CUDA graph of 20 calls, no host work
+   between them) and of ``torch.sort(stable=True)``; then both variants
+   where they cross over, and k=51 on rows of distinct values;
 5. ``ExactKnnIndex.search`` at k=5 and k=51 over 131072 rows against a plain
    whole-row search on the card, on inputs whose scores are exact in fp32
    (so every tie is real and ids must follow the tie rule exactly), its
@@ -46,11 +47,15 @@ imports nothing of JAX. Phases, each printed on its own lines:
    causal, then the other head dims, (197, 24, 32) unmasked and
    (256, 4, 128) causal; max absolute error at most 2e-5 against both, both
    times, and the time of ``scaled_dot_product_attention`` in fp32 (TF32
-   off) with the backend it ran;
+   off) with the backend it ran; then (300, 197, 12, 64), more items than
+   the persistent grid has blocks, untimed; at every shape the same inputs
+   made contiguous give the strided call's output bit for bit. The kernel
+   (``flash_attention_tf32_kernel``) loads q, k and v by TMA into an
+   mbarrier ring and splits them in shared memory;
 8. K4 (``fused_gather_topk``) against its plain version at q 8192 over 1024
    blocks of 128 columns, k=5 and k=51, with ties and -inf columns: values
-   and ids exact; its time, the plain time and the time of the search's own
-   select tail (gather + K2); then over a 16000-row tile's 125 blocks at
+   and ids exact; its time (also device only, as in phase 4), the plain time
+   and the time of the search's own select tail (gather + K2); then over a 16000-row tile's 125 blocks at
    k=11, 31 and 51 with +-0, on a 16-byte-aligned tensor (bulk copies) and
    one 4 bytes past it (plain loads), bit for bit. Then its path once: K1
    over a 131072-row tile, the block top-k, K4, held to the search's select
@@ -298,6 +303,9 @@ FP32_FLOOR_COS = 0.9  # per row, a fast mode vs fp32 at full width: a sanity flo
 # ctx-256 text, ViT-B/32 vision, ctx-77 text; then the other two head dims
 K3_SHAPES = ((197, 12, 64, False), (256, 8, 64, True), (50, 12, 64, False), (77, 8, 64, True),
              (197, 24, 32, False), (256, 4, 128, True))
+# (B, L, heads, head dim, causal) K3 checks without timing: more items than
+# the persistent grid has blocks
+K3_CHECK_SHAPES = ((300, 197, 12, 64, False),)
 # (W, k) of K2: the main path's block maxima (T/128 of a 16000-row tile) and
 # candidates ((k+1)*128) at --knn_k 5, then k=5, k=51 and k=200 candidates,
 # then the radix variant's rows at the paper's --knn_k grid over a 16000-row
@@ -365,6 +373,17 @@ def paired_ms(torch, kernel, plain, iters: int):
     k2 = cuda_ms(kernel, iters)
     p2 = cuda_ms(plain, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_ms(torch, fn) -> float:
+    """Device-only ms per call (``graph_ms``: one replay of a CUDA graph of
+    20 calls); NaN, with the reason printed, if the capture fails."""
+    try:
+        return graph_ms(fn, 20)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"  device-only time not measured: the CUDA graph capture failed ({e})", flush=True)
+        return float("nan")
 
 
 def bound(n_bytes: float, n_ops: float, peak: str):
@@ -528,10 +547,12 @@ def phase_k2(torch, topk, device):
         ms, plain_ms = paired_ms(torch, lambda: topk.topk(x, k), lambda: topk.topk_plain(x, k), 20)
         sort_ms = cuda_ms(lambda: torch.sort(x, dim=1, descending=True, stable=True), 20)
         by_variant = {m: cuda_ms(lambda: topk.topk(x, k, m), 20) for m in variants[1:]}
+        dev_ms = device_ms(torch, lambda: topk.topk(x, k))
         bnd = bound(4 * b * w + 12 * b * k, b * w, "fp32")
-        times[(w, k)] = (ms, plain_ms, sort_ms, bnd)
+        times[(w, k)] = (ms, plain_ms, sort_ms, bnd, dev_ms)
         print(f"K2 topk (8192, {w}) k={k}: values (bits) and indices exact ({', '.join(variants)}; radix rows "
-              f"staged by {topk.radix_load(x, k)}); kernel {ms:.4f} ms, "
+              f"staged by {topk.radix_load(x, k)}); kernel {ms:.4f} ms (device only, a CUDA graph of 20 calls: "
+              f"{dev_ms:.4f} ms), "
               f"plain {plain_ms:.4f} ms, torch.sort(stable=True) {sort_ms:.4f} ms; by variant "
               + ", ".join(f"{m} {t:.4f} ms" for m, t in by_variant.items()) + f"; {bound_text(bnd, ms)}"
               + ("; launches in a B/32 detection of 20000 pairs at --knn_k {1}: {0} at this shape, {2} radix in all"
@@ -596,6 +617,21 @@ def phase_k3(torch, attention, device):
               f"max_abs_err {sdpa_err:.3e}); {bound_text(bnd, ms)}; fp32 bound {fp32_bnd[0]:.4f} ms ({fp32_bnd[1]})",
               flush=True)
         check(err <= K3_TOL and emu_err <= K3_TOL, f"K3 {(l, h, d, causal)}: error {err}, {emu_err} > {K3_TOL}")
+        same = attention.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+        check(bool(torch.equal(same, out)), f"K3 {(l, h, d, causal)}: contiguous inputs give another output")
+        worst = max(worst, err)
+    for b, l, h, d, causal in K3_CHECK_SHAPES:  # not timed: more items than the grid has blocks
+        x = torch.randn(b, l, 3 * h * d, device=device, generator=g)
+        q, k, v = (t.reshape(b, l, h, d) for t in x.split(h * d, dim=-1))
+        out = attention.flash_attention(q, k, v, causal)
+        err = (out - attention.flash_attention_plain(q, k, v, causal)).abs().max().item()
+        emu_err = (out - attention.flash_attention_3xtf32_plain(q, k, v, causal)).abs().max().item()
+        same = attention.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+        print(f"K3 flash_attention ({b}, {l}, {h}, {d}) {'causal' if causal else 'unmasked'}: max_abs_err {err:.3e} "
+              f"(3xTF32 plain {emu_err:.3e}; tol {K3_TOL}); contiguous inputs bit-equal: "
+              f"{bool(torch.equal(same, out))}", flush=True)
+        check(err <= K3_TOL and emu_err <= K3_TOL, f"K3 {(b, l, h, d, causal)}: error {err}, {emu_err} > {K3_TOL}")
+        check(bool(torch.equal(same, out)), f"K3 {(b, l, h, d, causal)}: contiguous inputs give another output")
         worst = max(worst, err)
     return worst, times
 
@@ -662,10 +698,12 @@ def phase_k4(torch, scoremax, select, topk, blockmax_select, device):
         ms, plain_ms = paired_ms(torch, lambda: select.fused_gather_topk(sb, ids, k),
                                  lambda: select.fused_gather_topk_plain(sb, ids, k), 20)
         tail_ms = cuda_ms(lambda: select.gather_then_topk(sb, ids, k, topk.topk), 20)
+        dev_ms = device_ms(torch, lambda: select.fused_gather_topk(sb, ids, k))
         bnd = bound(4 * b * k * 128 + 8 * b * k + 12 * b * k, b * k * 128, "fp32")
-        times[k] = (ms, plain_ms, tail_ms, bnd)
+        times[k] = (ms, plain_ms, tail_ms, bnd, dev_ms)
         print(f"K4 fused_gather_topk (8192, 1024 blocks) k={k}: values and ids exact (rows staged by "
-              f"{select.gather_load(sb, k)}); kernel {ms:.3f} ms, "
+              f"{select.gather_load(sb, k)}); kernel {ms:.3f} ms (device only, a CUDA graph of 20 calls: "
+              f"{dev_ms:.4f} ms), "
               f"plain {plain_ms:.3f} ms, the search's select tail (gather + K2) {tail_ms:.3f} ms; "
               f"{bound_text(bnd, ms)}", flush=True)
     del s, sb, bmax
@@ -2828,10 +2866,10 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
-    global cuda_ms  # the probes' timer: the phases call it once the port is on the path
+    global cuda_ms, graph_ms  # the probes' timers: the phases call them once the port is on the path
     sys.path.insert(0, str(ROOT))
     try:
-        from lemon_tpu_torch.benchmarks._timing import cuda_ms
+        from lemon_tpu_torch.benchmarks._timing import cuda_ms, graph_ms
         from lemon_tpu_torch.knn.index import ExactKnnIndex, _blockmax_select
         from lemon_tpu_torch.ops import _build, attention, matmul, scoremax, select, topk
     except ImportError as e:
@@ -2926,10 +2964,10 @@ def main() -> None:
 
     k1_ms, k1_plain, k1_bound, _ = k1_times[("ip", "high")]  # the main path's mode (--knn_precision auto)
     k1h_ms, k1h_plain, k1h_bound, k1h_err = k1_times[("ip", "highest")]  # the baselines' mode
-    k2_ms, k2_plain, k2_sort, k2_bound = k2_times[(768, 6)]  # the main path's candidates at --knn_k 5
+    k2_ms, k2_plain, k2_sort, k2_bound, k2_dev = k2_times[(768, 6)]  # the main path's candidates at --knn_k 5
     k3_ms, k3_plain, k3_sdpa, k3_bound = k3_times[K3_SHAPES[0]]  # the ViT-B/16 vision tower, the path's largest attention
     k3b_ms, k3b_plain, k3b_sdpa, k3b_bound = k3b_times[K3_SHAPES[0]]
-    k4_ms, k4_plain, _, k4_bound = k4_times[51]  # the probe's k
+    k4_ms, k4_plain, _, k4_bound, k4_dev = k4_times[51]  # the probe's k
 
     def numbers(err, ms, plain_ms, bnd, library_ms):
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
@@ -2949,8 +2987,11 @@ def main() -> None:
          **k1_parts["highest"]},
         {"name": "topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/topk.cu",
          "replaces": "lemon_tpu/ops/topk.py:80", **launches("topk"),
-         **numbers(k2_err, k2_ms, k2_plain, k2_bound, k2_sort)},
+         **numbers(k2_err, k2_ms, k2_plain, k2_bound, k2_sort), "device_ms": k2_dev},
         {"name": "flash_attention", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/attention.cu",
+         "kernel": "flash_attention_tf32_kernel<D, TAIL, SPLIT> (3xTF32; TMA into mbarrier rings, q, k and v split "
+                   "in shared memory, persistent; at this shape SPLIT: a splitter warpgroup feeding two consumer "
+                   "warpgroups of 64 rows)",
          "replaces": "lemon_tpu/ops/attention.py:101", **launches("flash_attention"),
          **numbers(k3_err, k3_ms, k3_plain, k3_bound, k3_sdpa)},
         {"name": "flash_attention_bf16", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/attention.cu",
@@ -2959,7 +3000,7 @@ def main() -> None:
          **numbers(k3b_err, k3b_ms, k3b_plain, k3b_bound, k3b_sdpa)},
         {"name": "fused_gather_topk", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/select.cu",
          "replaces": "lemon_tpu/ops/select.py:138", **launches("fused_gather_topk"),
-         **numbers(0.0, k4_ms, k4_plain, k4_bound, None)},
+         **numbers(0.0, k4_ms, k4_plain, k4_bound, None), "device_ms": k4_dev},
         *({"name": name, "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/matmul.cu",
            "kernel": f"matmul_kernel<{mma}> (producer warpgroup, TMA ring, two m64n256 consumers, persistent)",
            "replaces": "benchmarks/probe_pallas_int8.py:53", **launches(name), **numbers(*p_times[name])}

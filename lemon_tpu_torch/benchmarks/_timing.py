@@ -47,6 +47,27 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: CUDA events around one replay
+    of a CUDA graph that captured ``calls`` calls, so that no host work
+    (Python, the wrapper's checks, the launch) paces them as it can in
+    :func:`cuda_ms`. ``fn`` runs once first, outside the capture."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def chain_ms(step, x0, steps: int = 20) -> float:
     """Milliseconds per step of the serial chain ``x -> step(x)`` from
     ``x0``: each step reads the last one's output, so no step can be skipped

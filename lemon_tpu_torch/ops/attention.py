@@ -9,7 +9,8 @@ kernels are in ``csrc/attention.cu``, forward only like the TPU kernel (the
 encoder is frozen), for head dims 32, 64 and 128:
 
 - fp32 inputs: both products in 3xTF32 on the tensor cores (``hi.hi + hi.lo
-  + lo.hi`` of TF32 splits, accumulated in fp32);
+  + lo.hi`` of TF32 splits, accumulated in fp32), q, k and v loaded by TMA
+  into an mbarrier ring and split in shared memory;
 - bf16 inputs (the towers' bf16 and int8 modes): ``S = q . k^T`` as one bf16
   product (exact products, fp32 sums), scaled in fp32, and ``P . v`` as
   ``p_hi . v + p_lo . v`` with P split into two bf16 values; the fp32

@@ -1,6 +1,6 @@
 // Flash attention, forward only, on Hopper's tensor cores: fp32 in and out in
-// 3xTF32, and bf16 in and out with bf16 products (the second kernel, below
-// flash_attention_kernel).
+// 3xTF32 (flash_attention_tf32_kernel), and bf16 in and out with bf16
+// products (flash_attention_bf16_kernel, below it).
 //
 // Replaces the Pallas kernel lemon_tpu/ops/attention.py `_attn_kernel`
 // (launched by `_flash_attention`, :101). For q, k, v in the CLIP towers'
@@ -11,53 +11,99 @@
 // with scale = D^-0.5 applied to q in fp32 before the product
 // (attention.py:42) and, when causal, only keys j <= i. The (L, L) logits
 // never reach device memory. A work item is one 64-row query tile of one
-// (batch, head); one warpgroup (128 threads) walks its keys in tiles of BKV,
+// (batch, head); one warpgroup (128 threads) walks its keys in tiles,
 // carrying the online-softmax state (running max, normaliser, accumulator) in
 // fp32 registers. Bounds checks replace the TPU kernel's padding to 128 and
 // its -1e30 key mask: keys past L or after the query (causal) get -inf
 // logits and zero v rows, query rows past L are computed on zeros and never
 // stored, and a causal item stops at its last query row.
 //
-// Precision: 3xTF32. Every operand x is split into TF32 values hi + lo
-// (Veltkamp's split, see split()), and each product is hi.hi + hi.lo + lo.hi
-// (lo.lo dropped), accumulated in fp32 by wgmma.mma_async.m64nNk8.f32.tf32.
-// The product of two TF32 values is exact in fp32, so the result is
-// fp32-accurate up to the order of the sums (2e-5 against fp32 attention).
-// Both products run on the tensor cores:
-// - S = (q * scale) . k^T, both operands K-major (D contiguous) from shared
-//   memory: an item's q tile is split and stored once, each k tile once;
-// - O += P . V, P from registers, V^T from shared memory. A TF32 wgmma takes
-//   only K-major operands, so V is stored transposed (D rows of keys). The
-//   S accumulator gives a thread columns 2t and 2t+1 of each 8, while the
-//   TF32 A fragment wants k = t and t + 4; the keys of every group of 8 are
-//   therefore stored in the order 0, 2, 4, 6, 1, 3, 5, 7, so that the S
-//   registers are the A fragment as they stand (no shuffles).
-// Shared operands use the 128-byte swizzle (16-byte chunk j of a 128-byte row
-// r at chunk j ^ (r % 8), 8-row groups 1024 B apart); a TF32 row of 32
-// values is one atom, so D = 64 is two atoms along K and a k-step of 8 moves
-// the descriptor 32 bytes inside the atom.
+// Precision of the fp32 kernel: 3xTF32. Every operand x is split into TF32
+// values hi + lo (Veltkamp's split, see split()), and each product is
+// hi.hi + hi.lo + lo.hi (lo.lo dropped), accumulated in fp32 by
+// wgmma.mma_async.m64nNk8.f32.tf32. The product of two TF32 values is exact
+// in fp32, so the result is fp32-accurate up to the order of the sums (2e-5
+// against fp32 attention).
 //
-// Overlap. The wgmmas are asynchronous: v^T is split and stored while S runs,
-// the next k tile while P . V runs, and each tile's global loads go to
-// registers one phase ahead of their stores. Generic-proxy stores reach
-// wgmma through a fence.proxy.async and a barrier (without it the products
-// read stale tiles). The kernel is persistent: as many blocks as fit on the
-// card each take every n-th item, n coprime to the query tiles of a head so
-// that causal items of all lengths spread evenly, and an item's last key tile
-// loads the next item's q and first k and v tiles.
+// Loads. The inputs are read through 4-D (D, H, L, B) tensor maps with the
+// wrapper's strides, in boxes of 32 floats (one 128-byte swizzle atom) by 64
+// query rows or by a key tile's rows; rows past L load as zeros. With the
+// 128-byte swizzle (16-byte chunk j of a 128-byte row r at chunk j ^ (r % 8),
+// 8-row groups 1024 B apart) a staged box is the K-major layout that the TF32
+// wgmma descriptors read: D = 64 is two atoms along K, and a k-step of 8
+// moves the descriptor 32 bytes inside an atom.
+//
+// The fp32 kernel's operands. A TF32 wgmma takes both shared operands
+// K-major (no transpose bit), and its split is not the load:
+// - q is scaled and split once per item. At D <= 64 each thread reads its
+//   A fragments straight from the staged tile into registers (hi and lo,
+//   D / 2 registers each), so S = q . k^T reads only k from shared memory
+//   (an m64n32k8 with both operands in shared memory would read 192 bytes a
+//   clock, above the 128 that shared memory serves); at D = 128 (128 more
+//   registers would not fit) q is split in place in shared memory.
+// - a staged k tile is split in place: hi over the raw value, lo into a
+//   buffer of its own at the same offset (no address remapping);
+// - v is transposed into v^T (D rows of keys) while it is split, the one
+//   layout change left to generic-proxy stores. The S accumulator gives a
+//   thread columns 2t and 2t+1 of each 8, while the TF32 A fragment wants
+//   k = t and t + 4; the keys of every group of 8 are therefore stored in
+//   the order 0, 2, 4, 6, 1, 3, 5, 7, so that P is the A fragment of
+//   O += P . v^T as it stands (no shuffles).
+//
+// Two schedules, both with a persistent grid (each block takes every n-th
+// item, n coprime to the items of a head, causal heads from their longest
+// item down), a TAIL-wide last key tile for unmasked items (the keys past the
+// last full tile, rounded up to a quarter tile: 8 keys at L = 197 and D = 64,
+// so 200 keys meet the queries) and O normalised in registers, written
+// swizzled into a shared tile and stored by TMA (rows past L are clipped).
+//
+// Self-fed (every shape but one): a warpgroup takes 64-row items and splits
+// its own tiles, as the bf16 kernel feeds its own ring. A ring of two stages
+// (raw k, raw v) is filled by the lead thread's TMA loads, across items; k's
+// lo pieces and v^T have two buffers each, by the tile's parity. Key tile j:
+// S_j and then P_{j-1} . v^T_{j-1} are issued; while they run, v_j is
+// transposed and split and tile j+1's k is split (the next item's first tile
+// at an item's last); S_j's softmax runs while P . v is in flight; one
+// barrier, after which the lead thread refills the stage tile j has
+// released. o is staged in the v^T buffer of the item's last tile.
+//   D = 32:  64-key tiles, q in registers,      88 KB, two blocks an SM
+//   D = 64:  32-key tiles, q in registers,      96 KB, two blocks an SM
+//   D = 128: 32-key tiles, q split in shared,  224 KB, one block an SM
+// Two blocks an SM allow 255 registers a thread (about 215 used).
+//
+// Split (unmasked heads at D = 64 longer than one query tile: the vision
+// towers): the splits leave the warpgroups that run the products. Two
+// consumer warpgroups take the two 64-row halves of a 128-row item, and a
+// third splits each key tile once for both (k in place, v transposed into
+// the stage's v^T) and issues the TMA loads: a ring of four stages of
+// 40 KB, released by both consumers once P . v has read them, and q in two
+// buffers by item parity (o is staged where its item's q was), 224 KB in
+// all, one block of 384 threads an SM.
+// Twelve warps leave 168 registers a thread, so a consumer keeps only q's hi
+// pieces in registers and S's lo.hi product reads q's lo piece, split in
+// place, from shared memory. A consumer's key tile j: S_j and P_{j-1} .
+// v^T_{j-1} issued once tile j is split, S_j's softmax while P . v runs, then
+// the stage of tile j - 1 released. Under the causal mask the first consumer
+// would idle through each item's last two key tiles, and at D = 32 the split
+// schedule measured slower: both keep the self-fed one.
 //
 // What bounds it on an H100. At the towers' shapes (L 50..256, D 64) the
 // three TF32 products are 12*B*H*L^2*D flops against 16*B*L*H*D bytes moved:
 // at L = 197 and 256 (causal) the tensor cores at 495 TFLOP/s and the bytes
 // at 3.35 TB/s are both near 0.09 ms, at L = 50 and 77 the bytes set it.
-// Measured, the products are not what limits it: a tile's integer address
-// and split work, the barriers and the latency of each item's first loads
-// are, with two or three blocks on an SM. Query tiles are padded to 64 rows
-// (197 -> 256). Keys go in 64-key tiles (96 KB of shared memory at D = 64,
-// two blocks an SM), or in 32-key tiles (64 KB, three blocks, registers
-// capped at 168) where the last 64-key tile would be at most half full
-// (L = 77 and 197 pad to 96 and 224 keys instead of 128 and 256); D = 128
-// takes 32-key tiles (128 KB, one block).
+// Three other floors lie near them: the loads alone (k and v re-read by each
+// query tile) take 0.12-0.13 ms at (128, 197, 12, 64); a 32-key tile at
+// D = 64 moves 112 KB through shared memory (16 KB staged, 48 KB for the
+// splits, 48 KB read by the products), about 0.16 ms in all at 128 bytes a
+// clock; and the splits, the softmax (16 ex2 a thread a tile) and the split
+// of P take about 500 instructions a thread a tile. They overlap only in
+// part (benchmarks/k3_limits.py splits the time). Measured on working trees
+// and given up: a three- or four-stage ring (the time is not the loads'
+// latency); 128-row items of two self-fed warpgroups sharing each key tile
+// and its splits, in lockstep or one trailing the other by half a tile (the
+// same time at L = 197, slower at L = 50 and, trailing, under the causal
+// mask); a splitter warpgroup feeding one consumer that runs a tile at a
+// time (slower everywhere).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,6 +115,15 @@
 
 #include "hopper.cuh"
 
+#ifndef LEMON_K3_STOP
+// benchmarks/k3_limits.py: 1 loads only, 2 and the splits, 3 and S with its
+// softmax, 4 all but the splits
+#define LEMON_K3_STOP 0
+#endif
+#ifndef LEMON_K3_SPLITTER
+#define LEMON_K3_SPLITTER 1  // benchmarks/k3_limits.py: 0 builds the self-fed kernel for every shape
+#endif
+
 namespace {
 
 using namespace lemon_hopper;
@@ -76,19 +131,6 @@ using namespace lemon_hopper;
 constexpr int BQ = 64;        // query rows per block: one warpgroup's m64
 constexpr int THREADS = 128;  // one warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
-
-template <int D, int BKV_>
-struct Tiles {
-  static constexpr int BKV = BKV_;                       // keys per tile
-  static constexpr int Q_BYTES = BQ * D * 4;             // one of q_hi, q_lo
-  static constexpr int KV_BYTES = BKV * D * 4;           // one of k_hi, k_lo, vt_hi, vt_lo
-  static constexpr int SMEM = 2 * Q_BYTES + 4 * KV_BYTES + 1024;  // + slack to align to 1024 B
-  static constexpr int Q4 = BQ * D / 4 / THREADS;        // float4 of a q tile per thread
-  static constexpr int K4 = BKV * D / 4 / THREADS;       // float4 of a k tile per thread
-  static constexpr int VG = D * (BKV / 8) / THREADS;     // (column, 8-key group) items of a v tile per thread
-  // 32-key tiles at D <= 64 fit three blocks on an SM (registers capped at 168)
-  static constexpr int MIN_BLOCKS = (D <= 64 && BKV == 32) ? 3 : 1;
-};
 
 __device__ __forceinline__ float ex2(float x) {
   float r;
@@ -108,21 +150,11 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(__fsub_rn(x, h));
 }
 
-__device__ __forceinline__ void store_split4(unsigned char* hi_base, unsigned char* lo_base, uint32_t off, float a,
-                                             float b, float c, float d) {
-  uint4 h, l;
-  split(a, h.x, l.x);
-  split(b, h.y, l.y);
-  split(c, h.z, l.z);
-  split(d, h.w, l.w);
-  *reinterpret_cast<uint4*>(hi_base + off) = h;
-  *reinterpret_cast<uint4*>(lo_base + off) = l;
-}
-
-// Byte offset of the 16-byte chunk `chunk` (0..7) of row `row` in one atom
-// column of a 128-byte-swizzled operand.
-__device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
+__device__ __forceinline__ void split4(float4 x, uint4& h, uint4& l) {
+  split(x.x, h.x, l.x);
+  split(x.y, h.y, l.y);
+  split(x.z, h.z, l.z);
+  split(x.w, h.w, l.w);
 }
 
 // The accumulator operands of an m64nNk8 product: N/2 floats a thread.
@@ -134,335 +166,669 @@ __device__ __forceinline__ uint32_t swz(int row, int chunk) {
   LIST32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51," \
          " %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
 
-// d (64 x N fp32, wgmma accumulator layout) += A (64 x 8) . B (N x 8)^T, both
-// TF32 K-major in shared memory.
+#define LIST4 "%0, %1, %2, %3"
+#define LIST8 LIST4 ", %4, %5, %6, %7"
+#define LIST12 LIST8 ", %8, %9, %10, %11"
+#define LIST24 LIST16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define ACC8(i) ACC4(i), ACC4((i) + 4)
+#define ACC12(i) ACC8(i), ACC4((i) + 8)
+#define ACC24(i) ACC16(i), ACC8((i) + 16)
+#define ACC32(i) ACC16(i), ACC16((i) + 16)
+#define ACC64(i) ACC32(i), ACC32((i) + 32)
+
+// d (64 x N fp32, wgmma accumulator layout: the first N / 2 of the array)
+// += A (64 x 8) . B (N x 8)^T, TF32, B K-major in shared memory; A K-major
+// in shared memory (ss) or a register fragment (rs: of warp w, lane 4g + t,
+// a0 = A[16w + g][t], a1 = A[16w + g + 8][t], a2 = A[16w + g][t + 4],
+// a3 = A[16w + g + 8][t + 4]).
 template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b);
+struct Tf32Mma;
 
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" LIST16 "}, %16, %17, p, 1, 1;\n}\n"
-      : ACC16(0)
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+#define LEMON_TF32_MMA(N, LIST, ACC, SS_AB, SS_P, RS_AB, RS_P)                                                  \
+  template <>                                                                                                  \
+  struct Tf32Mma<N> {                                                                                          \
+    template <int M>                                                                                           \
+    __device__ static __forceinline__ void ss(float (&d)[M], uint64_t desc_a, uint64_t desc_b) {               \
+      static_assert(M >= N / 2, "accumulator too small");                                                      \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SS_P ", 0;\n"                                           \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" LIST "}, " SS_AB ", p, 1, 1;\n}\n" \
+                   : ACC(0)                                                                                    \
+                   : "l"(desc_a), "l"(desc_b), "r"(1));                                                        \
+    }                                                                                                          \
+    template <int M>                                                                                           \
+    __device__ static __forceinline__ void rs(float (&d)[M], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, \
+                                              uint64_t desc_b) {                                               \
+      static_assert(M >= N / 2, "accumulator too small");                                                      \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " RS_P ", 0;\n"                                           \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" LIST "}, " RS_AB ", p, 1, 1;\n}\n" \
+                   : ACC(0)                                                                                    \
+                   : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));                                 \
+    }                                                                                                          \
+  };
+
+LEMON_TF32_MMA(8, LIST4, ACC4, "%4, %5", "%6", "{%4, %5, %6, %7}, %8", "%9")
+LEMON_TF32_MMA(16, LIST8, ACC8, "%8, %9", "%10", "{%8, %9, %10, %11}, %12", "%13")
+LEMON_TF32_MMA(24, LIST12, ACC12, "%12, %13", "%14", "{%12, %13, %14, %15}, %16", "%17")
+LEMON_TF32_MMA(32, LIST16, ACC16, "%16, %17", "%18", "{%16, %17, %18, %19}, %20", "%21")
+LEMON_TF32_MMA(48, LIST24, ACC24, "%24, %25", "%26", "{%24, %25, %26, %27}, %28", "%29")
+LEMON_TF32_MMA(64, LIST32, ACC32, "%32, %33", "%34", "{%32, %33, %34, %35}, %36", "%37")
+LEMON_TF32_MMA(128, LIST64, ACC64, "%64, %65", "%66", "{%64, %65, %66, %67}, %68", "%69")
+#undef LEMON_TF32_MMA
+
+// The fp32 kernel's shared memory, from a 1024-byte aligned base.
+// Self-fed (one warpgroup, 64-row items):
+//   q: the staged tile (raw; at D = 128 then its hi piece | q lo)
+//   ring: 2 x (k: raw, then hi | raw v), refilled by TMA
+//   k lo: 2 x (a tile's lo piece), by tile parity
+//   v^T: 2 x (hi | lo), by tile parity; o is staged in the item's last one
+//   mbarriers: q_full, full[2]
+// Split (two consumer warpgroups, 128-row items, and a splitter warpgroup):
+//   q: 2 buffers (by item parity) x 2 staged 64-row tiles (raw, then the
+//      lo piece in place, then the o tile for the TMA store)
+//   ring: 4 x (k: raw, then hi | k lo | raw v | v^T hi | v^T lo)
+//   mbarriers: q_full[2], full[4], ready[4] (split), empty[4] (read),
+//      q_empty[2] (read and stored)
+// A staged tile of q, k or v is [D / 32 atoms][rows][128 B], v^T
+// [keys / 32 atoms][D rows][128 B], both 128-byte swizzled.
+template <int D, bool SPLIT>
+struct Tf32Tiles {
+  static constexpr int BKV = D == 32 ? 64 : 32;  // keys per tile
+  static constexpr bool Q_REGS = D <= 64;        // q's pieces in registers (else split in place)
+  static constexpr int CONSUMERS = SPLIT ? 2 : 1;  // warpgroups of 64 query rows
+  static constexpr int STAGES = SPLIT ? 4 : 2;
+  static constexpr int QBUFS = SPLIT ? 2 : 1;  // q buffers, by item parity
+  static constexpr int THREADS = 128 * (CONSUMERS + SPLIT);  // the consumers[, the splitter]
+  static constexpr int Q_BYTES = BQ * D * 4;                  // a 64-row tile of q or o
+  static constexpr int KV_BYTES = BKV * D * 4;                // a key tile of k, k lo, v, v^T hi or v^T lo
+  static constexpr int RING_OFF = QBUFS * CONSUMERS * Q_BYTES * (Q_REGS ? 1 : 2);
+  static constexpr int STAGE_BYTES = (SPLIT ? 5 : 2) * KV_BYTES;
+  static constexpr int V_OFF = (SPLIT ? 2 : 1) * KV_BYTES;  // raw v in a stage
+  static constexpr int KLO_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  static constexpr int VT_OFF = KLO_OFF + (SPLIT ? 0 : 2 * KV_BYTES);
+  static constexpr int BAR_OFF = VT_OFF + (SPLIT ? 0 : 2 * 2 * KV_BYTES);
+  static constexpr int SMEM = BAR_OFF + 8 * (2 * QBUFS + (SPLIT ? 3 : 1) * STAGES) + 1024;  // + slack to align to 1024 B
+  static constexpr int MIN_BLOCKS = Q_REGS && !SPLIT ? 2 : 1;
+  static_assert(Q_BYTES <= 2 * KV_BYTES, "the o tile is staged in a v^T buffer");
+  static_assert(Q_REGS || !SPLIT, "the split kernel keeps q in registers");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 228 * 1024 && SMEM <= 227 * 1024, "the blocks fit an SM");
+};
+
+// The Veltkamp split of a staged tile of BYTES in place, by the 128 threads
+// of one warpgroup (`sid`): x * mul -> hi at the same address, lo at the same
+// offset from `lo`.
+template <int BYTES>
+__device__ __forceinline__ void split_in_place(unsigned char* x, unsigned char* lo, float mul, int sid) {
+  static_assert(BYTES % (128 * 16) == 0, "a whole number of float4 a thread");
+#pragma unroll
+  for (int n = 0; n < BYTES / (128 * 16); ++n) {
+    const int off = (sid + 128 * n) * 16;
+    float4 v = *reinterpret_cast<const float4*>(x + off);
+    if (mul != 1.f) v = make_float4(__fmul_rn(v.x, mul), __fmul_rn(v.y, mul), __fmul_rn(v.z, mul), __fmul_rn(v.w, mul));
+    uint4 h, l;
+    split4(v, h, l);
+    *reinterpret_cast<uint4*>(x + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" LIST32 "}, %32, %33, p, 1, 1;\n}\n"
-      : ACC16(0), ACC16(16)
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+// A staged v tile (BKV key rows of D) transposed into v^T (D rows of BKV
+// keys, each 8-key group in the order 0, 2, 4, 6, 1, 3, 5, 7) and split, by
+// the 128 threads of one warpgroup. A unit is one 16-byte chunk of v^T for
+// four columns: the keys of one parity of an 8-key group (four 16-byte reads
+// of raw rows), written as four chunks of hi and four of lo. Neighbouring
+// lanes take the parities and groups, so that their writes fall in distinct
+// bank groups (the reads meet 4-way conflicts).
+template <int D, int BKV>
+__device__ __forceinline__ void transpose_split_v(const unsigned char* v, unsigned char* vt_hi, unsigned char* vt_lo,
+                                                  int sid) {
+  constexpr int GROUPS = BKV / 8;
+  constexpr int UNITS = 2 * GROUPS * (D / 4);
+  static_assert(UNITS % 128 == 0, "a whole number of units a thread");
+#pragma unroll
+  for (int n = 0; n < UNITS / 128; ++n) {
+    const int u = sid + 128 * n;
+    const int p = u & 1, grp = (u >> 1) % GROUPS, c = (u >> 1) / GROUPS;  // parity, 8-key group, 4-column chunk
+    float x[4][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * grp + p + 2 * e;  // key
+      const float4 r =
+          *reinterpret_cast<const float4*>(v + (c >> 3) * BKV * 128 + j * 128 + (((c & 7) ^ (j & 7)) << 4));
+      x[e][0] = r.x;
+      x[e][1] = r.y;
+      x[e][2] = r.z;
+      x[e][3] = r.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = 4 * c + i;
+      const int off = (grp >> 2) * D * 128 + d * 128 + (((2 * (grp & 3) + p) ^ (d & 7)) << 4);
+      uint4 h, l;
+      split4(make_float4(x[0][i], x[1][i], x[2][i], x[3][i]), h, l);
+      *reinterpret_cast<uint4*>(vt_hi + off) = h;
+      *reinterpret_cast<uint4*>(vt_lo + off) = l;
+    }
+  }
 }
 
-// d (64 x N fp32) += A (64 x 8, TF32 register fragment) . B (N x 8)^T, B TF32
-// K-major in shared memory. Fragment of warp w, lane 4g + t: a0 = A[16w + g][t],
-// a1 = A[16w + g + 8][t], a2 = A[16w + g][t + 4], a3 = A[16w + g + 8][t + 4].
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint64_t desc_b);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" LIST16 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : ACC16(0)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" LIST32 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : ACC16(0), ACC16(16)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" LIST64 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : ACC16(0), ACC16(16), ACC16(32), ACC16(48)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
-
-template <int D, int BKV_>
-__global__ void __launch_bounds__(THREADS, (Tiles<D, BKV_>::MIN_BLOCKS))
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                       float* __restrict__ o, int B, int L, int H, long long stride_b, long long stride_l,
-                       float scale, int causal) {
-  using T = Tiles<D, BKV_>;
+template <int D, int TAIL, bool SPLIT>
+__global__ void __launch_bounds__(Tf32Tiles<D, SPLIT>::THREADS, Tf32Tiles<D, SPLIT>::MIN_BLOCKS)
+flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
+                            int B, int L, int H, float scale, int causal) {
+  using T = Tf32Tiles<D, SPLIT>;
   constexpr int BKV = T::BKV;
+  constexpr int STAGES = T::STAGES;
+  constexpr int KV = T::KV_BYTES;
   constexpr int NS = BKV / 2;  // S accumulators a thread
   constexpr int NO = D / 2;    // O accumulators a thread
+  constexpr int NQ = T::Q_REGS ? D / 2 : 1;  // q's TF32 pieces a thread: 4 for each k-step
+  // the parts that run (all of them as built; benchmarks/k3_limits.py stops early)
+  constexpr bool SPLITS = LEMON_K3_STOP != 1 && LEMON_K3_STOP != 4;
+  constexpr bool S_ON = LEMON_K3_STOP == 0 || LEMON_K3_STOP >= 3;
+  constexpr bool PV_ON = LEMON_K3_STOP == 0 || LEMON_K3_STOP == 4;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* const sq_hi = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  unsigned char* const sq_lo = sq_hi + T::Q_BYTES;
-  unsigned char* const sk_hi = sq_lo + T::Q_BYTES;  // [D / 32 atoms][BKV rows][128 B]
-  unsigned char* const sk_lo = sk_hi + T::KV_BYTES;
-  unsigned char* const sv_hi = sk_lo + T::KV_BYTES;  // v^T: [BKV / 32 atoms][D rows][128 B], keys permuted
-  unsigned char* const sv_lo = sv_hi + T::KV_BYTES;
+  unsigned char* const base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sb = smem_u32(base);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n_qt = (L + BQ - 1) / BQ;
+  // The consumer warpgroup (-1: the splitter, after the consumers) and the
+  // thread in it
+  const int cw = tid < 128 * T::CONSUMERS ? tid >> 7 : -1;
+  const int ctid = tid & 127;
+  const bool lead = SPLIT ? tid == 128 * T::CONSUMERS : tid == 0;  // issues every TMA load
+  const int warp = ctid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* q_tile = base + cw * T::Q_BYTES;  // the consumer's: raw, then (D = 128) its hi piece
+  unsigned char* const q_lo = base + T::Q_BYTES;
+  // Key tile c (counted over the block's items) lies in stage c % STAGES
+  // (raw k, then its hi piece; raw v), its lo piece and v^T in the buffers
+  // of its parity (split: in the stage)
+  auto k_at = [&](int c) { return base + T::RING_OFF + (c % STAGES) * T::STAGE_BYTES; };
+  auto klo_at = [&](int c) { return SPLIT ? k_at(c) + KV : base + T::KLO_OFF + (c & 1) * KV; };
+  auto vt_at = [&](int c) {  // v^T hi, then v^T lo
+    return SPLIT ? k_at(c) + 3 * KV : base + T::VT_OFF + (c & 1) * 2 * KV;
+  };
+  constexpr int QBUFS = T::QBUFS;
+  const uint32_t bars = sb + T::BAR_OFF;
+  auto q_full = [&](int b) { return bars + 8 * b; };                           // q buffer b landed
+  auto full = [&](int st) { return bars + 8 * (QBUFS + st); };                 // the stage's TMA loads landed
+  auto ready = [&](int st) { return bars + 8 * (QBUFS + STAGES + st); };       // split: the stage is split
+  auto empty = [&](int st) { return bars + 8 * (QBUFS + 2 * STAGES + st); };   // split: both consumers read it
+  auto q_empty = [&](int b) { return bars + 8 * (QBUFS + 3 * STAGES + b); };  // split: both consumers read q
+  constexpr int ROWS = T::CONSUMERS * BQ;  // query rows an item
+
+  const int n_qt = (L + ROWS - 1) / ROWS;
   const int n_items = B * H * n_qt;
 
-  // A work item is one 64-row query tile of one (batch, head); consecutive
-  // items are the query tiles of one head, so the blocks in flight share
-  // their k and v in L2.
+  // Item `it`: the ROWS query rows from q0 of (b, h); the query tiles of a
+  // head are neighbours in the order, so the blocks in flight share its k
+  // and v in L2. Its key tiles: all of L, or under the causal mask those up
+  // to its last row; causal heads go from their last (longest) query tile
+  // down, so that the grid ends on short items.
   struct Item {
-    long long in, out;  // offsets of the head's first element in q/k/v and in o
-    int q0;
+    int b, h, q0, n_kv;
   };
   auto item_at = [&](int it) {
     const int bh = it / n_qt;
-    const int b = bh / H, h = bh - b * H;
-    return Item{static_cast<long long>(b) * stride_b + static_cast<long long>(h) * D,
-                (static_cast<long long>(b) * L * H + h) * D, (it - bh * n_qt) * BQ};
+    const int qt = it - bh * n_qt;
+    const int b = bh / H, h = bh - b * H, q0 = (causal ? n_qt - 1 - qt : qt) * ROWS;
+    return Item{b, h, q0, ((causal ? min(L, q0 + ROWS) : L) + BKV - 1) / BKV};
   };
 
-  // Tiles as loaded: float4 rows of q and k (16-byte chunks of D), and for
-  // v, 8 consecutive keys of one column (lanes on consecutive columns).
-  // Offsets inside a head are 32-bit (the wrapper keeps (L + 64) * stride_l
-  // below 2^31).
-  const int stride = static_cast<int>(stride_l);
-  constexpr int KSTEP = THREADS / (D / 4);  // rows between a thread's float4
-  constexpr int VSTEP = 8 * (THREADS / D);  // v rows between a thread's 8-key groups
-  const int k_row0 = tid / (D / 4), k_col = (tid % (D / 4)) * 4;
-  const int v_row0 = 8 * (tid / D), v_col = tid % D;
-  float4 qr[T::Q4];
-  float4 kr[T::K4];
-  float vr[T::VG][8];
-  auto load_q = [&](const Item& it) {
-    const int lim = L - it.q0 - k_row0;  // this thread's row i * KSTEP is a query while below lim
-    const float* const base = q + it.in + (it.q0 + k_row0) * stride + k_col;
+  // The lead thread's loads run ahead of the products by the ring's depth,
+  // across items: `ld` is the next key tile to load (item, tile).
+  int ld_it = blockIdx.x, ld_j = 0, ld_count = 0;
+  Item ld_item = item_at(ld_it);
+  auto load_q = [&](const Item& it, int b) {  // into q buffer b
+    mbar_arrive_expect_tx(q_full(b), T::CONSUMERS * T::Q_BYTES);
 #pragma unroll
-    for (int i = 0; i < T::Q4; ++i)
-      qr[i] = i * KSTEP < lim ? __ldg(reinterpret_cast<const float4*>(base + i * KSTEP * stride))
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = 0; w < T::CONSUMERS; ++w)
+#pragma unroll
+      for (int a = 0; a < D / 32; ++a)
+        tma_load_4d(sb + (b * T::CONSUMERS + w) * T::Q_BYTES + a * BQ * 128, &map_q, q_full(b), 32 * a, it.h,
+                    it.q0 + w * BQ, it.b);
   };
-  auto load_k = [&](const Item& it, int k0) {
-    const int lim = L - k0 - k_row0;
-    const float* const base = k + it.in + (k0 + k_row0) * stride + k_col;
+  auto load_next_tile = [&]() {
+    if (ld_it >= n_items) return;
+    const int st = ld_count % STAGES;
+    const uint32_t k_dst = smem_u32(k_at(st));
+    mbar_arrive_expect_tx(full(st), 2 * KV);
 #pragma unroll
-    for (int i = 0; i < T::K4; ++i)
-      kr[i] = i * KSTEP < lim ? __ldg(reinterpret_cast<const float4*>(base + i * KSTEP * stride))
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  auto load_v = [&](const Item& it, int k0) {
-    const int lim = L - k0 - v_row0;
-    const float* const base = v + it.in + (k0 + v_row0) * stride + v_col;
-#pragma unroll
-    for (int i = 0; i < T::VG; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vr[i][j] = i * VSTEP + j < lim ? __ldg(base + (i * VSTEP + j) * stride) : 0.f;
-  };
-  auto store_q = [&]() {  // scaled, then split
-#pragma unroll
-    for (int i = 0; i < T::Q4; ++i) {
-      const int r = k_row0 + i * KSTEP, c4 = k_col / 4;
-      store_split4(sq_hi, sq_lo, (c4 >> 3) * BQ * 128 + swz(r, c4 & 7), qr[i].x * scale, qr[i].y * scale,
-                   qr[i].z * scale, qr[i].w * scale);
+    for (int a = 0; a < D / 32; ++a) {
+      tma_load_4d(k_dst + a * BKV * 128, &map_k, full(st), 32 * a, ld_item.h, ld_j * BKV, ld_item.b);
+      tma_load_4d(k_dst + T::V_OFF + a * BKV * 128, &map_v, full(st), 32 * a, ld_item.h, ld_j * BKV, ld_item.b);
+    }
+    ++ld_count;
+    if (++ld_j == ld_item.n_kv) {
+      ld_j = 0;
+      ld_it += gridDim.x;
+      if (ld_it < n_items) ld_item = item_at(ld_it);
     }
   };
-  auto store_k = [&]() {
-#pragma unroll
-    for (int i = 0; i < T::K4; ++i) {
-      const int r = k_row0 + i * KSTEP, c4 = k_col / 4;
-      store_split4(sk_hi, sk_lo, (c4 >> 3) * BKV * 128 + swz(r, c4 & 7), kr[i].x, kr[i].y, kr[i].z, kr[i].w);
-    }
-  };
-  auto store_v = [&]() {
-#pragma unroll
-    for (int i = 0; i < T::VG; ++i) {
-      const int d = v_col, grp = (v_row0 + i * VSTEP) / 8;
-      // keys 8grp..8grp+7 sit at positions 8grp + (0, 4, 1, 5, 2, 6, 3, 7):
-      // chunk 2(grp % 4) holds keys 0, 2, 4, 6 and the next chunk 1, 3, 5, 7
-      const uint32_t atom = (grp >> 2) * D * 128;
-      const int chunk = 2 * (grp & 3);
-      store_split4(sv_hi, sv_lo, atom + swz(d, chunk), vr[i][0], vr[i][2], vr[i][4], vr[i][6]);
-      store_split4(sv_hi, sv_lo, atom + swz(d, chunk + 1), vr[i][1], vr[i][3], vr[i][5], vr[i][7]);
-    }
-  };
+  auto split_k = [&](int c) { split_in_place<KV>(k_at(c), klo_at(c), 1.f, ctid); };
+  auto split_v = [&](int c) { transpose_split_v<D, BKV>(k_at(c) + T::V_OFF, vt_at(c), vt_at(c) + KV, ctid); };
 
-  // Descriptors of the operands' first k-step; a k-step adds its byte offset / 16.
-  const uint64_t dq_hi = smem_desc(smem_u32(sq_hi)), dq_lo = smem_desc(smem_u32(sq_lo));
-  const uint64_t dk_hi = smem_desc(smem_u32(sk_hi)), dk_lo = smem_desc(smem_u32(sk_lo));
-  const uint64_t dv_hi = smem_desc(smem_u32(sv_hi)), dv_lo = smem_desc(smem_u32(sv_lo));
-
-  const int n_blocks = static_cast<int>(gridDim.x);
-  int item = blockIdx.x;
-  Item cur = item_at(item);
-  load_k(cur, 0);
-  load_v(cur, 0);
-  load_q(cur);
-  for (; item < n_items; item += n_blocks) {
-    const bool has_next = item + n_blocks < n_items;
-    const Item next = item_at(has_next ? item + n_blocks : item);
-    const int q0 = cur.q0;
-    const int kv_end = causal ? min(L, q0 + BQ) : L;
-    const int n_tiles = (kv_end + BKV - 1) / BKV;
-    // This thread's rows of the tile: r0 (accumulators 4i, 4i+1) and r0 + 8
-    // (4i+2, 4i+3), at columns 8i + 2t and 8i + 2t + 1.
-    const int r0 = q0 + warp * 16 + g;
-    float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
-    float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-    float acc[NO];
-#pragma unroll
-    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
-    store_q();
-    store_k();
-    fence_async_barrier();
-
-    // Per key tile: S = (q * scale) . k^T is issued, v^T is stored while it
-    // runs and the next k tile is loaded; softmax; O += P . v is issued, the
-    // next k tile is stored while it runs and the next v tile is loaded. The
-    // last key tile loads the next item's first k and v tiles and its q.
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int k0 = kt * BKV;
-      const bool more = kt + 1 < n_tiles;
-
-      float s[NS];
-#pragma unroll
-      for (int i = 0; i < NS; ++i) s[i] = 0.f;
-      fence_operands(s);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < D / 8; ++ks) {
-        const uint32_t qo = ((ks >> 2) * BQ * 128 + (ks & 3) * 32) >> 4;
-        const uint32_t ko = ((ks >> 2) * BKV * 128 + (ks & 3) * 32) >> 4;
-        wgmma_ss<BKV>(s, dq_hi + qo, dk_hi + ko);
-        wgmma_ss<BKV>(s, dq_hi + qo, dk_lo + ko);
-        wgmma_ss<BKV>(s, dq_lo + qo, dk_hi + ko);
+  if (lead) {
+    for (int b = 0; b < QBUFS; ++b) mbar_init(q_full(b), 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(full(s), 1);
+    if (SPLIT) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(ready(s), 128);
+        mbar_init(empty(s), 2 * 128);
       }
-      wgmma_commit();
-      store_v();  // v^T is free: the last P . v finished before the barrier
-      if (more) load_k(cur, k0 + BKV);
-      else if (has_next) load_k(next, 0);
-      wgmma_wait();
-      fence_operands(s);
+      for (int b = 0; b < QBUFS; ++b) mbar_init(q_empty(b), 2 * 128);
+    }
+    fence_mbar_init();
+    load_q(ld_item, 0);  // the grid has no more blocks than items
+    if (SPLIT && blockIdx.x + gridDim.x < n_items) load_q(item_at(blockIdx.x + gridDim.x), 1);
+    for (int s = 0; s < STAGES; ++s) load_next_tile();
+  }
+  __syncthreads();
 
-      // Online softmax over this tile; the row max is a quad max.
-      if (k0 + BKV > L || (causal && k0 + BKV - 1 > q0)) {
-#pragma unroll
-        for (int i = 0; i < NS; ++i) {
-          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-          const int row = r0 + ((i & 2) ? 8 : 0);
-          if (col >= L || (causal && col > row)) s[i] = -CUDART_INF_F;
+  if constexpr (SPLIT) {
+    if (cw < 0) {
+      // The splitter: every tile of the block's items, in order, split as
+      // soon as it has landed; its lead thread refills the stage of the
+      // tile two before once both consumers have read it, and, once an
+      // item's last tile is split, loads the next item's q into the buffer
+      // of the item before it as soon as both consumers are done with that.
+      int c = 0, n = 0;
+      for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++n) {
+        const bool q_next = n > 0 && it + static_cast<int>(gridDim.x) < n_items;
+        const int n_kv = item_at(it).n_kv;
+        for (int j = 0; j < n_kv; ++j, ++c) {
+          mbar_wait(full(c % STAGES), (c / STAGES) & 1);
+          if constexpr (SPLITS) {
+            split_k(c);
+            split_v(c);
+          }
+          fence_proxy_async();
+          mbar_arrive(ready(c % STAGES));
+          if (lead && c >= 2) {
+            mbar_wait(empty((c - 2) % STAGES), ((c - 2) / STAGES) & 1);
+            load_next_tile();
+          }
+          if (lead && j == n_kv - 1 && q_next) {
+            mbar_wait(q_empty((n - 1) & 1), ((n - 1) >> 1) & 1);
+            load_q(item_at(it + gridDim.x), (n + 1) & 1);
+          }
         }
       }
-      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-      for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-      float alpha[2], nb[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        // every row sees key 0 in the first tile, so m_new is finite; the
-        // guard keeps a fully masked row at zero weight instead of NaN
-        const float base = m_new == -CUDART_INF_F ? 0.f : m_new;
-        alpha[r] = ex2((m[r] - base) * LOG2E);
-        nb[r] = -base * LOG2E;
-        m[r] = m_new;
-        l[r] *= alpha[r];
-      }
-      uint32_t p_hi[NS], p_lo[NS];
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const int r = (i >> 1) & 1;
-        const float p = ex2(fmaf(s[i], LOG2E, nb[r]));
-        l[r] += p;
-        split(p, p_hi[i], p_lo[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
-      fence_async_barrier();  // v^T is visible; every warp is done with k
-
-      // O += P . v (keys past L have weight 0 and v rows of 0)
-      fence_operands(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < BKV / 8; ++ks) {
-        const uint32_t vo = ((ks >> 2) * D * 128 + (ks & 3) * 32) >> 4;
-        const int i = 4 * ks;
-        wgmma_rs<D>(acc, p_hi[i], p_hi[i + 2], p_hi[i + 1], p_hi[i + 3], dv_hi + vo);
-        wgmma_rs<D>(acc, p_hi[i], p_hi[i + 2], p_hi[i + 1], p_hi[i + 3], dv_lo + vo);
-        wgmma_rs<D>(acc, p_lo[i], p_lo[i + 2], p_lo[i + 1], p_lo[i + 3], dv_hi + vo);
-      }
-      wgmma_commit();
-      if (more) {
-        store_k();
-        load_v(cur, k0 + BKV);
-      } else if (has_next) {
-        load_v(next, 0);
-        load_q(next);
-      }
-      wgmma_wait();
-      fence_operands(acc);
-      fence_operands(p_hi);
-      fence_operands(p_lo);
-      fence_async_barrier();  // the next k is visible; every warp is done with q, k and v^T
+      return;
     }
+  }
 
-    const long long row_stride = static_cast<long long>(H) * D;
+  uint32_t qh[NQ], ql[T::Q_REGS && !SPLIT ? NQ : 1];
+  float o[NO];
+  float s[NS];
+  uint32_t p_hi[NS], p_lo[NS];
+  float m[2], l[2];
+
+  // q of the item scaled and split: into this thread's A
+  // fragments (a k-step ks holds rows r, r + 8 at columns 8 ks + t,
+  // 8 ks + t + 4 in qh[4 ks ..]) or in place in shared memory
+  auto split_q = [&]() {
+    if constexpr (T::Q_REGS) {
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int row = warp * 16 + g + 8 * rr;
+            float* const x = reinterpret_cast<float*>(q_tile + (ks >> 2) * BQ * 128 + row * 128 +
+                                                      (((2 * (ks & 3) + hf) ^ g) << 4) + 4 * t);
+            uint32_t lo;
+            split(__fmul_rn(*x, scale), qh[4 * ks + 2 * hf + rr], lo);
+            if constexpr (SPLIT)
+              *reinterpret_cast<uint32_t*>(x) = lo;
+            else
+              ql[4 * ks + 2 * hf + rr] = lo;
+          }
+    } else {
+      split_in_place<T::Q_BYTES>(q_tile, q_lo, scale, ctid);
+    }
+  };
+
+  // A tile's products and softmax take its width W (keys: BKV, or TAIL for
+  // the last tile of an unmasked item) as a compile-time constant.
+  using Full = std::integral_constant<int, BKV>;
+  using Tail = std::integral_constant<int, TAIL>;
+  // S = (q * scale) . k^T of key tile c: hi.hi, hi.lo, lo.hi
+  auto issue_s = [&](int c, auto w) {
+    constexpr int W = decltype(w)::value;
+    const uint64_t dk_hi = smem_desc(smem_u32(k_at(c))), dk_lo = smem_desc(smem_u32(klo_at(c)));
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    fence_operands(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      const uint32_t ko = ((ks >> 2) * BKV * 128 + (ks & 3) * 32) >> 4;
+      if constexpr (SPLIT) {  // q's lo piece in shared memory
+        const int i = 4 * ks;
+        const uint32_t qo = ((ks >> 2) * BQ * 128 + (ks & 3) * 32) >> 4;
+        Tf32Mma<W>::rs(s, qh[i], qh[i + 1], qh[i + 2], qh[i + 3], dk_hi + ko);
+        Tf32Mma<W>::rs(s, qh[i], qh[i + 1], qh[i + 2], qh[i + 3], dk_lo + ko);
+        Tf32Mma<W>::ss(s, smem_desc(smem_u32(q_tile)) + qo, dk_hi + ko);
+      } else if constexpr (T::Q_REGS) {
+        const int i = 4 * ks;
+        Tf32Mma<W>::rs(s, qh[i], qh[i + 1], qh[i + 2], qh[i + 3], dk_hi + ko);
+        Tf32Mma<W>::rs(s, qh[i], qh[i + 1], qh[i + 2], qh[i + 3], dk_lo + ko);
+        Tf32Mma<W>::rs(s, ql[i], ql[i + 1], ql[i + 2], ql[i + 3], dk_hi + ko);
+      } else {
+        const uint64_t dq_hi = smem_desc(smem_u32(q_tile)), dq_lo = smem_desc(smem_u32(q_lo));
+        const uint32_t qo = ((ks >> 2) * BQ * 128 + (ks & 3) * 32) >> 4;
+        Tf32Mma<W>::ss(s, dq_hi + qo, dk_hi + ko);
+        Tf32Mma<W>::ss(s, dq_hi + qo, dk_lo + ko);
+        Tf32Mma<W>::ss(s, dq_lo + qo, dk_hi + ko);
+      }
+    }
+    wgmma_commit();
+  };
+  // O += P . v of the first W keys of key tile c (keys past L have weight 0
+  // and v rows of 0): p_hi.v_hi, p_hi.v_lo, p_lo.v_hi
+  auto issue_pv = [&](int c, auto w) {
+    constexpr int W = decltype(w)::value;
+    const uint64_t dv_hi = smem_desc(smem_u32(vt_at(c))), dv_lo = smem_desc(smem_u32(vt_at(c) + KV));
+    fence_operands(o);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < W / 8; ++ks) {
+      const uint32_t vo = ((ks >> 2) * D * 128 + (ks & 3) * 32) >> 4;
+      const int i = 4 * ks;
+      Tf32Mma<D>::rs(o, p_hi[i], p_hi[i + 2], p_hi[i + 1], p_hi[i + 3], dv_hi + vo);
+      Tf32Mma<D>::rs(o, p_hi[i], p_hi[i + 2], p_hi[i + 1], p_hi[i + 3], dv_lo + vo);
+      Tf32Mma<D>::rs(o, p_lo[i], p_lo[i + 2], p_lo[i + 1], p_lo[i + 3], dv_hi + vo);
+    }
+    wgmma_commit();
+  };
+  // The wgmma operands in registers stay put until their products are done.
+  auto products_done = [&]() {
+    fence_operands(s);
+    fence_operands(o);
+    fence_operands(p_hi);
+    fence_operands(p_lo);
+    fence_operands(qh);
+    fence_operands(ql);
+  };
+  // P split into TF32 pieces (registers i: row r0 + 8 ((i >> 1) & 1), key
+  // 8 (i >> 2) + 2t + (i & 1))
+  auto split_p = [&](auto w) {
+    constexpr int W = decltype(w)::value;
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) split(s[i], p_hi[i], p_lo[i]);
+  };
+  auto rescale_o = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+  };
+  // Epilogue: O normalised, written swizzled into the o tile (at `dst`,
+  // [D / 32 atoms][64 rows][128 B]), stored by TMA from row q0 (rows past L
+  // clipped) by the consumer's first thread. `sync` is a barrier over the
+  // consumer warpgroup.
+  auto store_o = [&](const Item& cur, int q0, unsigned char* dst, auto sync) {
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float sum = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
-      const float inv = 1.f / (sum + __shfl_xor_sync(0xffffffffu, sum, 2));
-      const int row = r0 + 8 * r;
-      if (row >= L) continue;
-      float* const out = o + cur.out + row * row_stride + 2 * t;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<float2*>(out + 8 * i) = make_float2(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+      inv[r] = 1.f / (sum + __shfl_xor_sync(0xffffffffu, sum, 2));
     }
-    cur = next;
+    if (ctid == 0) bulk_wait_read<0>();  // the last o tile stored from here has been read
+    sync();  // and every warp's last P . v has read the buffer
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;
+        *reinterpret_cast<float2*>(dst + (i >> 2) * BQ * 128 + row * 128 + (((2 * (i & 3) + (t >> 1)) ^ (row & 7)) << 4) +
+                                   8 * (t & 1)) = make_float2(o[4 * i + 2 * r] * inv[r], o[4 * i + 2 * r + 1] * inv[r]);
+      }
+    }
+    fence_proxy_async();
+    sync();
+    if (ctid == 0) {
+#pragma unroll
+      for (int a = 0; a < D / 32; ++a) tma_store_4d(&map_o, smem_u32(dst) + a * BQ * 128, 32 * a, cur.h, q0, cur.b);
+      bulk_commit();
+    }
+  };
+
+  // Mask, online softmax of S (keys k0 .. k0 + W) for the rows from q0
+  // (this thread's: r0, r0 + 8): s becomes the unnormalised P; the row max
+  // is a quad max. Returns O's rescaling.
+  auto softmax = [&](int k0, int q0, int r0, float (&alpha)[2], auto w) {
+    constexpr int W = decltype(w)::value;
+    if (k0 + W > L || (causal && k0 + W - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) {
+        const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const int row = r0 + ((i & 2) ? 8 : 0);
+        if (col >= L || (causal && col > row)) s[i] = -CUDART_INF_F;
+      }
+    }
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float nb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // every row sees key 0 in the first tile, so m_new is finite; the
+      // guard keeps a fully masked row at zero weight instead of NaN
+      const float mb = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[r] = ex2((m[r] - mb) * LOG2E);
+      nb[r] = -mb * LOG2E;
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = ex2(fmaf(s[i], LOG2E, nb[r]));
+      l[r] += s[i];
+    }
+  };
+  auto start_item = [&]() {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+    m[0] = m[1] = -CUDART_INF_F;
+    l[0] = l[1] = 0.f;
+  };
+
+  int n = 0;     // items of this block so far
+  int cons = 0;  // key tiles of this block so far
+  if constexpr (!SPLIT) {
+    // Self-fed: the warpgroup splits its own tiles. Key tile j (the block's
+    // tile cons): S_j and then (PV) P_{j-1} . v^T_{j-1} are issued; while they
+    // run, v_j is transposed and split and the next tile's k split (the next
+    // item's first tile at an item's last); S_j's softmax runs while P . v is
+    // in flight. Then one barrier, after which the lead thread refills the
+    // stage of tile j with the tile STAGES ahead, and loads the next item's q
+    // once this one's is read.
+    mbar_wait(full(0), 0);
+    if (SPLITS) split_k(0);  // every later tile's k is split during the tile before
+    fence_async_barrier();
+    for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++n) {
+      const Item cur = item_at(it);
+      const int next_it = it + static_cast<int>(gridDim.x);
+      const bool has_next = next_it < n_items;
+      const int q0 = cur.q0, r0 = q0 + warp * 16 + g;  // this thread's rows: r0, r0 + 8
+      start_item();
+      mbar_wait(q_full(0), n & 1);
+      if (SPLITS) split_q();
+      if (!T::Q_REGS) fence_async_barrier();  // q is split in shared memory
+
+      auto step = [&](int j, auto w, auto pv) {
+        constexpr bool PV = decltype(pv)::value && PV_ON;
+        float alpha[2];
+        if constexpr (S_ON) issue_s(cons, w);
+        if constexpr (PV) issue_pv(cons - 1, Full{});
+        if (SPLITS) split_v(cons);
+        if (j + 1 < cur.n_kv || has_next) {
+          const int c1 = cons + 1;
+          mbar_wait(full(c1 % STAGES), (c1 / STAGES) & 1);
+          if (SPLITS) split_k(c1);
+        }
+        if constexpr (S_ON) {
+          if constexpr (PV) wgmma_wait<1>(); else wgmma_wait<0>();
+          fence_operands(s);
+          softmax(j * BKV, q0, r0, alpha, w);
+        }
+        if constexpr (PV) {
+          wgmma_wait<0>();
+          products_done();
+          rescale_o(alpha);
+        }
+        if constexpr (S_ON) split_p(w);
+        if (lead) bulk_wait_read<0>();  // the o tile staged in a v^T buffer has been read
+        fence_async_barrier();  // v^T_j and the next k are visible; the stage of tile j is read
+        if (lead) {
+          load_next_tile();
+          if (has_next && j == (T::Q_REGS ? 0 : cur.n_kv - 1)) load_q(item_at(next_it), 0);
+        }
+        ++cons;
+      };
+      // Tile 0 is full width: TAIL < BKV only where an item has several tiles.
+      step(0, Full{}, std::false_type{});
+      for (int j = 1; j < cur.n_kv - 1; ++j) step(j, Full{}, std::true_type{});
+      if (cur.n_kv > 1) step(cur.n_kv - 1, Tail{}, std::true_type{});
+      if constexpr (PV_ON) {
+        issue_pv(cons - 1, Tail{});
+        wgmma_wait<0>();
+        products_done();
+      }
+      store_o(cur, q0, vt_at(cons - 1), [] { __syncthreads(); });
+    }
+  } else {
+    // A consumer warpgroup of the split kernel: the item's rows from
+    // q0 + 64 cw. Key tile j: S_j and then P_{j-1} . v^T_{j-1} are issued
+    // once the splitter has split tile j; S_j's softmax runs while P . v is
+    // in flight, after which the stage of tile j - 1 is released. Tiles past
+    // the warpgroup's last (the first one's, under the causal mask) are
+    // released as they come.
+    auto sync = [&] { named_sync(1 + cw, 128); };
+    for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++n) {
+      const Item cur = item_at(it);
+      const int q0 = cur.q0 + cw * BQ, r0 = q0 + warp * 16 + g;
+      const int n_kv = q0 >= L ? 0 : ((causal ? min(L, q0 + BQ) : L) + BKV - 1) / BKV;
+      start_item();
+      if (n > 0) {  // the last item's q buffer, with its o tile stored from it, is free
+        if (ctid == 0) bulk_wait_read<0>();
+        mbar_arrive(q_empty((n - 1) & 1));
+      }
+      q_tile = base + ((n & 1) * T::CONSUMERS + cw) * T::Q_BYTES;
+      mbar_wait(q_full(n & 1), (n >> 1) & 1);
+      if (SPLITS && n_kv > 0) split_q();  // q's lo piece in place, for S's lo.hi
+      fence_proxy_async();
+      sync();
+      auto release = [&](int c) { mbar_arrive(empty(c % STAGES)); };
+      auto step = [&](int j, auto w, auto pv) {
+        constexpr bool PV = decltype(pv)::value && PV_ON;
+        float alpha[2];
+        mbar_wait(ready(cons % STAGES), (cons / STAGES) & 1);
+        if constexpr (S_ON) issue_s(cons, w);
+        if constexpr (PV) issue_pv(cons - 1, Full{});
+        if constexpr (S_ON) {
+          if constexpr (PV) wgmma_wait<1>(); else wgmma_wait<0>();
+          fence_operands(s);
+          softmax(j * BKV, q0, r0, alpha, w);
+        }
+        if constexpr (PV) {
+          wgmma_wait<0>();
+          products_done();
+          rescale_o(alpha);
+        }
+        if (j > 0) release(cons - 1);
+        if constexpr (S_ON) split_p(w);
+        ++cons;
+      };
+      if (n_kv > 0) {
+        step(0, Full{}, std::false_type{});
+        for (int j = 1; j < n_kv - 1; ++j) step(j, Full{}, std::true_type{});
+        if (n_kv > 1) step(n_kv - 1, Tail{}, std::true_type{});
+        if constexpr (PV_ON) {
+          issue_pv(cons - 1, Tail{});
+          wgmma_wait<0>();
+          products_done();
+        }
+        release(cons - 1);
+        store_o(cur, q0, q_tile, sync);  // q's lo piece is read
+      }
+      for (int j = n_kv; j < cur.n_kv; ++j, ++cons) {  // the other consumer's tiles
+        mbar_wait(ready(cons % STAGES), (cons / STAGES) & 1);
+        release(cons);
+      }
+    }
+  }
+  if (cw >= 0 && ctid == 0) bulk_wait_all();
+}
+
+template <int D, int TAIL, bool SPLIT>
+int launch_tf32(const float* q, const float* k, const float* v, float* o, int B, int L, int H, long long stride_b,
+                long long stride_l, float scale, int causal, cudaStream_t stream) {
+  using T = Tf32Tiles<D, SPLIT>;
+  // (D, H, L, B) views: the inputs with the wrapper's strides, o contiguous;
+  // boxes of 32 columns (one swizzle atom) by 64 query rows or a key tile
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t in_strides[3] = {4ull * D, 4ull * stride_l, 4ull * stride_b};
+  const cuuint64_t out_strides[3] = {4ull * D, 4ull * H * D, 4ull * L * H * D};
+  const cuuint32_t box_q[4] = {32, 1, BQ, 1};
+  const cuuint32_t box_kv[4] = {32, 1, T::BKV, 1};
+  CUtensorMap map_q, map_k, map_v, map_o;
+  int e = encode_tensor_map(&map_q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, q, dims, in_strides, box_q);
+  if (e == 0) e = encode_tensor_map(&map_k, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, k, dims, in_strides, box_kv);
+  if (e == 0) e = encode_tensor_map(&map_v, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, v, dims, in_strides, box_kv);
+  if (e == 0) e = encode_tensor_map(&map_o, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, o, dims, out_strides, box_q);
+  int sms = 0;
+  static int cached[64] = {};
+  if (e == 0)
+    e = prepare_launch(reinterpret_cast<const void*>(flash_attention_tf32_kernel<D, TAIL, SPLIT>), T::SMEM, cached,
+                       &sms);
+  if (e != 0) return e;
+  const int n_qt = (L + T::CONSUMERS * BQ - 1) / (T::CONSUMERS * BQ);
+  const int n_items = B * H * n_qt;  // the wrapper keeps B * H * ceil(L / 64) below 2^31
+  // A block takes every n_blocks-th item; n_blocks coprime to the query
+  // tiles of a head spreads causal items of all lengths evenly.
+  int n_blocks = min(n_items, T::MIN_BLOCKS * sms);
+  while (n_blocks > 1 && std::gcd(n_blocks, n_qt) != 1) --n_blocks;
+  flash_attention_tf32_kernel<D, TAIL, SPLIT><<<n_blocks, T::THREADS, T::SMEM, stream>>>(map_q, map_k, map_v, map_o,
+                                                                                       B, L, H, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 kernel at head dim D: the width of an unmasked item's last key
+// tile is the keys past the last full tile, rounded up to a quarter tile (a
+// k-step of 8 keys for 32-key tiles, 16 for 64; L = 197 at D = 64: 8).
+template <int D, bool SPLIT>
+int launch_tail(const float* q, const float* k, const float* v, float* o, int B, int L, int H, long long stride_b,
+                long long stride_l, float scale, int causal, cudaStream_t stream) {
+  constexpr int BKV = Tf32Tiles<D, SPLIT>::BKV, Q4 = BKV / 4;
+  const int tail = causal || L <= BKV || L % BKV == 0 ? BKV : (L % BKV + Q4 - 1) / Q4 * Q4;
+  switch (tail / Q4) {
+    case 1: return launch_tf32<D, Q4, SPLIT>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, stream);
+    case 2: return launch_tf32<D, 2 * Q4, SPLIT>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, stream);
+    case 3: return launch_tf32<D, 3 * Q4, SPLIT>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, stream);
+    default: return launch_tf32<D, BKV, SPLIT>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, stream);
   }
 }
 
-template <int D, int BKV>
-int launch(const float* q, const float* k, const float* v, float* o, int B, int L, int H, long long stride_b,
-           long long stride_l, float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = Tiles<D, BKV>::SMEM;
-  static int resident[64] = {};  // blocks that fit on the card at once, by device ordinal
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= 64 || resident[dev] == 0) {
-    e = cudaFuncSetAttribute(flash_attention_kernel<D, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    int per_sm = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_attention_kernel<D, BKV>, THREADS, smem);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (per_sm * sms == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-    if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-    resident[dev] = per_sm * sms;
+// The split kernel for unmasked heads of more than one 64-row query tile at
+// D = 64, else the self-fed one (LEMON_K3_SPLITTER=0: the self-fed one
+// everywhere). Under the causal mask the split kernel's first consumer
+// idles through the last two key tiles of each item, and at D = 32 (64-key
+// tiles) it measured slower than the self-fed kernel.
+template <int D>
+int dispatch_tf32(const float* q, const float* k, const float* v, float* o, int B, int L, int H, long long stride_b,
+                  long long stride_l, float scale, int causal, cudaStream_t stream) {
+  if constexpr (D == 64 && LEMON_K3_SPLITTER) {
+    if (!causal && L > BQ) return launch_tail<D, true>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, stream);
   }
-  const int n_qt = (L + BQ - 1) / BQ;
-  const int n_items = B * H * n_qt;
-  // A block takes every n_blocks-th item. With n_blocks coprime to the number
-  // of query tiles a head has, each block cycles through all tile positions,
-  // so causal heads (later tiles see more keys) spread evenly over the blocks.
-  int n_blocks = min(n_items, resident[dev]);
-  while (n_blocks > 1 && std::gcd(n_blocks, n_qt) != 1) --n_blocks;
-  flash_attention_kernel<D, BKV><<<n_blocks, THREADS, smem, stream>>>(q, k, v, o, B, L, H, stride_b,
-                                                                                     stride_l, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  return launch_tail<D, false>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -924,25 +1290,19 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 
 // Shapes are checked by the Python wrapper (lemon_tpu_torch/ops/attention.py):
 // q, k and v share their strides, with (H, D) contiguous inside each token,
-// 16-byte aligned pointers and strides that are multiples of 4; D is 32, 64
-// or 128; 0 < L, B * H * ceil(L / 64) < 2^31 and (L + 64) * stride_l < 2^31.
-// o is (B, L, H, D) contiguous. Returns the first CUDA error of the launch
+// 16-byte aligned pointers and strides that are multiples of 4 (as TMA needs
+// them); D is 32, 64 or 128; 0 < L, B * H * ceil(L / 64) < 2^31 and
+// (L + 64) * stride_l < 2^31. o is (B, L, H, D) contiguous. Returns the first
+// CUDA error of the tensor maps' encoding or of the launch
 // (cudaErrorInvalidValue for an unsupported D).
 extern "C" int lemon_flash_attention(const float* q, const float* k, const float* v, float* o, int B, int L, int H,
                                      int D, long long stride_b, long long stride_l, float scale, int causal,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 64-key tiles take half the barriers a key; 32-key tiles pad fewer keys
-  // where the last 64-key tile would be at most half full (L = 77, 197).
-  const bool narrow = L % 64 != 0 && L % 64 <= 32;
   switch (D) {
-    case 32:
-      return narrow ? launch<32, 32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st)
-                    : launch<32, 64>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
-    case 64:
-      return narrow ? launch<64, 32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st)
-                    : launch<64, 64>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
-    case 128: return launch<128, 32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
+    case 32: return dispatch_tf32<32>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
+    case 64: return dispatch_tf32<64>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
+    case 128: return dispatch_tf32<128>(q, k, v, o, B, L, H, stride_b, stride_l, scale, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

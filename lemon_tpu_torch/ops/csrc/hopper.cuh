@@ -4,9 +4,8 @@
 // plain bulk copies onto the same mbarriers. None replaces a TPU kernel
 // itself; each kernel's file says which one it ports.
 //
-// - the wgmma descriptors of K-major 128- and 64-byte-swizzled operands
-//   (K3's fp32 kernel stages its operands itself, with plain stores);
-// - the TMA pipeline of K1, K3's bf16 kernel and P4: tensor maps encoded
+// - the wgmma descriptors of K-major 128- and 64-byte-swizzled operands;
+// - the TMA pipeline of K1, both K3 kernels and P4: tensor maps encoded
 //   on the host (cuTensorMapEncodeTiled, looked up in libcuda at run time,
 //   so the library links no -lcuda), bulk tensor loads that complete on an
 //   mbarrier, bulk tensor stores, named barriers and the register hand-over
@@ -28,9 +27,10 @@
 // producer, its registers cut to PRODUCER_REGS, one thread issuing every TMA
 // load; warpgroups 1 and 2 are consumers, raised to CONSUMER_REGS, that
 // release a stage through its "empty" mbarrier (one arrival from each), and
-// stage their outputs for TMA stores in buffers of their own. K3's bf16
-// kernel runs one warpgroup a block that feeds its own ring (attention.cu
-// says why).
+// stage their outputs for TMA stores in buffers of their own. K3's kernels
+// run one warpgroup a block that feeds its own ring, but for the fp32
+// kernel's split schedule, where a splitter warpgroup feeds two consumers
+// (attention.cu says why).
 
 #pragma once
 
