@@ -19,8 +19,8 @@ imports nothing of JAX. Phases, each printed on its own lines:
    (SHA-256 of the raw bits against ``K1_HIGH_SHA256``); both split passes
    bit for bit against their plain versions, and at each precision the
    split of q, the split of db and the main kernel timed apart;
-   ``torch.matmul(q, db.T)`` alone (cuBLAS SGEMM, TF32 off) as
-   ``highest``'s library yardstick;
+   ``torch.matmul(q, db.T)`` alone (cuBLAS SGEMM, TF32 off) as the library
+   yardstick of both precisions;
 4. K2 (``topk``) against its plain version at the main path's (8192, 125)
    and (8192, 768) k=6, and at (8192, 640) k=5, (8192, 6528) k=51 and
    (8192, 1024) k=200, then the radix variant's rows of the paper's
@@ -28,10 +28,15 @@ imports nothing of JAX. Phases, each printed on its own lines:
    and (8192, 3968) k=31 and (8192, 16000) k=51 (with their launches in a
    B/32 detection), with ties, -inf rows and a +-0 row: values bit for bit
    and indices exact, for the variant the kernel picks and for each variant
-   forced, with the load path of the radix variant's rows, the time of each
-   (also device only: one replay of a CUDA graph of 20 calls, no host work
-   between them) and of ``torch.sort(stable=True)``; then both variants
-   where they cross over, and k=51 on rows of distinct values;
+   forced, with the load path of the radix variant's rows and the warp
+   variant's instance, the time of each (also device only: one replay of a
+   CUDA graph of 20 calls, no host work between them; the host's time per
+   call is the difference) and of ``torch.sort(stable=True)``; then both
+   variants where they cross over, and k=51 on rows of distinct values.
+   Before them, untimed, every instance of the warp variant (CAP registers
+   a lane, 16-byte and scalar loads, ``K2_WARP_INSTANCES``) and P1 at the
+   same rows, bit for bit on 512 tie-heavy, -inf, +-0 and Gaussian rows,
+   the list, bisection and ties paths among them;
 5. ``ExactKnnIndex.search`` at k=5 and k=51 over 131072 rows against a plain
    whole-row search on the card, on inputs whose scores are exact in fp32
    (so every tie is real and ids must follow the tie rule exactly), its
@@ -54,8 +59,11 @@ imports nothing of JAX. Phases, each printed on its own lines:
    mbarrier ring and splits them in shared memory;
 8. K4 (``fused_gather_topk``) against its plain version at q 8192 over 1024
    blocks of 128 columns, k=5 and k=51, with ties and -inf columns: values
-   and ids exact; its time (also device only, as in phase 4), the plain time
-   and the time of the search's own select tail (gather + K2); then over a 16000-row tile's 125 blocks at
+   and ids exact; its time (also device only, as in phase 4, and the host's
+   time per call), the plain time and the time of the search's own select
+   tail (gather + K2), after every instance of its warp path (k = 1-8, 2-8
+   block slots, 16-byte and scalar loads) bit for bit on 512 rows of ties,
+   -inf, +-0 and Gaussian values, untimed; then over a 16000-row tile's 125 blocks at
    k=11, 31 and 51 with +-0, on a 16-byte-aligned tensor (bulk copies) and
    one 4 bytes past it (plain loads), bit for bit. Then its path once: K1
    over a 131072-row tile, the block top-k, K4, held to the search's select
@@ -101,7 +109,7 @@ imports nothing of JAX. Phases, each printed on its own lines:
     (``scores_blockmax_t``) at 4096 against 65536 with n_valid < T, at both
     precisions, within 1e-5 of the plain version and bit-equal to K1's
     block maxima (and P2's scores to K1's), at ``high`` bit-equal to the
-    replaced kernel's (``P3_P2_HIGH_SHA256``), ``highest`` beside the fp32
+    replaced kernel's (``P3_P2_HIGH_SHA256``), both beside the fp32
     ``torch.matmul(q, db.T)`` alone; P1 (``topk_colids``) at
     (8192, 6528) k=51, then (8192, 1408) k=11 and (8192, 16000) k=51, with
     ties, -inf rows and a +-0 row, values bit for bit and ids exact
@@ -308,20 +316,30 @@ K3_SHAPES = ((197, 12, 64, False), (256, 8, 64, True), (50, 12, 64, False), (77,
 K3_CHECK_SHAPES = ((300, 197, 12, 64, False),)
 # (W, k) of K2: the main path's block maxima (T/128 of a 16000-row tile) and
 # candidates ((k+1)*128) at --knn_k 5, then k=5, k=51 and k=200 candidates,
-# then the radix variant's rows at the paper's --knn_k grid over a 16000-row
-# tile (20000 B/32 pairs): the candidates at knn_k 10, the block maxima and
-# candidates at knn_k 30 (W = 125 is staged by plain loads), and the whole
-# tile at knn_k 50, where the prefilter does not pay
+# then the rows of the paper's --knn_k grid over a 16000-row tile (20000
+# B/32 pairs): the candidates at knn_k 10, the block maxima (auto: the warp
+# variant; the radix variant stages W = 125 by plain loads) and candidates
+# at knn_k 30, and the whole tile at knn_k 50, where the prefilter does not
+# pay
 K2_SHAPES = ((125, 6), (768, 6), (640, 5), (6528, 51), (1024, 200), (1408, 11), (125, 31), (3968, 31), (16000, 51))
 # K2 in one B/32 detection of 20000 pairs (lemon_tpu_torch.knn.index, six
 # searches; counted in a CPU run at each --knn_k): (W, k) of the grid ->
 # (launches at this shape, its --knn_k, the radix launches of that detection
 # in all; the val and test searches, 2000 queries, run k = knn_k)
-K2_DETECTION_LAUNCHES = {(1408, 11): (4, 10, 8), (125, 31): (4, 30, 16), (3968, 31): (4, 30, 16),
+K2_DETECTION_LAUNCHES = {(1408, 11): (4, 10, 8), (125, 31): (4, 30, 8), (3968, 31): (4, 30, 8),
                          (16000, 51): (4, 50, 8)}
-# (W, k, rows) where the two K2 variants are compared: their crossover on
-# tie-heavy rows, and k=51 on rows of distinct (Gaussian) values
-K2_CROSSOVER = ((1024, 16, "ties"), (1024, 32, "ties"), (640, 51, "ties"), (6528, 51, "gaussian"))
+# Every instance of K2's warp variant (csrc/topk.cu: CAP registers a lane
+# by W, 16-byte or scalar loads): CAP -> (a width that is a multiple of 4,
+# checked 16-byte aligned and 4 bytes past it, and one that is not; the k
+# checked at each). Small k takes the list, k above 32 the bisection, the
+# -inf and +-0 rows the ties path; P1 runs at each k too.
+K2_WARP_INSTANCES = {4: ((128, 125), (1, 6, 31, 125)), 8: ((256, 199), (2, 6, 40)), 16: ((512, 301), (6, 24, 257)),
+                     24: ((768, 701), (5, 6, 51)), 32: ((1024, 999), (6, 32, 200))}
+# (W, k, rows) where the two K2 variants are compared: on tie-heavy rows
+# both sides of auto's bound (W <= 1024 and k <= 96 take the warp variant),
+# and k=51 on rows of distinct (Gaussian) values
+K2_CROSSOVER = ((1024, 16, "ties"), (1024, 32, "ties"), (640, 51, "ties"), (1024, 96, "ties"), (1024, 200, "ties"),
+                (6528, 51, "gaussian"))
 # H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s, bf16, TF32 and int8 tensor-core and fp32 (FL)OP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "int8": 1979e12}
@@ -528,11 +546,52 @@ def same_bits(torch, a, b) -> bool:
     return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
-def phase_k2(torch, topk, device):
+def misaligned(torch, x):
+    """The same values 4 bytes past a 16-byte boundary (scalar loads)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
+def k2_warp_instances(torch, topk, select, g, device) -> int:
+    """Every instance of K2's warp variant (and P1 through it), untimed, bit
+    for bit against the plain versions on tie-heavy rows with an all -inf,
+    a partly -inf and a +-0 row, and Gaussian rows. Returns the checks made."""
+    b, n = 512, 0
+    for cap, (widths, ks) in K2_WARP_INSTANCES.items():
+        for w in widths:
+            x = topk_inputs(torch, g, b, w, device)
+            x[256:] = torch.randn(b - 256, w, generator=g).to(device)
+            cid = (torch.arange(w, device=device, dtype=torch.int32) * 3).expand(b, w).contiguous()
+            for xv in (x, misaligned(torch, x)) if w % 4 == 0 else (x,):
+                loads = "16-byte" if xv.data_ptr() % 16 == 0 and w % 4 == 0 else "scalar"
+                inst = topk.warp_instance(xv)
+                check(topk.warp_cap(w) == cap and inst == f"CAP {cap}, {loads}",
+                      f"K2 warp (W={w}): instance {inst}, expected CAP {cap}, {loads}")
+                for k in ks:
+                    v, i = topk.topk(xv, k, "warp")
+                    v0, i0 = topk.topk_plain(xv, k)
+                    torch.cuda.synchronize()
+                    check(same_bits(torch, v, v0) and bool(torch.equal(i, i0)),
+                          f"K2 warp {inst} ({w}, k={k}): differs from the plain version")
+                    v, ids = select.topk_colids(xv, cid, k)  # auto: the warp variant up to k = 96
+                    v0, ids0 = select.topk_colids_plain(xv, cid, k)
+                    torch.cuda.synchronize()
+                    check(same_bits(torch, v, v0) and bool(torch.equal(ids, ids0)),
+                          f"P1 ({w}, k={k}): differs from the plain version")
+                    n += 2
+    return n
+
+
+def phase_k2(torch, topk, select, device):
     g = torch.Generator().manual_seed(1)
     times = {}
     worst = 0.0
     b = 8192
+    t0 = t_phase = time.perf_counter()
+    n = k2_warp_instances(torch, topk, select, torch.Generator().manual_seed(41), device)
+    print(f"K2 warp variant, every instance ({len(K2_WARP_INSTANCES)} CAP, 16-byte and scalar loads; P1 at "
+          f"each k): {n} checks bit for bit against the plain versions "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for w, k in K2_SHAPES:
         x = topk_inputs(torch, g, b, w, device)
         v0, i0 = topk.topk_plain(x, k)
@@ -550,9 +609,10 @@ def phase_k2(torch, topk, device):
         dev_ms = device_ms(torch, lambda: topk.topk(x, k))
         bnd = bound(4 * b * w + 12 * b * k, b * w, "fp32")
         times[(w, k)] = (ms, plain_ms, sort_ms, bnd, dev_ms)
+        warp = f", warp instance {topk.warp_instance(x)}" if w <= topk.WARP_MAX_W else ""
         print(f"K2 topk (8192, {w}) k={k}: values (bits) and indices exact ({', '.join(variants)}; radix rows "
-              f"staged by {topk.radix_load(x, k)}); kernel {ms:.4f} ms (device only, a CUDA graph of 20 calls: "
-              f"{dev_ms:.4f} ms), "
+              f"staged by {topk.radix_load(x, k)}{warp}); kernel {ms:.4f} ms (device only, a CUDA graph of 20 calls: "
+              f"{dev_ms:.4f} ms; host per call {ms - dev_ms:.4f} ms), "
               f"plain {plain_ms:.4f} ms, torch.sort(stable=True) {sort_ms:.4f} ms; by variant "
               + ", ".join(f"{m} {t:.4f} ms" for m, t in by_variant.items()) + f"; {bound_text(bnd, ms)}"
               + ("; launches in a B/32 detection of 20000 pairs at --knn_k {1}: {0} at this shape, {2} radix in all"
@@ -566,9 +626,14 @@ def phase_k2(torch, topk, device):
             torch.cuda.synchronize()
             check(same_bits(torch, v, v0) and bool(torch.equal(i, i0)),
                   f"K2 ({w}, k={k}, {rows}) {variant}: differs from the plain version")
-            by_variant[variant] = cuda_ms(lambda: topk.topk(x, k, variant), 20)
+            by_variant[variant] = (cuda_ms(lambda: topk.topk(x, k, variant), 20),
+                                   device_ms(torch, lambda: topk.topk(x, k, variant)))
+        auto = device_ms(torch, lambda: topk.topk(x, k))
         print(f"K2 variants (8192, {w}) k={k}, {rows} rows: exact; "
-              + ", ".join(f"{m} {t:.4f} ms" for m, t in by_variant.items()), flush=True)
+              + ", ".join(f"{m} {t:.4f} ms (device only {d:.4f})" for m, (t, d) in by_variant.items())
+              + f"; auto device only {auto:.4f} ms; the faster by device time: "
+              + min(by_variant, key=lambda m: by_variant[m][1]), flush=True)
+    print(f"K2 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return worst, times
 
 
@@ -676,11 +741,40 @@ def phase_k3_bf16(torch, attention, device):
     return worst, times
 
 
+def k4_warp_instances(torch, select, topk, g, device) -> int:
+    """Every instance of K4's warp path (k <= 8), untimed, bit for bit
+    against the plain version on tie-heavy rows with an all -inf, a partly
+    -inf and a +-0 row, aligned and 4 bytes past. Returns the checks made."""
+    b, nb, n = 512, 64, 0
+    s = torch.randint(0, 40, (b, nb * 128), device=device, generator=g, dtype=torch.int32).float() / 4
+    s[0] = -torch.inf
+    s[1, 3:] = -torch.inf
+    s[2, ::3] = -0.0
+    s[2, 1::3] = 0.0
+    s[2, 2::3] = -0.5
+    s[3:128] = torch.randn(125, nb * 128, device=device, generator=g)
+    for sb in (s.view(b, nb, 128), misaligned(torch, s.view(b, nb, 128))):
+        loads = "warp 16-byte" if sb.data_ptr() % 16 == 0 else "warp scalar"
+        for k in range(1, 9):
+            check(select.gather_load(sb, k) == loads, f"K4 k={k}: {select.gather_load(sb, k)}, expected {loads}")
+            ids = topk.topk_plain(sb.amax(2), k)[1].sort(dim=1).values
+            v, i = select.fused_gather_topk(sb, ids, k)
+            v0, i0 = select.fused_gather_topk_plain(sb, ids, k)
+            torch.cuda.synchronize()
+            check(same_bits(torch, v, v0) and bool(torch.equal(i, i0)), f"K4 {loads} k={k}: differs from the plain version")
+            n += 1
+    return n
+
+
 def phase_k4(torch, scoremax, select, topk, blockmax_select, device):
     """K4 against its plain version, then its path: K1, the block top-k and
     K4 at the geometry of benchmarks/probe_knn_select_fused.py."""
     b, nb = 8192, 1024
     g = torch.Generator(device=device).manual_seed(4)
+    t0 = t_phase = time.perf_counter()
+    n = k4_warp_instances(torch, select, topk, torch.Generator(device=device).manual_seed(44), device)
+    print(f"K4 warp path, every instance (k = 1-8: 2, 4, 6, 8 block slots; 16-byte and scalar loads): {n} checks "
+          f"bit for bit against the plain version ({time.perf_counter() - t0:.1f} s)", flush=True)
     s = torch.randint(0, 4096, (b, nb * 128), device=device, generator=g, dtype=torch.int32).float() / 16  # ties
     s[:, -200:] = -torch.inf
     s[0] = -torch.inf
@@ -701,9 +795,9 @@ def phase_k4(torch, scoremax, select, topk, blockmax_select, device):
         dev_ms = device_ms(torch, lambda: select.fused_gather_topk(sb, ids, k))
         bnd = bound(4 * b * k * 128 + 8 * b * k + 12 * b * k, b * k * 128, "fp32")
         times[k] = (ms, plain_ms, tail_ms, bnd, dev_ms)
-        print(f"K4 fused_gather_topk (8192, 1024 blocks) k={k}: values and ids exact (rows staged by "
-              f"{select.gather_load(sb, k)}); kernel {ms:.3f} ms (device only, a CUDA graph of 20 calls: "
-              f"{dev_ms:.4f} ms), "
+        print(f"K4 fused_gather_topk (8192, 1024 blocks) k={k}: values and ids exact (rows loaded by "
+              f"{select.gather_load(sb, k)}); kernel {ms:.4f} ms (device only, a CUDA graph of 20 calls: "
+              f"{dev_ms:.4f} ms; host per call {ms - dev_ms:.4f} ms), "
               f"plain {plain_ms:.3f} ms, the search's select tail (gather + K2) {tail_ms:.3f} ms; "
               f"{bound_text(bnd, ms)}", flush=True)
     del s, sb, bmax
@@ -713,8 +807,7 @@ def phase_k4(torch, scoremax, select, topk, blockmax_select, device):
         s[1, 300:] = -torch.inf
         s[2, ::3] = -0.0
         s[2, 1::3] = 0.0
-        buf = torch.empty(s.numel() + 1, device=device)
-        for sb in (s.view(b, nb, 128), buf[1:].view(b, nb, 128).copy_(s.view(b, nb, 128))):
+        for sb in (s.view(b, nb, 128), misaligned(torch, s.view(b, nb, 128))):
             ids = topk.topk(sb.amax(2), k)[1].sort(dim=1).values
             v, i = select.fused_gather_topk(sb, ids, k)
             v0, i0 = select.fused_gather_topk_plain(sb, ids, k)
@@ -724,7 +817,7 @@ def phase_k4(torch, scoremax, select, topk, blockmax_select, device):
             ms = cuda_ms(lambda: select.fused_gather_topk(sb, ids, k), 20)
             print(f"K4 fused_gather_topk (8192, {nb} blocks) k={k}: values and ids exact (rows staged by "
                   f"{select.gather_load(sb, k)}); kernel {ms:.4f} ms", flush=True)
-        del s, buf, sb
+        del s, sb
 
     gen = torch.Generator().manual_seed(5)
     xq = unit_rows(torch, gen, b, 512, device)
@@ -741,6 +834,7 @@ def phase_k4(torch, scoremax, select, topk, blockmax_select, device):
     print(f"K4 path (K1 ip/high 8192x512 . 131072x512, block top-k, K4 k={k}): equal to the search's select tail; "
           f"K4 launches {launches}", flush=True)
     check(launches > 0, "K4 path: K4 was not launched")
+    print(f"K4 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return times, launches
 
 
@@ -1517,11 +1611,10 @@ def phase_probe_kernels(torch, scoremax, select, topk, matmul, device):
             ms, plain_ms = paired_ms(torch, kernel, plain, 3)
             k1_ms = cuda_ms(lambda: scoremax.scores_blockmax(q, db, "ip", None, 0, n_valid, precision), 3)
             bnd = bound(n_bytes, (3 if high else 6) * 2 * b * t * 512, "bf16")  # bf16x3 or bf16x6
-            lib_ms, extra = None, ""
-            if not high:  # the fp32 bound of the kernel it replaced, and the fp32 product alone as its yardstick
-                lib_ms = cuda_ms(lambda: torch.matmul(q, db.T), 3)
-                extra = (f"; fp32 products' {bound_text(bound(n_bytes, 2 * b * t * 512, 'fp32'), ms)}; "
-                         f"torch.matmul(q, db.T) alone (TF32 off) {lib_ms:.3f} ms")
+            lib_ms = cuda_ms(lambda: torch.matmul(q, db.T), 3)  # the fp32 product alone: both precisions' yardstick
+            extra = f"; torch.matmul(q, db.T) alone (TF32 off) {lib_ms:.3f} ms"
+            if not high:  # the fp32 bound of the kernel it replaced
+                extra = f"; fp32 products' {bound_text(bound(n_bytes, 2 * b * t * 512, 'fp32'), ms)}" + extra
             out[(name, precision)] = (err, ms, plain_ms, bnd, lib_ms)
             print(f"{label} {name} {precision} ({b}x512 . {t}x512): max_abs_err {err:.3e} (tol {K1_TOL}), "
                   f"{'maxima' if label == 'P3' else 'scores and maxima'} bit-equal to K1's"
@@ -2893,7 +2986,7 @@ def main() -> None:
             print(f"  ptxas: {line.strip()}")
 
     k1_err, k1_times, k1_mm_ms, k1_parts = phase_k1(torch, scoremax, device)
-    k2_err, k2_times = phase_k2(torch, topk, device)
+    k2_err, k2_times = phase_k2(torch, topk, select, device)
     phase_knn(torch, scoremax, topk, ExactKnnIndex, device)
     b32, b32_timing, _ = phase_run_lemon(torch, scoremax, topk)
     embedding_cache = RUNS / "embedding_cache"
@@ -2978,7 +3071,7 @@ def main() -> None:
          "kernel": f"K1 at precision 'high': the TPU's three bf16 products on wgmma (split pass into hi/lo, then "
                    f"{K1_KERNEL.format(2)}), ip 8192x512 . 16000x512",
          "replaces": "lemon_tpu/ops/scoremax.py:119", **launches("scores_blockmax"),
-         **numbers(k1_err, k1_ms, k1_plain, k1_bound, None), **k1_parts["high"]},
+         **numbers(k1_err, k1_ms, k1_plain, k1_bound, k1_mm_ms), **k1_parts["high"]},
         {"name": "scores_blockmax_highest", "route": "cuda", "source": "lemon_tpu_torch/ops/csrc/scoremax.cu",
          "kernel": f"K1 at precision 'highest': the TPU's six bf16 products on wgmma (split pass into hi/mid/lo, "
                    f"then {K1_KERNEL.format(3)}), ip 8192x512 . 16000x512",

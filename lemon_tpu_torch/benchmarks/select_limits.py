@@ -1,7 +1,9 @@
-"""Where the block select of K2's radix variant, P1 and K4 spends its time on
-the card (``ops/csrc/select_rows.cuh``, launched by ``topk.cu`` and
-``select.cu``). Four more builds of those two files, each compiled alone
-with ``nvcc -shared`` and one compile-time switch of the select:
+"""Where the selects of K2, P1 and K4 spend their time on the card
+(``ops/csrc/select_rows.cuh``, launched by ``topk.cu`` and ``select.cu``).
+More builds of those two files, each compiled alone with ``nvcc -shared``
+and one compile-time switch of the selects.
+
+The block select (K2's radix variant, P1, K4 at k > 8), by default:
 
 - ``stage``: ``-DLEMON_SELECT_STOP=1``, each row staged (bulk copies, or
   plain loads where a bulk copy cannot take the row) and nothing selected;
@@ -26,11 +28,30 @@ that tree's two files four times, as they are and with ``stage``,
 ``histogram`` and ``counted`` put in by textual edits (raises if its source no longer holds the
 lines they edit), times both trees' builds in the same turns, and then
 times both trees as built at every radix shape of chip_smoke's K2 (radix
-forced), P1 and K4 k=51. Prints the card and one JSON line,
-``SELECT_LIMITS {...}``.
+forced), P1 and K4 k=51.
 
+The warp select (K2's warp variant, P1 on narrow rows, K4 at k <= 8),
+``--warp``: the same switches cut the warp select off at
+
+- ``loads``: ``-DLEMON_SELECT_STOP=1``, each row loaded into registers as
+  keys and nothing selected;
+- ``first_max``: ``-DLEMON_SELECT_STOP=2``, the loads and the warp's
+  first max (each lane's maximum, then the warp's);
+- ``list``: ``-DLEMON_SELECT_STOP=3``, all that, the k-th largest lane
+  maximum and the list of the entries at or above it, unranked;
+
+timed beside the library as built, device only (one replay of a CUDA graph
+of 20 calls) and by events around 20 calls, in turns over ``ROUNDS`` rounds
+at chip_smoke's warp shapes (``WARP_SHAPES``: phase 4's K2 rows with the
+variant forced to ``warp``, phase 8's K4 k=5 over 1024 blocks), on
+tie-heavy and on Gaussian rows. With ``--parent DIR`` the older tree's
+library as built (its warp kernels) is timed in the same turns, and at the
+crossover rows (``CROSSOVER``, tie-heavy) this tree's warp and radix
+variants and the older tree's warp variant.
+
+Either way it prints the card and one JSON line, ``SELECT_LIMITS {...}``.
 Run on the card: ``python3 -m lemon_tpu_torch.benchmarks.select_limits
-[--parent DIR]``.
+[--warp] [--parent DIR]``.
 """
 
 from __future__ import annotations
@@ -53,6 +74,14 @@ BUILDS = {"stage": ("-DLEMON_SELECT_STOP=1",), "histogram": ("-DLEMON_SELECT_STO
 # --knn_k grid at 20000 B/32 pairs (a 16000-row tile) and the wide-k rows
 RADIX_SHAPES = ((6528, 51), (1408, 11), (16000, 51), (1024, 200), (125, 31), (3968, 31))
 _PASSES = ("lemon_topk_row_passes", "lemon_gather_topk_row_passes")  # the counted builds' device counters
+WARP_BUILDS = {"loads": ("-DLEMON_SELECT_STOP=1",), "first_max": ("-DLEMON_SELECT_STOP=2",),
+               "list": ("-DLEMON_SELECT_STOP=3",)}
+# chip_smoke's warp shapes: phase 4's K2 rows of W <= 1024 (the main path's
+# block maxima and candidates at --knn_k 5 first), phase 8's K4 at k=5
+WARP_SHAPES = (("K2", 125, 6), ("K2", 768, 6), ("K2", 640, 5), ("K2", 125, 31), ("K2", 1024, 200),
+               ("K4", N_BLOCKS, 5))
+# (W, k) of chip_smoke's K2_CROSSOVER within the warp variant's reach (tie-heavy rows)
+CROSSOVER = ((1024, 16), (1024, 32), (640, 51), (1024, 96), (1024, 200))
 
 _COUNTER = """#ifndef LEMON_SELECT_STOP
 #define LEMON_SELECT_STOP 0
@@ -110,25 +139,20 @@ def tree_sources(csrc: Path) -> dict:
     return files
 
 
-def build_all(trees: dict, out_dir: Path) -> dict:
-    """{(tree, build): CDLL}: every switch of every tree, and each older
-    tree as it is, compiled in parallel."""
+def build_all(plan: dict, out_dir: Path) -> dict:
+    """{(tree, build): CDLL} for plan {(tree, build): (that tree's csrc,
+    nvcc flags)}, compiled in parallel."""
     nvcc = _build._nvcc()
     procs = {}
-    for tree, csrc in trees.items():
+    for (tree, name), (csrc, flags) in plan.items():
         files = tree_sources(csrc)
-        builds = dict(BUILDS)
-        if tree != "this":  # the threshold select has no filter pass
-            builds = {name: flags for name, flags in BUILDS.items() if name != "filter"}
-            builds["as_built"] = ()
-        for name, flags in builds.items():
-            d = out_dir / tree / name
-            d.mkdir(parents=True, exist_ok=True)
-            for fname, text in files.items():
-                (d / fname).write_text(text)
-            cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-shared", "-o", str(d / "lib.so"), str(d / "topk.cu"),
-                   str(d / "select.cu")]
-            procs[(tree, name)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
+        d = out_dir / tree / name
+        d.mkdir(parents=True, exist_ok=True)
+        for fname, text in files.items():
+            (d / fname).write_text(text)
+        cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-shared", "-o", str(d / "lib.so"), str(d / "topk.cu"),
+               str(d / "select.cu")]
+        procs[(tree, name)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
     libs = {}
     for key, (proc, d) in procs.items():
         log = proc.communicate()[0]
@@ -173,13 +197,21 @@ def main(argv=None) -> dict:
 
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--parent", type=Path, help="an older checkout whose select to measure beside this one")
+    args.add_argument("--warp", action="store_true", help="the warp select's split instead of the block select's")
     args = args.parse_args(argv)
     device = require_cuda("select_limits")
     print(device_line(), flush=True)
     trees = {"this": _build.CSRC}
     if args.parent:
         trees["parent"] = args.parent.resolve() / "lemon_tpu_torch" / "ops" / "csrc"
-    libs = build_all(trees, _build.BUILD_ROOT / "select_limits")
+    if args.warp:
+        return warp_limits(torch, trees, device)
+    plan = {("this", name): (_build.CSRC, flags) for name, flags in BUILDS.items()}
+    for tree, csrc in trees.items():
+        if tree != "this":  # the threshold select has no filter pass
+            plan.update({(tree, name): (csrc, flags) for name, flags in BUILDS.items() if name != "filter"})
+            plan[(tree, "as_built")] = (csrc, ())
+    libs = build_all(plan, _build.BUILD_ROOT / "select_limits")
     libs[("this", "as_built")] = _build.library()
     order = sorted(libs)
     calls = {"K2": lambda x, cid, sb, ids: topk.topk(x, K, "radix"),
@@ -230,6 +262,61 @@ def main(argv=None) -> dict:
     finally:
         _build.library = library
     result = {"shape": [B, W, K], "k4_blocks": N_BLOCKS, "ms": ms, "passes_per_row": passes, "radix_shapes_ms": shapes}
+    print("SELECT_LIMITS " + json.dumps(result), flush=True)
+    return result
+
+
+def warp_limits(torch, trees: dict, device) -> dict:
+    """The warp select's split (``WARP_BUILDS``) and, with an older tree,
+    its warp kernels and the crossover rows; prints ``SELECT_LIMITS``."""
+    from lemon_tpu_torch.benchmarks._timing import cuda_ms, graph_ms
+    from lemon_tpu_torch.ops import select, topk
+
+    plan = {("this", name): (_build.CSRC, flags) for name, flags in WARP_BUILDS.items()}
+    plan.update({(tree, "as_built"): (csrc, ()) for tree, csrc in trees.items() if tree != "this"})
+    libs = build_all(plan, _build.BUILD_ROOT / "select_limits_warp")
+    libs[("this", "as_built")] = _build.library()
+    order = sorted(libs)
+    library = _build.library
+    device_only, events, crossover = {}, {}, {}
+
+    def timed(label, key, call):
+        _build.library = lambda lib=libs[key]: lib  # the wrappers launch this build's kernels
+        device_only.setdefault(f"{key[0]} {label} {key[1]}", []).append(graph_ms(call, 20))
+        events.setdefault(f"{key[0]} {label} {key[1]}", []).append(cuda_ms(call, 20))
+
+    try:
+        g = torch.Generator(device=device).manual_seed(19)
+        for rows in ROWS:
+            for name, w, k in WARP_SHAPES:
+                if name == "K2":
+                    x = (torch.randint(0, 40, (B, w), generator=g, device=device).float() / 4 if rows == "ties"
+                         else torch.randn(B, w, generator=g, device=device))
+                    call = lambda x=x, k=k: topk.topk(x, k, "warp")
+                    label = f"K2 warp ({B}, {w}) k={k} {rows}"
+                else:
+                    sb = (torch.randint(0, 40, (B, w, 128), generator=g, device=device).float() / 4 if rows == "ties"
+                          else torch.randn(B, w, 128, generator=g, device=device))
+                    ids = topk.topk(sb.amax(2), k)[1].sort(dim=1).values
+                    call = lambda sb=sb, ids=ids, k=k: select.fused_gather_topk(sb, ids, k)
+                    label = f"K4 ({B}, {w} blocks) k={k} {rows}"
+                for r in range(ROUNDS):
+                    for key in order if r % 2 == 0 else order[::-1]:
+                        timed(label, key, call)
+                del call
+        if len(trees) > 1:
+            for w, k in CROSSOVER:
+                x = torch.randint(0, 40, (B, w), generator=g, device=device).float() / 4
+                for r in range(ROUNDS):
+                    for tree, variant in [("this", "warp"), ("this", "radix"), ("parent", "warp")][:: 1 - 2 * (r % 2)]:
+                        _build.library = lambda lib=libs[(tree, "as_built")]: lib
+                        call = lambda: topk.topk(x, k, variant)
+                        crossover.setdefault(f"{tree} K2 {variant} ({B}, {w}) k={k} ties", []).append(
+                            [graph_ms(call, 20), cuda_ms(call, 20)])
+                del x
+    finally:
+        _build.library = library
+    result = {"warp": True, "device_only_ms": device_only, "event_ms": events, "crossover_device_and_event_ms": crossover}
     print("SELECT_LIMITS " + json.dumps(result), flush=True)
     return result
 

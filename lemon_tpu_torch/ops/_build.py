@@ -47,8 +47,9 @@ _SIGNATURES = {
     "lemon_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, cid, vals, ids, B, W, k, stream
     "lemon_topk_colids": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # x, W, k: the radix variant's load path
+    # x, W, k: the radix variant's load path; x, W: the warp variant's instance
     "lemon_topk_radix_load": [_P, _I, _I],
+    "lemon_topk_warp_instance": [_P, _I],
     # a, w, c, M, N, K, stream
     "lemon_matmul_int8": [_P, _P, _P, _I, _I, _I, _P],
     "lemon_matmul_bf16": [_P, _P, _P, _I, _I, _I, _P],

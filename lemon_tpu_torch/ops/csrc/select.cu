@@ -18,7 +18,7 @@
 //
 // What bounds it on an H100: bytes (the k*128 gathered scores of a row).
 // For k <= 8 one warp per row gathers its candidates straight into
-// registers and runs K2's warp selection (select_rows.cuh, warp_top_k); for
+// registers and runs K2's warp select (select_rows.cuh, warp_select); for
 // larger k persistent CTAs gather each row with k bulk copies into shared
 // memory (at most 64 KB a row), the next row's copies in flight while the
 // current one's winners are ordered, and run K2's block select there (two
@@ -137,43 +137,68 @@ gather_topk_kernel(const float* __restrict__ sb, const long long* __restrict__ b
   }
 }
 
-// k <= 8 (W = k*128 <= 1024): one warp per row, 8 rows per block. Entry
-// e = lane + 32 j of the gathered row is lane + 32 (j % 4) of block slot
-// j / 4, so each load of a warp reads 128 contiguous bytes of one block.
+// k <= 8 (W = k*128 <= 1024): one warp per row, 8 rows per block, NB
+// block slots (k <= NB) of 4 registers a lane. Lane s < k loads block id s
+// of its row once; each lane takes every slot's id by a shuffle, and the
+// winners' ids come from the same registers, so the emit reads device
+// memory only for the sign of a zero. VEC (sb 16-byte aligned, so every
+// 512-byte block is): lane l loads float4 l of each block, columns
+// s*128 + 4l + q; else lane l loads columns s*128 + l + 32q, 128 contiguous
+// bytes a warp and load. Both are select_rows.cuh's layouts, so the tie
+// rule sees the gathered position, and through the sorted ids the global
+// column. A block id outside [0, nb) reads as a block of -inf.
 constexpr int WARP_ROWS = 8;
 constexpr int WARP_MAX_K = 8;
 
-template <int CAP>
-__global__ void __launch_bounds__(WARP_ROWS * 32)
+template <int NB, bool VEC>
+__global__ void __launch_bounds__(WARP_ROWS * 32, NB >= 8 ? 3 : 4)
 gather_topk_warp_kernel(const float* __restrict__ sb, const long long* __restrict__ block_ids,
                         float* __restrict__ vals, long long* __restrict__ idx, int B, int nb, int k) {
-  const int lane = threadIdx.x & 31;
-  const long long r = static_cast<long long>(blockIdx.x) * WARP_ROWS + (threadIdx.x >> 5);
+  constexpr int CAP = 4 * NB;
+  __shared__ unsigned long long lists[WARP_ROWS][lemon_select::WARP_LIST];  // k <= 8: warp_list_cap(k) = WARP_LIST
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long r = static_cast<long long>(blockIdx.x) * WARP_ROWS + w;
   if (r >= B) return;  // the whole warp
   const float* row = sb + r * nb * LANES;
-  const long long* ids = block_ids + r * k;
+  const long long my_id = lane < k ? block_ids[r * k + lane] : 0;
   unsigned key[CAP];
 #pragma unroll
-  for (int j = 0; j < CAP; ++j) {
-    key[j] = 0u;  // past the row
-    if (j / 4 < k) {
-      const long long blk = ids[j / 4];
-      key[j] = lemon_select::order_key((blk >= 0 && blk < nb) ? row[blk * LANES + lane + 32 * (j % 4)]
-                                                               : -CUDART_INF_F);
+  for (int s = 0; s < NB; ++s) {
+    const long long blk = __shfl_sync(lemon_select::FULL, my_id, s);
+    const bool in = s < k, valid = blk >= 0 && blk < nb;
+    const float* b = row + blk * LANES;
+    if (VEC) {
+      const float4 v = in && valid ? reinterpret_cast<const float4*>(b)[lane]
+                                   : make_float4(-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F);
+      key[4 * s] = in ? lemon_select::order_key(v.x) : 0u;
+      key[4 * s + 1] = in ? lemon_select::order_key(v.y) : 0u;
+      key[4 * s + 2] = in ? lemon_select::order_key(v.z) : 0u;
+      key[4 * s + 3] = in ? lemon_select::order_key(v.w) : 0u;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        key[4 * s + q] = in ? lemon_select::order_key(valid ? b[lane + 32 * q] : -CUDART_INF_F) : 0u;
     }
   }
-  lemon_select::warp_top_k<CAP>(key, k, [&](int j, int c) {
-    const long long blk = ids[c / LANES];
-    vals[r * k + j] = (blk >= 0 && blk < nb) ? row[blk * LANES + c % LANES] : -CUDART_INF_F;
-    idx[r * k + j] = blk * LANES + c % LANES;
-  });
+  lemon_select::warp_select<CAP, VEC>(key, static_cast<unsigned>(k), lists[w],
+                                      [&](bool ok, unsigned pos, unsigned c, unsigned kv) {
+                                        const long long blk = __shfl_sync(lemon_select::FULL, my_id, c / LANES);
+                                        if (!ok) return;
+                                        vals[r * k + pos] = kv == lemon_select::ZERO_KEY
+                                                                ? row[blk * LANES + c % LANES]  // the sign of a zero
+                                                                : lemon_select::key_value(kv);
+                                        idx[r * k + pos] = blk * LANES + c % LANES;
+                                      });
 }
 
-template <int CAP>
+template <int NB>
 int launch_warp(const float* sb, const long long* block_ids, float* vals, long long* idx, int B, int nb, int k,
                 cudaStream_t stream) {
-  gather_topk_warp_kernel<CAP><<<(B + WARP_ROWS - 1) / WARP_ROWS, WARP_ROWS * 32, 0, stream>>>(
-      sb, block_ids, vals, idx, B, nb, k);
+  const int blocks = (B + WARP_ROWS - 1) / WARP_ROWS;
+  if (reinterpret_cast<uintptr_t>(sb) % 16 == 0)
+    gather_topk_warp_kernel<NB, true><<<blocks, WARP_ROWS * 32, 0, stream>>>(sb, block_ids, vals, idx, B, nb, k);
+  else
+    gather_topk_warp_kernel<NB, false><<<blocks, WARP_ROWS * 32, 0, stream>>>(sb, block_ids, vals, idx, B, nb, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -203,12 +228,13 @@ int launch(const float* sb, const long long* block_ids, float* vals, long long* 
 
 }  // namespace
 
-// How the kernel stages the rows of sb at this k: -1 not at all (the warp
-// path, k <= 8), 0 by bulk copies, 1 by plain loads. chip_smoke.py prints
-// it.
+// How the kernel loads the rows of sb at this k: the warp path (k <= 8)
+// into registers, -2 by 16-byte loads, -1 by scalar ones; else staged, 0 by
+// bulk copies, 1 by plain loads. chip_smoke.py prints it.
 extern "C" int lemon_gather_topk_load(const float* sb, int k) {
-  if (k <= WARP_MAX_K) return -1;
-  return reinterpret_cast<uintptr_t>(sb) % 16 == 0 ? 0 : 1;
+  const bool aligned = reinterpret_cast<uintptr_t>(sb) % 16 == 0;
+  if (k <= WARP_MAX_K) return aligned ? -2 : -1;
+  return aligned ? 0 : 1;
 }
 
 // Shapes are checked by the Python wrapper (lemon_tpu_torch/ops/select.py):
@@ -216,10 +242,10 @@ extern "C" int lemon_gather_topk_load(const float* sb, int k) {
 extern "C" int lemon_gather_topk(const float* sb, const long long* block_ids, float* vals,
                                  long long* idx, int B, int nb, int k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k <= 2) return launch_warp<8>(sb, block_ids, vals, idx, B, nb, k, st);
-  if (k <= 4) return launch_warp<16>(sb, block_ids, vals, idx, B, nb, k, st);
-  if (k <= 6) return launch_warp<24>(sb, block_ids, vals, idx, B, nb, k, st);
-  if (k <= WARP_MAX_K) return launch_warp<32>(sb, block_ids, vals, idx, B, nb, k, st);
+  if (k <= 2) return launch_warp<2>(sb, block_ids, vals, idx, B, nb, k, st);
+  if (k <= 4) return launch_warp<4>(sb, block_ids, vals, idx, B, nb, k, st);
+  if (k <= 6) return launch_warp<6>(sb, block_ids, vals, idx, B, nb, k, st);
+  if (k <= WARP_MAX_K) return launch_warp<8>(sb, block_ids, vals, idx, B, nb, k, st);
   if (k * LANES <= 2048) return launch<128>(sb, block_ids, vals, idx, B, nb, k, st);
   return launch<256>(sb, block_ids, vals, idx, B, nb, k, st);
 }

@@ -1,6 +1,6 @@
 // Exact top-k of one row, shared by K2 and P1 (topk.cu) and K4 (select.cu):
-// a warp selection for narrow rows and small k held in registers
-// (warp_top_k), and a block select for the rest (block_select).
+// a warp select for narrow rows held in registers (warp_select), and a
+// block select for the rest (block_select).
 //
 // The order. Every entry becomes one 64-bit number, packed(v, c) =
 // (order_key(v) << 32) | ~c: order_key maps a float to a uint32 whose order
@@ -41,11 +41,30 @@
 // L = log2(n / 64). None grows with W. After the filter the row is not read
 // again: the caller may stage the next row while the winners are ordered.
 //
+// The warp select (narrow rows, W <= 1024): one warp holds a row's keys in
+// registers, CAP a lane, and orders nothing it need not. Each lane's
+// maximum is one entry of the row, so the k-th largest of the 32 lane
+// maxima (k <= 32; rounds of redux.sync max that retire the lanes holding
+// the max) is a key T with at least k entries at or above it: no entry
+// below T can win. The entries at or above T (usually a few more than k)
+// go to a short list in shared memory, each lane's from a slot that
+// ballots of the lanes' counts give it, and each is ranked by counting the
+// list's entries that precede it in the packed order: the ranks below k
+// are the output positions, written by the lanes that hold them. A list
+// longer than its capacity (ties at T, or k > 32, where T starts at the key
+// of -inf) makes T rise by counts over the registers (lo + 1 first, then
+// bisection) until the entries at or above it fit, or until T is the k-th
+// key itself; then the entries above T are ranked and the rest of the
+// output is T's entries by ascending column, their ranks by ballots in the
+// lanes' column order. 32-bit keys everywhere except the list.
+//
 // Compile-time switches for benchmarks/select_limits.py (never set by the
-// port's own build): LEMON_SELECT_STOP = 1 makes the kernels stage each row
-// and select nothing, 2 stops each row after its first histogram and scan,
-// 3 after the filter; LEMON_SELECT_COUNT counts the passes over whole rows
-// in a device counter that each kernel file exports.
+// port's own build): LEMON_SELECT_STOP = 1 makes the kernels stage (or, in
+// the warp select, load) each row and select nothing, 2 stops each row after
+// its first histogram and scan (the warp select: after the group's first
+// max), 3 after the filter (the warp select: after the list is collected);
+// LEMON_SELECT_COUNT counts the block select's passes over whole rows in a
+// device counter that each kernel file exports.
 
 #pragma once
 
@@ -73,7 +92,7 @@ __device__ __forceinline__ void count_row_pass() {
 }
 
 __device__ __forceinline__ unsigned order_key(float v) {
-  const unsigned b = __float_as_uint(v == 0.f ? 0.f : v);  // -0.0 -> +0.0
+  const unsigned b = __float_as_uint(v + 0.f);  // -0.0 -> +0.0 (round to nearest), one add
   return b ^ (static_cast<unsigned>(static_cast<int>(b) >> 31) | 0x80000000u);  // negative: ~b, else b | sign
 }
 
@@ -362,38 +381,159 @@ __device__ __forceinline__ void warp_sort(const unsigned long long* a, int n, un
   }
 }
 
-// The k best entries of a row held in registers by one warp, in selection
-// order: lane l holds the keys of columns l + 32 j (j < CAP), key 0 past the
-// row (below every real entry, never reached as k <= W). Each lane keeps the
-// best entry it has not given out; a round is a 64-bit butterfly max (warp
-// shuffles only) and the lane whose entry won rescans its registers.
-// emit(j, column) runs on lane j % 32.
-template <int CAP, typename Emit>
-__device__ __forceinline__ void warp_top_k(const unsigned (&key)[CAP], int k, Emit emit) {
+// The warp select (see the top of this file). Lane l of the warp holds the
+// keys of columns lane_column(l, j), j < CAP (key 0 past the row: below
+// every real key, as order_key(-inf) = KEY_FLOOR is the least of them).
+constexpr unsigned KEY_FLOOR = 0x007fffffu;
+constexpr unsigned WARP_LIST = 64;  // the least list a warp collects into
+
+// The list's capacity for k: at least k (the entries above the k-th key
+// are fewer than k).
+__host__ __device__ __forceinline__ unsigned warp_list_cap(int k) {
+  return static_cast<unsigned>(next_pow2(k > static_cast<int>(WARP_LIST) ? k : static_cast<int>(WARP_LIST)));
+}
+
+// The column of register j of lane l: the scalar layout takes columns
+// l + 32 j (a warp's load of register j reads 32 consecutive floats), the
+// 16-byte layout 4 (l + 32 (j / 4)) + j % 4 (one float4 a lane for each
+// four registers). Either way a lane's columns rise with j, and those of
+// one register index (scalar) or one float4 index (16-byte) rise with l.
+template <bool VEC>
+__device__ __forceinline__ unsigned lane_column(unsigned lane, int j) {
+  return VEC ? 4u * (lane + 32 * (j / 4)) + (j & 3) : lane + 32 * j;
+}
+
+// The k best entries (0 < k <= W) of the row whose keys the warp holds.
+// list (warp_list_cap(k) entries) is the warp's own shared memory.
+// emit(ok, pos, column, key) is called by all lanes together (it may
+// shuffle); a lane with ok writes output pos of the row, each pos in
+// [0, k) exactly once.
+template <int CAP, bool VEC, typename Emit>
+__device__ __forceinline__ void warp_select(const unsigned (&key)[CAP], unsigned k, unsigned long long* list,
+                                            Emit emit) {
   const unsigned lane = threadIdx.x & 31;
-  unsigned long long last = ~0ull;  // the lane's last entry given out
-  auto local_best = [&]() {
-    unsigned long long b = 0;
+  const unsigned lower = (1u << lane) - 1;  // the lanes below this one
+  const unsigned cap = warp_list_cap(static_cast<int>(k));
+  if (STOP == 1) {  // select_limits.py: the loads alone
+    unsigned acc = 0;
+#pragma unroll
+    for (int j = 0; j < CAP; ++j) acc ^= key[j];
+    emit(acc == 0x9e3779b9u, 0, 0, acc);  // never, in practice: keeps the loads
+    return;
+  }
+  unsigned lmax = 0;
+#pragma unroll
+  for (int j = 0; j < CAP; ++j) lmax = max(lmax, key[j]);
+  if (STOP == 2) {  // select_limits.py: the loads and the warp's first max
+    emit(lane == 0, 0, 0, __reduce_max_sync(FULL, lmax));
+    return;
+  }
+  // T: the k-th largest lane maximum (k <= 32), else the key of -inf
+  unsigned lo = KEY_FLOOR;
+  if (k <= 32) {
+    unsigned cur = lmax, need = k;
+    for (;;) {
+      const unsigned m = __reduce_max_sync(FULL, cur);
+      const unsigned n = __popc(__ballot_sync(FULL, cur == m));
+      if (n >= need) {
+        lo = max(m, KEY_FLOOR);  // fewer than k lanes with an entry (the 16-byte layout): -inf
+        break;
+      }
+      need -= n;
+      if (cur == m) cur = 0;
+    }
+  }
+  // the entries with key >= t into the list (the first cap of them) and
+  // their count: each lane counts its own, ballots of the counts' bits give
+  // each lane its first slot, and the lane writes its entries from there
+  auto collect = [&](unsigned t) {
+    constexpr int BITS = CAP < 2 ? 1 : CAP < 4 ? 2 : CAP < 8 ? 3 : CAP < 16 ? 4 : CAP < 32 ? 5 : 6;  // c <= CAP
+    unsigned c = 0;
+#pragma unroll
+    for (int j = 0; j < CAP; ++j) c += key[j] >= t;
+    unsigned slot = 0, total = 0;
+#pragma unroll
+    for (int b = 0; b < BITS; ++b) {
+      const unsigned v = __ballot_sync(FULL, (c >> b) & 1);
+      slot += __popc(v & lower) << b;
+      total += __popc(v) << b;
+    }
+    __syncwarp();  // the list of an earlier collect is read
 #pragma unroll
     for (int j = 0; j < CAP; ++j) {
-      const unsigned long long p = packed(key[j], lane + 32 * j);
-      if (p < last && p > b) b = p;
+      if (key[j] >= t) {
+        if (slot < cap) list[slot] = packed(key[j], lane_column<VEC>(lane, j));
+        ++slot;
+      }
     }
-    return b;
+    __syncwarp();
+    return total;
   };
-  unsigned long long best = local_best();
-  for (int j = 0; j < k; ++j) {
-    unsigned long long m = best;
+  // each listed entry's rank: the listed entries that precede it
+  auto rank = [&](unsigned n) {
+    for (unsigned base = 0; base < n; base += 32) {
+      const unsigned e = base + lane;
+      const unsigned long long p = e < n ? list[e] : 0ull;
+      unsigned r = 0;
+#pragma unroll 4
+      for (unsigned f = 0; f < n; ++f) r += list[f] > p;
+      emit(e < n && r < k, r, static_cast<unsigned>(column_of(p)), static_cast<unsigned>(p >> 32));
+    }
+  };
+  unsigned n = collect(lo);
+  if (STOP == 3) {  // select_limits.py: the list collected
+    emit(lane == 0, 0, 0, n);
+    return;
+  }
+  if (n <= cap) {
+    rank(n);
+    return;
+  }
+  // Too many: T rises (count(>= lo) >= k and > cap, count(>= hi) < k)
+  // until the entries at or above it fit, or lo is the k-th key. The
+  // first step tries lo + 1 (lo is often the k-th key: ties, or fewer
+  // finite entries than k), the next ones bisect.
+  unsigned hi = __reduce_max_sync(FULL, lmax) + 1;
+  for (unsigned mid = lo + 1; hi - lo > 1; mid = lo + (hi - lo) / 2) {
+    unsigned c = 0;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const unsigned long long o = __shfl_xor_sync(FULL, m, off);
-      m = o > m ? o : m;
+    for (int j = 0; j < CAP; ++j) c += key[j] >= mid;
+    c = __reduce_add_sync(FULL, c);
+    if (c < k) {
+      hi = mid;
+    } else {
+      lo = mid;
+      n = c;
+      if (c <= cap) break;
     }
-    if (lane == (j & 31)) emit(j, column_of(m));
-    if (m == best) {  // packed values are distinct: only the owner
-      last = best;
-      best = local_best();
+  }
+  if (n <= cap) {
+    rank(collect(lo));
+    return;
+  }
+  // lo is the k-th key and has more entries than the list holds: the
+  // entries above it (fewer than k), then its own by ascending column
+  const unsigned above = collect(lo + 1);
+  rank(above);
+  constexpr int Q = VEC ? 4 : 1;  // registers of one float4 index
+  unsigned done = above;
+#pragma unroll
+  for (int u = 0; u < CAP / Q; ++u) {
+    if (done >= k) break;  // uniform in the warp
+    unsigned before = 0, total = 0;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const unsigned b = __ballot_sync(FULL, key[u * Q + q] == lo);
+      before += __popc(b & lower);
+      total += __popc(b);
     }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const bool eq = key[u * Q + q] == lo;
+      emit(eq && done + before < k, done + before, lane_column<VEC>(lane, u * Q + q), lo);
+      before += eq;
+    }
+    done += total;
   }
 }
 

@@ -13,10 +13,13 @@
 // by (W, k) in lemon_topk below:
 //
 // - warp: one warp per row, 8 rows per block, the row in registers
-//   (W <= 32 * CAP, CAP entries a lane) and select_rows.cuh's warp_top_k:
-//   k rounds of 5 shuffles and CAP compares, no __syncthreads. For the
-//   narrow, small-k rows of the search (the block maxima, W = T/128, and
-//   the (k+1)*128 candidates) this costs less than reading the row.
+//   (W <= 32 * CAP, CAP entries a lane) and select_rows.cuh's warp_select:
+//   the k-th largest lane maximum bounds the winners from below, the few
+//   entries at or above it are listed in shared memory and ranked by
+//   counting; no round orders the row. Loads are 16 bytes wide where the
+//   row start and W allow, else scalar (W = 125: rows 500 bytes apart). For
+//   the narrow, small-k rows of the search (the block maxima, W = T/128,
+//   and the (k+1)*128 candidates) it takes about twice the row's load.
 // - radix: select_rows.cuh's block select in persistent CTAs, each walking
 //   rows in turn: 128 threads up to W = 2048, 256 up to 8192 (four CTAs an
 //   SM at W = 6528), else 512 (measured the faster at W = 16000, the slower
@@ -56,33 +59,57 @@ using lemon_select::order_key;
 
 constexpr int WARP_ROWS = 8;             // rows per block in the warp variant
 constexpr int WARP_MAX_W = 32 * 32;      // widest row of the warp variant
-constexpr int WARP_MAX_K = 24;           // auto: larger k goes to the radix variant
+constexpr int WARP_MAX_K = 96;           // auto: larger k goes to the radix variant (chip_smoke's K2_CROSSOVER)
 constexpr int SORT_CAP = 2048;           // winners sorted at once (16 KB)
 // dynamic shared memory of the block select: the SM's 227 KB less the static
 // SelectSmem and the barriers
 constexpr size_t DYNAMIC_SMEM_MAX = 232448 - sizeof(lemon_select::SelectSmem) - 1024;
 
-// Each emitted entry writes its column to idx, or, when cid is given (P1),
-// its id cid[r, column] to ids.
-template <int CAP>
-__global__ void __launch_bounds__(WARP_ROWS * 32)
+// The warp variant: one warp a row, CAP by W in launch_topk; VEC, 16-byte
+// loads (x 16-byte aligned, W % 4 == 0). Each warp lists into its own
+// warp_list_cap(k) entries of dynamic shared memory. Each emitted entry
+// writes its value (from its key; a zero's sign from x) and its column to
+// idx, or, when cid is given (P1), its id cid[r, column] to ids. The
+// minimum of blocks an SM is what CAP's registers allow without a spill
+// (nvcc -Xptxas -v).
+__host__ __device__ constexpr int warp_min_blocks(int cap) { return cap >= 32 ? 3 : cap >= 16 ? 4 : cap >= 8 ? 5 : 8; }
+
+template <int CAP, bool VEC>
+__global__ void __launch_bounds__(WARP_ROWS * 32, warp_min_blocks(CAP))
 topk_warp_kernel(const float* __restrict__ x, const int* __restrict__ cid, float* __restrict__ vals,
                  long long* __restrict__ idx, int* __restrict__ ids, int B, int W, int k) {
-  const int lane = threadIdx.x & 31;
-  const long long r = static_cast<long long>(blockIdx.x) * WARP_ROWS + (threadIdx.x >> 5);
+  extern __shared__ unsigned long long lists[];
+  const unsigned lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long r = static_cast<long long>(blockIdx.x) * WARP_ROWS + w;
   if (r >= B) return;  // the whole warp
   const float* xr = x + r * W;
   unsigned key[CAP];
+  if (VEC) {
 #pragma unroll
-  for (int j = 0; j < CAP; ++j) {
-    const int c = lane + 32 * j;
-    key[j] = c < W ? order_key(xr[c]) : 0u;
+    for (int u = 0; u < CAP / 4; ++u) {
+      const unsigned f = lane + 32 * u;
+      const bool in = 4 * f < static_cast<unsigned>(W);
+      const float4 v = in ? reinterpret_cast<const float4*>(xr)[f] : make_float4(0.f, 0.f, 0.f, 0.f);
+      key[4 * u] = in ? order_key(v.x) : 0u;
+      key[4 * u + 1] = in ? order_key(v.y) : 0u;
+      key[4 * u + 2] = in ? order_key(v.z) : 0u;
+      key[4 * u + 3] = in ? order_key(v.w) : 0u;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < CAP; ++j) {
+      const unsigned c = lane + 32 * j;
+      key[j] = c < static_cast<unsigned>(W) ? order_key(xr[c]) : 0u;
+    }
   }
-  lemon_select::warp_top_k<CAP>(key, k, [&](int j, int c) {
-    vals[r * k + j] = xr[c];
-    if (cid) ids[r * k + j] = cid[r * W + c];
-    else idx[r * k + j] = c;
-  });
+  lemon_select::warp_select<CAP, VEC>(key, static_cast<unsigned>(k), lists + w * lemon_select::warp_list_cap(k),
+                                      [&](bool ok, unsigned pos, unsigned c, unsigned kv) {
+                                        if (!ok) return;
+                                        vals[r * k + pos] =
+                                            kv == lemon_select::ZERO_KEY ? xr[c] : lemon_select::key_value(kv);
+                                        if (cid) ids[r * k + pos] = cid[r * W + c];
+                                        else idx[r * k + pos] = c;
+                                      });
 }
 
 // The persistent block select: a few CTAs an SM, each taking rows
@@ -158,12 +185,32 @@ topk_rows_kernel(const float* __restrict__ x, const int* __restrict__ cid, float
   }
 }
 
-template <int CAP>
-void launch_warp(const float* x, const int* cid, float* vals, long long* idx, int* ids, int B, int W, int k,
-                 cudaStream_t stream) {
-  const int blocks = (B + WARP_ROWS - 1) / WARP_ROWS;
-  topk_warp_kernel<CAP><<<blocks, WARP_ROWS * 32, 0, stream>>>(x, cid, vals, idx, ids, B, W, k);
+template <int CAP, bool VEC>
+int launch_warp_as(const float* x, const int* cid, float* vals, long long* idx, int* ids, int B, int W, int k,
+                   cudaStream_t stream) {
+  static int sms[64];  // the limit of dynamic shared memory, set once a device for the widest list
+  int n_sms = 0;
+  const int e = lemon_hopper::prepare_launch(
+      reinterpret_cast<const void*>(topk_warp_kernel<CAP, VEC>),
+      static_cast<int>(WARP_ROWS * lemon_select::warp_list_cap(32 * CAP) * sizeof(unsigned long long)), sms, &n_sms);
+  if (e) return e;
+  const size_t smem = WARP_ROWS * lemon_select::warp_list_cap(k) * sizeof(unsigned long long);
+  topk_warp_kernel<CAP, VEC><<<(B + WARP_ROWS - 1) / WARP_ROWS, WARP_ROWS * 32, smem, stream>>>(x, cid, vals, idx, ids,
+                                                                                               B, W, k);
+  return 0;
 }
+
+template <int CAP>
+int launch_warp(bool vec, const float* x, const int* cid, float* vals, long long* idx, int* ids, int B, int W, int k,
+                cudaStream_t stream) {
+  return vec ? launch_warp_as<CAP, true>(x, cid, vals, idx, ids, B, W, k, stream)
+             : launch_warp_as<CAP, false>(x, cid, vals, idx, ids, B, W, k, stream);
+}
+
+// The warp variant's registers a lane for rows of W.
+int warp_cap(int W) { return W <= 128 ? 4 : W <= 256 ? 8 : W <= 512 ? 16 : W <= 768 ? 24 : 32; }
+
+bool warp_vec(const float* x, int W) { return W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0; }
 
 template <int THREADS, Load LOAD>
 int launch_rows_as(const float* x, const int* cid, float* vals, long long* idx, int* ids, int B, int W, int k,
@@ -210,11 +257,14 @@ int launch_topk(const float* x, const int* cid, float* vals, long long* idx, int
   if (variant == 0) variant = (W <= WARP_MAX_W && k <= WARP_MAX_K) ? 1 : 2;
   if (variant == 1) {
     if (W > WARP_MAX_W) return static_cast<int>(cudaErrorInvalidValue);
-    if (W <= 128) launch_warp<4>(x, cid, vals, idx, ids, B, W, k, st);
-    else if (W <= 256) launch_warp<8>(x, cid, vals, idx, ids, B, W, k, st);
-    else if (W <= 512) launch_warp<16>(x, cid, vals, idx, ids, B, W, k, st);
-    else if (W <= 768) launch_warp<24>(x, cid, vals, idx, ids, B, W, k, st);
-    else launch_warp<32>(x, cid, vals, idx, ids, B, W, k, st);
+    const bool vec = warp_vec(x, W);
+    const int cap = warp_cap(W);
+    const int e = cap == 4    ? launch_warp<4>(vec, x, cid, vals, idx, ids, B, W, k, st)
+                  : cap == 8  ? launch_warp<8>(vec, x, cid, vals, idx, ids, B, W, k, st)
+                  : cap == 16 ? launch_warp<16>(vec, x, cid, vals, idx, ids, B, W, k, st)
+                  : cap == 24 ? launch_warp<24>(vec, x, cid, vals, idx, ids, B, W, k, st)
+                              : launch_warp<32>(vec, x, cid, vals, idx, ids, B, W, k, st);
+    if (e) return e;
   } else {
     const int e = W <= 2048   ? launch_rows<128>(x, cid, vals, idx, ids, B, W, k, st)
                   : W <= 8192 ? launch_rows<256>(x, cid, vals, idx, ids, B, W, k, st)
@@ -242,6 +292,13 @@ extern "C" int lemon_topk(const float* x, float* vals, long long* idx, int B, in
 // chip_smoke.py prints it.
 extern "C" int lemon_topk_radix_load(const float* x, int W, int k) {
   return static_cast<int>(plan_rows(x, W, k).load);
+}
+
+// The warp variant's instance for the rows of x (B, W):
+// (CAP << 1) | (1 for 16-byte loads, 0 for scalar ones). chip_smoke.py
+// prints it.
+extern "C" int lemon_topk_warp_instance(const float* x, int W) {
+  return (warp_cap(W) << 1) | (warp_vec(x, W) ? 1 : 0);
 }
 
 // P1: vals (B, k) and ids (B, k) int32 = cid at the top k of x (B, W); cid

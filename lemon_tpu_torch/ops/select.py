@@ -15,8 +15,10 @@ function, masked columns arrive and leave as ``-inf``: the port's K1 writes
 P1, :func:`topk_colids`, is the row top-k of candidates that arrive with a
 global column id each (``topk_colids``/``topk_pair`` of
 ``benchmarks/probe_knn_select3.py``): K2's kernel (``csrc/topk.cu``) reads
-the id of each chosen entry, so no index is reconstructed. K4's k > 8 and
-P1's rows run K2's radix variant's block select (``csrc/select_rows.cuh``).
+the id of each chosen entry, so no index is reconstructed. K4 and P1 run
+K2's selects (``csrc/select_rows.cuh``): K4 at k <= 8 the warp select, one
+warp a row over its k gathered blocks, above that the block select; P1 the
+variant K2's ``auto`` picks.
 """
 
 from __future__ import annotations
@@ -74,12 +76,22 @@ def fused_gather_topk(sb: torch.Tensor, block_ids: torch.Tensor, k: int):
 fused_gather_topk.launches = 0
 
 
+GATHER_LOADS = {-2: "warp 16-byte", -1: "warp scalar", 0: "bulk", 1: "staged"}
+
+
 def gather_load(sb: torch.Tensor, k: int) -> str:
-    """How the kernel stages the gathered rows of ``sb`` (on the card) at
-    this k, as ``csrc/select.cu`` picks it: ``"warp"`` (k <= 8: into
-    registers), ``"bulk"`` (k bulk copies of 512 bytes) or
-    ``"staged"`` (plain loads, for sb not 16-byte aligned)."""
-    return {-1: "warp", 0: "bulk", 1: "staged"}[_build.library().lemon_gather_topk_load(sb.data_ptr(), k)]
+    """How the kernel loads the gathered rows of ``sb`` (on the card) at
+    this k, as ``csrc/select.cu`` picks it: the warp path (k <= 8) into
+    registers, ``"warp 16-byte"`` or ``"warp scalar"`` (sb not 16-byte
+    aligned); else staged in shared memory, ``"bulk"`` (k bulk copies of 512
+    bytes) or ``"staged"`` (plain loads)."""
+    return GATHER_LOADS[_build.library().lemon_gather_topk_load(sb.data_ptr(), k)]
+
+
+def warp_slots(k: int) -> int:
+    """Block slots of the warp path's instance at k <= 8 (4 registers a lane
+    each), as ``csrc/select.cu`` picks it: 2, 4, 6 or 8."""
+    return 2 * -(-k // 2)
 
 
 def _check(sb: torch.Tensor, block_ids: torch.Tensor, k: int) -> None:

@@ -6,12 +6,13 @@ taken in ascending column order, exactly like ``jax.lax.top_k``. Every top-k
 in the port's kNN goes through here: ``torch.topk`` does not promise the
 order of ties on CUDA. The CUDA kernel is ``csrc/topk.cu``; unlike the TPU
 kernel it has no bound on k below the row width. It has two variants, one
-launch per call: ``"warp"`` (one warp per row, the row in registers, W up to
-1024) and ``"radix"`` (persistent blocks that stage each row by a bulk copy
-and select in two passes over it, ``csrc/select_rows.cuh``);
-``variant="auto"`` picks by (W, k) as the kernel's entry point does.
-:func:`select_rounds_plain` restates the radix variant's rounds for the
-tests and ``benchmarks/select_limits.py``; the port's paths do not call it.
+launch per call: ``"warp"`` (one warp per row, the row in registers, W up
+to 1024: the warp select) and ``"radix"`` (persistent blocks
+that stage each row by a bulk copy and select in two passes over it: the
+block select), both in ``csrc/select_rows.cuh``; ``variant="auto"`` picks by
+(W, k) as the kernel's entry point does. :func:`warp_select_plain` and
+:func:`select_rounds_plain` restate the two selects for the tests and
+``benchmarks/select_limits.py``; the port's paths call neither.
 """
 
 from __future__ import annotations
@@ -67,6 +68,20 @@ def radix_load(x: torch.Tensor, k: int) -> str:
     ``"staged"``, plain loads (a row start or length not 16-byte aligned);
     ``"global"``, none (rows wider than shared memory)."""
     return RADIX_LOADS[_build.library().lemon_topk_radix_load(x.data_ptr(), x.shape[1], k)]
+
+
+def warp_cap(w: int) -> int:
+    """Registers a lane of the warp variant for rows of ``w``, as
+    ``csrc/topk.cu`` picks it."""
+    return 4 if w <= 128 else 8 if w <= 256 else 16 if w <= 512 else 24 if w <= 768 else 32
+
+
+def warp_instance(x: torch.Tensor) -> str:
+    """The warp variant's instance for the rows of ``x`` (on the card), as
+    ``csrc/topk.cu`` picks it: ``"CAP 24, 16-byte"`` (loads) or
+    ``"CAP 24, scalar"``."""
+    code = _build.library().lemon_topk_warp_instance(x.data_ptr(), x.shape[1])
+    return f"CAP {code >> 1}, {'16-byte' if code & 1 else 'scalar'}"
 
 
 def _check(x: torch.Tensor, k: int) -> None:
@@ -199,3 +214,99 @@ def _select_row(p: np.ndarray, k: int, sort_cap: int):
         upper = threshold
     order = np.concatenate(out)
     return (~order & np.uint64(0xFFFFFFFF)).astype(np.int64), passes
+
+
+# The warp select of csrc/select_rows.cuh: the least list a group collects
+# into, and the key of -inf (the least real key; 0 marks a pad).
+WARP_LIST = 64
+KEY_FLOOR = 0x007FFFFF
+
+
+def warp_list_cap(k: int) -> int:
+    """Entries a group lists at most: at least WARP_LIST, at least k."""
+    return max(WARP_LIST, 1 << (k - 1).bit_length())
+
+
+def warp_select_plain(x: torch.Tensor, k: int, vec: bool = False, cap: int | None = None):
+    """The warp select restated in numpy, row by row: (values (B, k),
+    indices (B, k) int64, paths (B,) str). ``cap`` is the registers a lane
+    (``warp_cap(W)`` by default; K4 runs 4 * its block slots); ``vec`` takes
+    the 16-byte layout (W % 4 == 0). Each row's keys go into 32 lanes of CAP
+    registers (:func:`lane_columns`, key 0 past the row). T is the k-th
+    largest lane maximum (rounds of the warp max that retire the lanes
+    holding it; the key of -inf for k > 32 or too few lanes); the entries
+    at or above T are listed and each ranked by counting the listed entries
+    that precede it in the packed order ((key << 32) | ~column). Path
+    ``"list"``: they fit (``warp_list_cap(k)``). ``"bisect"``: T rose by
+    counts (T + 1 first, then bisection) until they fit. ``"ties"``: T is
+    the k-th key and has too many entries; the entries above it are ranked
+    and T's own follow in the lanes' column order (register, then lane,
+    then the float4's register)."""
+    _check(x, k)
+    w = x.shape[1]
+    cap = cap or warp_cap(w)
+    if 32 * cap < w or (vec and w % 4):
+        raise ValueError(f"warp_select_plain: CAP {cap} (vec={vec}) does not hold W={w}")
+    cols = lane_columns(cap, vec)
+    keys = (_packed(x.detach().cpu().numpy()) >> np.uint64(32)).astype(np.int64)
+    out = np.empty((keys.shape[0], k), np.int64)
+    paths = []
+    for r in range(keys.shape[0]):
+        key = np.where(cols < w, keys[r][np.minimum(cols, w - 1)], 0)
+        out[r], path = _warp_select_row(key, cols, k, vec)
+        paths.append(path)
+    idx = torch.from_numpy(out).to(x.device)
+    return x.gather(1, idx), idx, np.array(paths)
+
+
+def lane_columns(cap: int, vec: bool) -> np.ndarray:
+    """(32, CAP): the column of register j of lane l, l + 32 j (scalar) or
+    4 (l + 32 (j // 4)) + j % 4 (16-byte loads)."""
+    lane, j = np.arange(32)[:, None], np.arange(cap)[None, :]
+    return 4 * (lane + 32 * (j // 4)) + j % 4 if vec else lane + 32 * j
+
+
+def _warp_select_row(key: np.ndarray, cols: np.ndarray, k: int, vec: bool):
+    cap = key.shape[1]
+    lmax = key.max(1)
+    lo = KEY_FLOOR
+    if k <= 32:
+        cur, need = lmax.copy(), k
+        while True:
+            m = int(cur.max())
+            n = int((cur == m).sum())
+            if n >= need:
+                lo = max(m, KEY_FLOOR)
+                break
+            need -= n
+            cur[cur == m] = 0
+    limit = warp_list_cap(k)
+
+    def ranked(t):  # the listed entries (key >= t) at their ranks; ranks >= k dropped
+        sel = key >= t
+        p = (key[sel].astype(np.uint64) << np.uint64(32)) | (~cols[sel].astype(np.uint64) & np.uint64(0xFFFFFFFF))
+        rank = (p[None, :] > p[:, None]).sum(1)
+        listed = np.full(len(p), -1, np.int64)
+        listed[rank] = cols[sel]
+        return listed[: min(k, len(p))]
+
+    n = int((key >= lo).sum())
+    if n <= limit:
+        return ranked(lo), "list"
+    hi, mid = int(lmax.max()) + 1, lo + 1
+    while hi - lo > 1:
+        c = int((key >= mid).sum())
+        if c < k:
+            hi = mid
+        else:
+            lo, n = mid, c
+            if c <= limit:
+                break
+        mid = lo + (hi - lo) // 2
+    if n <= limit:
+        return ranked(lo), "bisect"
+    above = ranked(lo + 1)
+    q = 4 if vec else 1
+    ties = [cols[lane, u * q + i] for u in range(cap // q) for lane in range(32) for i in range(q)
+            if key[lane, u * q + i] == lo]
+    return np.concatenate([above, np.asarray(ties[: k - len(above)], np.int64)]), "ties"

@@ -92,14 +92,27 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _misaligned(x):
+    """The same values 4 bytes past a 16-byte boundary (scalar loads)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(13, 64, 1), (13, 64, 5), (9, 64, 51), (3, 130, 128), (2048, 1024, 51),
                                   (17, 64, 3), (13, 64, 8), (13, 64, 9), (2048, 1024, 5)])  # warp path k <= 8
 def test_kernel_matches_plain_on_the_card(cuda_device, case):
-    b, nb, k = case
-    sb, ids = (torch.from_numpy(a).to(cuda_device) for a in _inputs(b, nb, k, seed=k))
-    before = select.fused_gather_topk.launches
-    v, i = select.fused_gather_topk(sb, ids, k)
-    assert select.fused_gather_topk.launches == before + 1
-    v0, i0 = select.fused_gather_topk_plain(sb, ids, k)
-    assert torch.equal(v, v0) and torch.equal(i, i0)
+    """Each case aligned and 4 bytes past (at k <= 8 the warp path's 16-byte
+    and scalar loads), and at k <= 8 the k one above it too: every instance
+    of the warp path (2, 4, 6 and 8 block slots)."""
+    b, nb, k0 = case
+    for k in (k0, k0 + 1) if k0 < 8 else (k0,):
+        sb, ids = (torch.from_numpy(a).to(cuda_device) for a in _inputs(b, nb, k, seed=k))
+        sb[2, :, ::3] = -0.0
+        v0, i0 = select.fused_gather_topk_plain(sb, ids, k)
+        for sv in (sb, _misaligned(sb)):
+            before = select.fused_gather_topk.launches
+            v, i = select.fused_gather_topk(sv, ids, k)
+            assert select.fused_gather_topk.launches == before + 1
+            assert torch.equal(v, v0) and torch.equal(i, i0), (b, nb, k, sv.data_ptr() % 16)
+            assert torch.equal(torch.signbit(v), torch.signbit(v0))

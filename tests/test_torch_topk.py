@@ -111,18 +111,22 @@ def cuda_device():
 
 CARD_CASES = CASES + [(3, 60000, 51), (8192, 1024, 200), (4, 40000, 129), (8192, 125, 6), (8192, 768, 6),
                       (3, 5000, 4500), (40, 1000, 32)]
+# more rows checked inside a case's item: W in 129-256 (the warp variant's
+# CAP 8) and rows of at most 128 at k <= 8 (8 lanes a row), each at a width
+# that is a multiple of 4 and one that is not
+MORE_CARD_ROWS = {(6, 125, 6): [(37, 200, 6), (37, 256, 40), (37, 93, 8), (37, 128, 1), (37, 256, 256)]}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["auto", "warp", "radix"])
 @pytest.mark.parametrize("case", CARD_CASES + [(*c, "signed_zeros") for c in SIGNED_ZERO_CASES])
 def test_kernel_matches_plain_on_the_card(cuda_device, case, variant):
-    b, w, k = case[:3]
-    if variant == "warp" and w > topk_mod.WARP_MAX_W:
+    if variant == "warp" and case[1] > topk_mod.WARP_MAX_W:
         pytest.skip("the warp variant holds rows of at most 1024")
-    x = torch.from_numpy(_inputs(b, w, seed=w + k, signed_zeros=len(case) == 4)).to(cuda_device)
-    v, i = topk_mod.topk(x, k, variant)
-    v0, i0 = topk_mod.topk_plain(x, k)
-    torch.cuda.synchronize()
-    assert torch.equal(v, v0) and torch.equal(i, i0)
-    assert torch.equal(torch.signbit(v), torch.signbit(v0))
+    for b, w, k in [case[:3]] + MORE_CARD_ROWS.get(case, []):
+        x = torch.from_numpy(_inputs(b, w, seed=w + k, signed_zeros=len(case) == 4)).to(cuda_device)
+        v, i = topk_mod.topk(x, k, variant)
+        v0, i0 = topk_mod.topk_plain(x, k)
+        torch.cuda.synchronize()
+        assert torch.equal(v, v0) and torch.equal(i, i0), (b, w, k, variant)
+        assert torch.equal(torch.signbit(v), torch.signbit(v0))
