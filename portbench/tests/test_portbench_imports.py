@@ -1,0 +1,50 @@
+"""Nothing the benchmark runs loads JAX or the JAX package (top-level names
+compared whole: the port's name begins with the JAX package's), and the
+reference imports nothing of the program."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+PKG = Path(__file__).resolve().parents[1]
+SOURCES = sorted(p for p in PKG.rglob("*.py") if "tests" not in p.parts)
+FORBIDDEN = {"jax", "jaxlib", "flax", "lemon_tpu", "benchmarks"}
+
+
+def _roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    assert not set(_roots(path)) & FORBIDDEN
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "reference").glob("*.py")), ids=lambda p: p.name)
+def test_the_reference_imports_nothing_of_the_program(path):
+    assert not set(_roots(path)) & {"lemon_tpu_torch", "lemon_tpu"}
+
+
+def test_a_run_loads_neither_jax_nor_the_jax_package():
+    """Every module a run imports, and a tiny detection driven through it on
+    the CPU, leave no forbidden top-level name in ``sys.modules``."""
+    code = (
+        "import sys, importlib, torch\n"
+        "from portbench import harness, check, control, run, roofline\n"
+        "from portbench.tests.tiny import tiny_cell\n"
+        "import pkgutil, portbench.metrics as m\n"
+        "[importlib.import_module('portbench.metrics.' + i.name) for i in pkgutil.iter_modules(m.__path__)]\n"
+        "bench = harness.load_json(harness.ROOT / 'BENCHMARK.json')\n"
+        "r = harness.run(bench, tiny_cell(), 7, 0.01, False, torch.device('cpu'), 0.0)\n"
+        "print(sorted({k.split('.')[0] for k in sys.modules} & {'jax', 'jaxlib', 'flax', 'lemon_tpu'}), r['correct'])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().split("\n")[-1] == "[] True"
