@@ -33,6 +33,7 @@ from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from lemon_tpu_torch.core import profiling
 from lemon_tpu_torch.data.labels import num_classes
 from lemon_tpu_torch.data.noise import (
     apply_caption_noise,
@@ -150,15 +151,20 @@ def load_images(split: Split, idx: np.ndarray, decode_size: Optional[int] = None
 class Prefetcher:
     """Run ``fn(item)`` for each item on a background thread, keeping up to
     ``depth`` results ready (lemon_tpu/data/native_loader.py:122-167).
-    Exceptions surface on the consuming side at the failing position."""
+    Exceptions surface on the consuming side at the failing position. The
+    thread is named ``prefetch``; its spans hang under the span open where
+    the prefetcher was built, and the consumer's waits are
+    ``prefetch.wait`` spans."""
 
     _DONE = object()
 
     def __init__(self, items: Iterable, fn: Callable, depth: int = 2):
         self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
         self._stop = threading.Event()
+        context = profiling.handoff()
 
         def work():
+            profiling.adopt(context)
             try:
                 for it in items:
                     if self._stop.is_set():
@@ -169,12 +175,13 @@ class Prefetcher:
                 return
             self._q.put(self._DONE)
 
-        self._t = threading.Thread(target=work, daemon=True)
+        self._t = threading.Thread(target=work, daemon=True, name="prefetch")
         self._t.start()
 
     def __iter__(self) -> Iterator:
         while True:
-            item = self._q.get()
+            with profiling.span("prefetch.wait"):
+                item = self._q.get()
             if item is self._DONE:
                 return
             if isinstance(item, BaseException):

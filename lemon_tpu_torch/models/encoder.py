@@ -38,6 +38,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from lemon_tpu_torch.core import profiling
 from lemon_tpu_torch.core.mesh import Mesh, all_gather_rows, shard_batch
 from lemon_tpu_torch.data.datasets import Prefetcher, Split, iter_batches, load_images
 from lemon_tpu_torch.data.streaming import is_lazy_store
@@ -73,9 +74,10 @@ class ClipEncoder:
         self._pp_kwargs = {"pil_rounding": False, "precision": "default"} if fast_resize else {}
 
     def _tokenize(self, texts: Sequence[str]) -> np.ndarray:
-        if self._tokenize_fn is not None:
-            return self._tokenize_fn(list(texts))
-        return tokenize_batch(list(texts), self.cfg.context_length, self.tokenizer)
+        with profiling.span("embed.tokenize"):
+            if self._tokenize_fn is not None:
+                return self._tokenize_fn(list(texts))
+            return tokenize_batch(list(texts), self.cfg.context_length, self.tokenizer)
 
     def _gathered(self, embed, batch: np.ndarray) -> torch.Tensor:
         """``embed(batch)``, or under a mesh this rank's rows of it embedded
@@ -88,24 +90,27 @@ class ClipEncoder:
     @torch.inference_mode()
     def _embed_tokens(self, tokens: np.ndarray) -> torch.Tensor:
         def embed(rows):
+            profiling.count("h2d_bytes", rows.nbytes)
             t = torch.from_numpy(rows).to(self.device, non_blocking=True).long()
             return _l2_normalize(self.model.encode_text(t))
 
-        return self._gathered(embed, tokens)
+        with profiling.span("embed.texts"):
+            return self._gathered(embed, tokens)
 
     @torch.inference_mode()
     def _embed_images(self, images_u8: np.ndarray) -> torch.Tensor:
         size = self.cfg.image_resolution
-        if not self._calibrated:  # int8_static: scales from the first whole batch, then fixed
-            calibrate_act_scales(self.model, pixels=preprocess_device(images_u8, size=size, device=self.device,
-                                                                      **self._pp_kwargs))
-            self._calibrated = True
 
         def embed(rows):
             return _l2_normalize(self.model.encode_image(
                 preprocess_device(rows, size=size, device=self.device, **self._pp_kwargs)))
 
-        return self._gathered(embed, images_u8)
+        with profiling.span("embed.images"):
+            if not self._calibrated:  # int8_static: scales from the first whole batch, then fixed
+                calibrate_act_scales(self.model, pixels=preprocess_device(images_u8, size=size, device=self.device,
+                                                                          **self._pp_kwargs))
+                self._calibrated = True
+            return self._gathered(embed, images_u8)
 
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
         out = []

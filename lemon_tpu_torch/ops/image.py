@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from lemon_tpu_torch.core import profiling
 from lemon_tpu_torch.core.device import resolve_device
 
 # CLIP normalization constants (lib/datasets/utils.py:159-160).
@@ -98,6 +99,14 @@ def _resize_product(eq: str, a: torch.Tensor, x: torch.Tensor, precision: str) -
     raise ValueError(f"precision must be 'highest', 'high' or 'default', got {precision!r}")
 
 
+def _upload(t: torch.Tensor, device, non_blocking: bool = False) -> torch.Tensor:
+    """``t.to(device)``; a host tensor's bytes count as ``h2d_bytes`` of the
+    open span (on a CPU device no copy is made, and the count is the same)."""
+    if t.device.type == "cpu":
+        profiling.count("h2d_bytes", t.nbytes)
+    return t.to(device, non_blocking=non_blocking)
+
+
 def preprocess_device(images_u8, size: int = 224, device=None, mean=CLIP_MEAN, std=CLIP_STD,
                       pil_rounding: bool = True, precision: str = "highest") -> torch.Tensor:
     """(B, H, W, 3) uint8 images (numpy or tensor) -> (B, size, size, 3)
@@ -116,11 +125,11 @@ def preprocess_device(images_u8, size: int = 224, device=None, mean=CLIP_MEAN, s
         device = resolve_device("cuda")
     x = torch.as_tensor(images_u8)
     if device is not None:
-        x = x.to(device, non_blocking=True)
+        x = _upload(x, device, non_blocking=True)
     b, h, w, _ = x.shape
     out_h, out_w = resize_shorter_side(h, w, size)
-    a_h = torch.from_numpy(resize_matrix(h, out_h)).to(x.device)
-    a_w = torch.from_numpy(resize_matrix(w, out_w)).to(x.device)
+    a_h = _upload(torch.from_numpy(resize_matrix(h, out_h)), x.device)
+    a_w = _upload(torch.from_numpy(resize_matrix(w, out_w)), x.device)
     x = x.float()
     # PIL resamples horizontally first and stores a uint8 intermediate.
     x = _resize_product("ow,bhwc->bhoc", a_w, x, precision)
@@ -131,8 +140,8 @@ def preprocess_device(images_u8, size: int = 224, device=None, mean=CLIP_MEAN, s
         x = _round_u8(x)
     top, left = center_crop_bounds(out_h, out_w, size)
     x = x[:, max(top, 0) : max(top, 0) + size, max(left, 0) : max(left, 0) + size, :]
-    mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=x.device)
-    std_t = torch.as_tensor(np.asarray(std, np.float32), device=x.device)
+    mean_t = _upload(torch.from_numpy(np.asarray(mean, np.float32)), x.device)
+    std_t = _upload(torch.from_numpy(np.asarray(std, np.float32)), x.device)
     return ((x / 255.0 - mean_t) / std_t).contiguous()
 
 
