@@ -57,7 +57,7 @@ from lemon_tpu_torch.data.labels import LABEL_SETS
 from lemon_tpu_torch.knn.index import ExactKnnIndex, train_split_exclusion
 from lemon_tpu_torch.models.encoder import ClipEncoder
 from lemon_tpu_torch.models.registry import checkpoint_path, create_encoder
-from lemon_tpu_torch.scoring.lemon import NeighborLogs, calc_scores, unpack_hparams
+from lemon_tpu_torch.scoring.lemon import COMPONENTS, NeighborLogs, calc_scores, unpack_hparams
 from lemon_tpu_torch.scoring.metrics import eval_metrics
 from lemon_tpu_torch.scoring.optimize import default_grid, maximize_metric
 from lemon_tpu_torch.scoring.thresholds import optimize_f1_efficient
@@ -398,7 +398,10 @@ def select_and_evaluate(cfg: DetectionConfig, logs: NeighborLogs, device: torch.
         results[criteria] = {**hp, "thres": best_thres, "selected_val": best_f1}
 
     hp = {name: results[criteria].get(name, 0) for name in ("beta", "gamma", "tau_1_n", "tau_2_n", "tau_1_m", "tau_2_m")}
-    scores, d_n, d_m = calc_scores(logs, hp, return_components=True)
+    # the reported scores from the components in float64: where the fit picks beta and gamma of opposite signs, the
+    # neighbour terms (hundreds at tau near 10) cancel to scores under 1, and float32 arithmetic is off by ~4e-4
+    logs64 = dataclasses.replace(logs, **{c: np.asarray(getattr(logs, c), np.float64) for c in COMPONENTS})
+    scores, d_n, d_m = calc_scores(logs64, hp, return_components=True)
     df[f"{criteria}_pred_score"] = scores
     df[f"{criteria}_d_n"] = d_n
     df[f"{criteria}_d_m"] = d_m

@@ -12,21 +12,33 @@ the JAX package's under ``lemon_tpu_torch/models/assets/``;
 ``LEMON_TPU_BPE_PATH`` overrides the path.
 
 Tokenization runs on the host; the output is a fixed-shape
-``(batch, context_length)`` int32 array (:func:`tokenize_batch`). Prompt-style
-workloads re-tokenize the same few strings many times, so an LRU cache at the
-string level keeps the tokenizer out of profiles.
+``(batch, context_length)`` int32 array (:func:`tokenize_batch`). A row whose
+text is printable ASCII (tabs and line breaks allowed) without ``&`` needs no
+cleaning, and is encoded by the C++ BPE of ``csrc/bpe.cpp`` (:class:`NativeBpe`,
+built at first use by ``ops/_build.host_library``), called through ``ctypes``
+with the interpreter lock released, so a thread that tokenizes does not stall
+one that launches the towers. Every other row, and every row where no C++
+compiler is found, takes the Python BPE of :class:`ClipBpeTokenizer`, whose
+ids the C++ one reproduces; there an LRU cache at the string level keeps
+repeated prompts out of profiles.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import gzip
 import html
 import os
+import threading
 import unicodedata
-from typing import Iterable, List, Sequence
+import weakref
+from pathlib import Path
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from lemon_tpu_torch.core import profiling
 
 try:
     import regex as _re  # supports \p{L} / \p{N} classes
@@ -93,6 +105,7 @@ else:  # pragma: no cover - stdlib-re approximation (letters/digits classes)
     )
 
 _WHITESPACE = _re.compile(r"\s+")
+_UNBUILT = object()  # a tokenizer's C++ BPE before its first use
 
 
 def bpe_merge(parts: List[str], ranks: dict) -> tuple:
@@ -167,6 +180,19 @@ class ClipBpeTokenizer:
         self.merge_rank = {pair: i for i, pair in enumerate(merge_pairs)}
         self.sot_id = self.token_to_id[SOT_TEXT]
         self.eot_id = self.token_to_id[EOT_TEXT]
+        self._native = _UNBUILT
+        self._native_lock = threading.Lock()
+
+    def native(self) -> Optional["NativeBpe"]:
+        """The C++ BPE over this tokenizer's tables, made at first use; None
+        where no C++ compiler is found."""
+        with self._native_lock:
+            if self._native is _UNBUILT:
+                from lemon_tpu_torch.ops._build import host_library
+
+                lib = host_library(NATIVE_SOURCE)
+                self._native = NativeBpe(lib, self) if lib is not None else None
+        return self._native
 
     @functools.lru_cache(maxsize=65536)
     def _bpe_word(self, word: str) -> tuple:
@@ -193,6 +219,58 @@ class ClipBpeTokenizer:
         return raw.decode("utf-8", errors="replace").replace("</w>", " ")
 
 
+NATIVE_SOURCE = Path(__file__).resolve().parent / "csrc" / "bpe.cpp"
+_NATIVE_SIGNATURES = {
+    # symbols (512), merges (n, 4), n, sot, eot -> handle
+    "lemon_bpe_load": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32],
+                       ctypes.c_void_p),
+    "lemon_bpe_free": ([ctypes.c_void_p], None),
+    # handle, data, offsets (rows + 1), rows, context, fill, out (rows, context), eligible (rows) -> eligible rows
+    "lemon_bpe_encode_batch": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+                                ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int64),
+}
+
+
+class NativeBpe:
+    """The C++ BPE (``csrc/bpe.cpp``) over one :class:`ClipBpeTokenizer`'s
+    tables: the symbol ids of each byte and of its ``</w>`` form, and every
+    merge as (left id, right id, rank, merged id), all read from the
+    tokenizer's ``token_to_id`` and ``merge_rank``. It encodes the rows that
+    need no cleaning and says which those were."""
+
+    def __init__(self, lib: ctypes.CDLL, tok: ClipBpeTokenizer):
+        for name, (argtypes, restype) in _NATIVE_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        ids = tok.token_to_id
+        symbols = [tok.byte_to_uni[b] for b in range(256)]
+        table = np.array([ids[s] for s in symbols] + [ids[s + "</w>"] for s in symbols], np.int32)
+        merges = np.array([(ids[a], ids[b], rank, ids[a + b]) for (a, b), rank in tok.merge_rank.items()],
+                          np.int32).reshape(-1, 4)
+        handle = lib.lemon_bpe_load(table.ctypes.data, merges.ctypes.data, len(merges), tok.sot_id, tok.eot_id)
+        if not handle:
+            raise MemoryError("lemon_bpe_load")
+        self._handle = handle
+        self._encode = lib.lemon_bpe_encode_batch
+        weakref.finalize(self, lib.lemon_bpe_free, handle)
+
+    def encode(self, texts: Sequence[str], context_length: int, fill: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``(out, eligible)``: ``out`` (len(texts), context_length) int32
+        holds each eligible row's ids as :func:`tokenize_batch` gives them and
+        ``fill`` elsewhere; ``eligible`` (bool) marks the rows encoded here.
+        A row that is not a ``str`` is not eligible."""
+        if context_length < 1:
+            raise ValueError(f"context_length {context_length} < 1")
+        blobs = [t.encode("utf-8", "surrogatepass") if isinstance(t, str) else b"\0" for t in texts]
+        offsets = np.zeros(len(blobs) + 1, np.int64)
+        np.cumsum([len(b) for b in blobs], out=offsets[1:])
+        out = np.empty((len(blobs), context_length), np.int32)
+        eligible = np.empty(len(blobs), np.uint8)
+        self._encode(self._handle, b"".join(blobs), offsets.ctypes.data, len(blobs), context_length, fill,
+                     out.ctypes.data, eligible.ctypes.data)
+        return out, eligible.astype(bool)
+
+
 @functools.lru_cache(maxsize=4)
 def get_tokenizer(vocab_path: str | None = None) -> ClipBpeTokenizer:
     return ClipBpeTokenizer(vocab_path)
@@ -212,12 +290,25 @@ def tokenize_batch(
     HuggingFace CLIP tokenizer's max-length padding (pad token == EOT).
     EOT pooling (argmax over ids) selects the same position in both modes
     because argmax returns the first occurrence of the max id.
+
+    Rows that need no cleaning go to the C++ BPE (:class:`NativeBpe`), the
+    rest to the Python one, in the same array; under a profiler session the
+    open span counts them (``native_rows``, ``python_rows``).
     """
     tok = tokenizer or get_tokenizer()
+    texts = list(texts)
     fill = 0 if pad_mode == "zeros" else tok.eot_id
-    out = np.full((len(texts), context_length), fill, dtype=np.int32)
-    for row, text in enumerate(texts):
-        ids = [tok.sot_id] + tok.encode(text) + [tok.eot_id]
+    native = tok.native()
+    if native is not None:
+        out, eligible = native.encode(texts, context_length, fill)
+        rows = np.flatnonzero(~eligible).tolist()
+    else:
+        out = np.full((len(texts), context_length), fill, dtype=np.int32)
+        rows = range(len(texts))
+    profiling.count("native_rows", len(texts) - len(rows))
+    profiling.count("python_rows", len(rows))
+    for row in rows:
+        ids = [tok.sot_id] + tok.encode(texts[row]) + [tok.eot_id]
         if len(ids) > context_length:
             ids = ids[: context_length - 1] + [tok.eot_id]
         out[row, : len(ids)] = ids

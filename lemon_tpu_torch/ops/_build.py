@@ -13,6 +13,13 @@ keyed by a hash of the sources (``*.cu`` and ``*.cuh``), the flags and what
 and an unchanged one loads. The build happens at first
 use, never at import: the CPU tests import every module on machines without
 ``nvcc``.
+
+Host code with a plain C interface (``models/csrc/bpe.cpp``) is a second,
+host-only library of one source, compiled by the system C++ compiler
+(:func:`host_library`: ``c++ -std=c++17 -O3 -fPIC -shared``, no
+``-march``), cached in the same way, keyed by its source, the flags and what
+``c++ --version`` prints. It needs no ``nvcc``, so the CPU machines build
+and test it; where no compiler is found it is None.
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "lemon_tpu_torch"
@@ -32,6 +41,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared")
+_HOST_BUILD = threading.Lock()  # one build of a host library at a time in a process
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -128,6 +139,45 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def _cxx() -> Optional[str]:
+    return shutil.which("c++")
+
+
+def host_library_path(source: Path, cxx_version: str) -> Path:
+    """Where the host library of ``source`` lives for a compiler that
+    prints ``cxx_version`` (built or not)."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(cxx_version.encode())
+    h.update(source.name.encode())
+    h.update(source.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{source.stem}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def host_library(source: Path) -> Optional[ctypes.CDLL]:
+    """The host library of one C++ source, compiled on first use; None
+    where no C++ compiler is found, and raises if the compile fails. The
+    caller declares its functions' types."""
+    cxx = _cxx()
+    if cxx is None:
+        return None
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True, check=True).stdout
+    out = host_library_path(source, version)
+    with _HOST_BUILD:
+        if not out.exists():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            codes, log = _run_all([[cxx, *CXX_FLAGS, "-o", str(tmp), str(source)]])
+            out.with_suffix(".log").write_text(log)
+            if any(codes):
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"c++ failed ({codes}):\n{log}")
+            os.replace(tmp, out)
+            print(f"[lemon_tpu_torch] built {out} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return ctypes.CDLL(str(out))
 
 
 def build_log() -> str:

@@ -335,3 +335,51 @@ def test_discrete_text_padding_slots_read_the_last_row():
     assert pad.any(axis=1).all()  # every row has padding slots: 60 > 48 rows
     want = 1.0 - (noisy == last).astype(np.float64)
     np.testing.assert_array_equal(logs.dists_n[pad], np.broadcast_to(want[:, None], pad.shape)[pad])
+
+
+def test_reported_scores_keep_the_neighbour_terms_cancellation(monkeypatch):
+    """Hyperparameters a fit chose on a MIMIC-like detection: beta and gamma of
+    opposite signs, tau near 10, so the two neighbour terms (hundreds each)
+    cancel to scores under 1. The reported scores are the float64 formula of
+    the components; float32 arithmetic would be off by about 4e-4 there."""
+    import torch
+
+    from lemon_tpu_torch import detect
+    from lemon_tpu_torch.core.profiling import PhaseTimer
+    from lemon_tpu_torch.scoring.lemon import NeighborLogs
+
+    # one row of a b16mimic-reports-bf16 detection, repeated with d_1 spread
+    row = {"dists_n": [0.43020761013031006, 0.30655455589294434, 0.3352661728858948, 0.43001872301101685,
+                       0.35546064376831055],
+           "D_n": [-0.9936203956604004, -0.9935858845710754, -0.9934577941894531, -0.9933109283447266,
+                   -0.9932405352592468],
+           "dists_tr_n": [0.9914824366569519, 0.9772607684135437, 0.9370926022529602, 0.9541694521903992,
+                          0.9852677583694458],
+           "dists_m": [0.04831916093826294, 0.03229445219039917, 0.008557140827178955, 0.01296323537826538,
+                       0.011536896228790283],
+           "D_m": [-0.8265211582183838, -0.8265211582183838, -0.823229193687439, -0.823229193687439,
+                   -0.8217027187347412],
+           "dists_tr_m": [1.0084316730499268, 0.9943894743919373, 0.9746130108833313, 0.978224515914917,
+                          0.9633580446243286]}
+    n, k = 60, 5
+    logs = NeighborLogs(d_1=np.linspace(0.95, 1.0, n, dtype=np.float32),
+                        **{c: np.tile(np.asarray(v, np.float32), (n, 1)) for c, v in row.items()},
+                        is_mislabel=np.arange(n) % 3 == 0,
+                        sset=np.repeat(np.array(["train", "val", "test"], object), n // 3), idx=np.arange(n))
+    hp = {"beta": -0.23365407478452693, "gamma": 22.21216246791203, "tau_1_n": 9.99806897421857,
+          "tau_2_n": 1.0063040059141994, "tau_1_m": 10.055089374563453, "tau_2_m": 1.1110801048777093}
+    x = np.array([hp[h] for h in ("beta", "gamma", "tau_1_n", "tau_2_n", "tau_1_m", "tau_2_m")])
+    monkeypatch.setattr(detect, "maximize_metric", lambda logs_val, **kw: (x, 0.5, 0.0))
+    cfg = detect.DetectionConfig(dataset="mimiccxr_caption", noise_type="random")
+    _, df = detect.select_and_evaluate(cfg, logs, torch.device("cpu"), PhaseTimer(torch.device("cpu")))
+
+    def formula(dtype):
+        c = {a: np.asarray(getattr(logs, a), dtype) for a in ("d_1", "dists_n", "D_n", "dists_tr_n", "dists_m",
+                                                               "D_m", "dists_tr_m")}
+        wn = np.exp(-hp["tau_1_n"] * c["D_n"]) * np.exp(-hp["tau_2_n"] * c["dists_tr_n"])
+        wm = np.exp(-hp["tau_1_m"] * c["D_m"]) * np.exp(-hp["tau_2_m"] * c["dists_tr_m"])
+        return c["d_1"] + hp["beta"] * np.sum(wn * c["dists_n"], 1) / k + hp["gamma"] * np.sum(wm * c["dists_m"], 1) / k
+
+    want = formula(np.float64)
+    assert np.abs(want).max() < 1 and np.abs(formula(np.float32) - want).max() > 2e-4  # what float32 loses
+    np.testing.assert_allclose(df["know_val_labels_pred_score"].to_numpy(), want, rtol=1e-12, atol=1e-12)

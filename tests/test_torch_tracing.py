@@ -79,7 +79,10 @@ def test_embed_split_spans_and_parents(encoder):
         for s in group:
             assert s.parent == phase.id and s.thread == want_thread
             assert phase.start_ns <= s.start_ns <= s.end_ns <= phase.end_ns
-    assert [s.counts for s in by_name["embed.tokenize"]] == [{}] * batches
+    # each batch's rows, padded to the batch size, counted once: by the C++ BPE or the Python one
+    tokenized = [s.counts["native_rows"] + s.counts["python_rows"] for s in by_name["embed.tokenize"]]
+    assert tokenized == [BATCH] * batches and all(set(s.counts) == {"native_rows", "python_rows"}
+                                                  for s in by_name["embed.tokenize"])
     assert len({s.id for s in spans}) == len(spans)
 
 
