@@ -6,9 +6,10 @@ from the stage before it as the program produced it (a full reference
 detection of 20,000-50,000 pairs would take longer than the window):
 
 - ``img_emb_gap``, ``txt_emb_gap``: the largest ``1 - cos`` between the
-  program's embedding of a row and the reference's (``reference/``: its own
-  tokenizer, preprocessing and CLIP forward in fp32 from the raw pixels and
-  texts), over ``check_rows`` rows drawn from the seed;
+  program's embedding of a row and the reference's (the configuration's
+  architecture module, :mod:`portbench.arch`: its own tokenizer,
+  preprocessing and forward in fp32 from the raw pixels and texts), over
+  ``check_rows`` rows drawn from the seed;
 - ``knn_gap``: every query of every split against an exact float64 search
   of the program's own embeddings: the largest gap between a returned
   score and the true score at its rank, or between the true similarity of a
@@ -44,9 +45,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from portbench.reference import clip as ref_clip
-from portbench.reference.preprocess import preprocess
-from portbench.reference.tokenizer import Tokenizer
+from portbench import arch
+from portbench.reference.operands import round_tf32
 from portbench.traffic import SPLITS, Detection, Traffic
 
 NUMBERS = ("img_emb_gap", "txt_emb_gap", "knn_gap", "comp_gap", "fit_gap", "score_gap", "auroc_gap")
@@ -85,7 +85,7 @@ def sample_rows(det: Detection, n_rows: int, seed: int) -> Dict[str, np.ndarray]
 def reference_embeddings(W, cfg: dict, traffic: Traffic, det: Detection, rows: Dict[str, np.ndarray],
                          device: torch.device, mode: str = "fp32", batch: int = 256):
     """split -> (image, text) embeddings of ``rows`` by the reference."""
-    tok = Tokenizer()
+    ref = arch.of(cfg)
     out = {}
     for name, idx in rows.items():
         split = det.splits[name]
@@ -93,11 +93,10 @@ def reference_embeddings(W, cfg: dict, traffic: Traffic, det: Detection, rows: D
         imgs, txts = [], []
         for lo in range(0, len(idx), batch):
             sel = idx[lo: lo + batch]
-            pixels = preprocess(torch.from_numpy(np.ascontiguousarray(split.images[sel])).to(device),
-                                cfg["image_resolution"])
-            imgs.append(ref_clip.encode_image(W, cfg, pixels, mode))
-            tokens = torch.from_numpy(tok([texts[i] for i in sel], cfg["context_length"])).to(device)
-            txts.append(ref_clip.encode_text(W, cfg, tokens, mode))
+            pixels = ref.preprocess(torch.from_numpy(np.ascontiguousarray(split.images[sel])).to(device), cfg)
+            imgs.append(ref.encode_image(W, cfg, pixels, mode))
+            tokens = torch.from_numpy(ref.tokenize([texts[i] for i in sel], cfg)).to(device)
+            txts.append(ref.encode_text(W, cfg, tokens, mode))
         out[name] = (torch.cat(imgs).double().cpu().numpy(), torch.cat(txts).double().cpu().numpy())
     return out
 
@@ -311,7 +310,7 @@ def control_outputs(out: Outputs, det: Detection, traffic: Traffic, W, cfg: dict
         parts = _components(emb[(name, "img")], emb[(name, "txt")], emb[("train", "img")], emb[("train", "txt")],
                             torch.from_numpy(_excluded(name, knn[(name, "img")][1])).to(device),
                             torch.from_numpy(_excluded(name, knn[(name, "txt")][1])).to(device),
-                            lambda a, b: (ref_clip.round_tf32(a) * ref_clip.round_tf32(b)).sum(-1))
+                            lambda a, b: (round_tf32(a) * round_tf32(b)).sum(-1))
         for c in COMPONENTS:
             logs[c].append(parts[c].cpu().numpy())
     logs = {c: np.concatenate(v) for c, v in logs.items()}

@@ -1,10 +1,9 @@
 """One run of one cell: set-up, the measured window, the check.
 
-Set-up builds the encoder as ``models/registry.create_encoder`` builds it
-(``ClipModel(cfg, precision)``, ``load_state_dict``, ``ClipEncoder(...,
-batch_size)``) from weights made on the device from the seed, makes the
-mix's host data (label lists, class templates or the image pool) and warms
-up the cell's own shapes: one embedding batch of each tower, one search of
+Set-up builds the encoder as the program's registry builds it, through the
+configuration's architecture module (:mod:`portbench.arch`), from weights
+made on the device from the seed, makes the mix's host data (label lists,
+class templates or the image pool) and warms up the cell's own shapes: one embedding batch of each tower, one search of
 each split's size against the comparison set, one fit and evaluation at
 the splits' sizes.
 
@@ -45,18 +44,14 @@ from lemon_tpu_torch.core.profiling import PhaseTimer
 from lemon_tpu_torch.data.datasets import CaptioningSplit, ClassificationSplit
 from lemon_tpu_torch.data.labels import LABEL_SETS
 from lemon_tpu_torch.knn.index import ExactKnnIndex
-from lemon_tpu_torch.models.clip import ClipConfig, ClipModel
-from lemon_tpu_torch.models.encoder import ClipEncoder
 from lemon_tpu_torch.scoring.lemon import NeighborLogs
+from portbench import arch
 from portbench import check as chk
 from portbench.traffic import SPLITS, Detection, Traffic, load_mix
 from portbench.weights import make_weights
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(__file__).resolve().parent
-CLIP_KEYS = ("embed_dim", "image_resolution", "vision_layers", "vision_width", "vision_patch_size", "vision_heads",
-             "context_length", "vocab_size", "text_width", "text_heads", "text_layers", "quick_gelu",
-             "attention_impl")
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "lemon_tpu")
 
 
@@ -87,7 +82,11 @@ class Cell:
         workload = next((w for w in bench["workloads"] if w["name"] == name), None)
         if workload is None:
             raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
-        config = load_json(ROOT / next(c for c in bench["configs"] if c["name"] == workload["config"])["file"])
+        file = next(c for c in bench["configs"] if c["name"] == workload["config"])["file"]
+        config = load_json(ROOT / file)
+        errors = arch.key_errors(config)
+        if errors:
+            raise SystemExit(f"{file}: " + "; ".join(errors))
         mix = load_mix(workload["traffic"])
         if "comparison_pairs" in config:  # a configuration's cut of the comparison set (its ``reduced``)
             mix["rows"]["train"] = min(mix["rows"]["train"], config["comparison_pairs"])
@@ -111,12 +110,10 @@ class RecordingTimer(PhaseTimer):
 
 
 def build_encoder(cfg: dict, W, device: torch.device, batch_size: int, seed: int):
-    """The program's encoder for ``cfg`` in its precision, loaded with ``W``."""
+    """The program's encoder for ``cfg`` in its precision, loaded with ``W``,
+    as its architecture module builds it."""
     precision = {"fp32": Precision.fp32(), "bf16": Precision.bf16(), "int8": Precision.int8()}[cfg["precision"]]
-    with torch.device(device):
-        model = ClipModel(ClipConfig(**{k: cfg[k] for k in CLIP_KEYS}), precision)
-    model.load_state_dict(W)
-    return ClipEncoder(model, device, batch_size=batch_size, weights_fingerprint=f"portbench:{seed}")
+    return arch.of(cfg).encoder(cfg, precision, W, device, batch_size, f"portbench:{seed}")
 
 
 def program_splits(det: Detection) -> Dict[str, object]:

@@ -1,9 +1,10 @@
 """The least model FLOPs of every detection in the window over the window,
 against the bf16 dense peak (989 TFLOP/s) whatever the precision: every
-image, every text at its length up to its EOT (the reference tokenizer's),
-and each search's product (portbench.roofline.detection_flops)."""
+image, every text at the length its architecture module counts
+(``text_lengths``; OpenAI CLIP: up to and with its EOT, by the reference
+tokenizer), and each search's product (portbench.roofline.detection_flops)."""
 
-from portbench.reference.tokenizer import Tokenizer
+from portbench import arch
 from portbench.roofline import PEAK_FLOPS, detection_flops
 from portbench.traffic import SPLITS, Traffic
 
@@ -12,10 +13,10 @@ def read(rec):
     if not rec.detections or rec.failed:
         return None
     cfg, mix = rec.cell.config, rec.cell.mix
-    tok, ctx = Tokenizer(), cfg["context_length"]
-    prompt, labels = mix.get("prompt"), None
+    model = arch.of(cfg)
+    labels = None
     if mix["kind"] == "labels":
-        labels = [min(len(tok.encode(prompt + name)) + 2, ctx) for name in Traffic.label_names(mix)]
+        labels = model.text_lengths([mix["prompt"] + name for name in Traffic.label_names(mix)], cfg)
     flops = 0.0
     for det in rec.detections:
         lengths = []
@@ -24,7 +25,7 @@ def read(rec):
             if labels is not None:
                 lengths += [labels[int(y)] for y in split.y_noisy]
             else:
-                lengths += [min(len(tok.encode(t)) + 2, ctx) for t in split.texts]
+                lengths += model.text_lengths(split.texts, cfg)
         n_db = len(det.splits["train"])
         searches = [(len(det.splits[s]), n_db) for s in SPLITS for _ in range(2)]
         flops += detection_flops(cfg, det.pairs, lengths, searches)

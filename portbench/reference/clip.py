@@ -1,19 +1,13 @@
 """The plain CLIP forward that judges the program's embeddings.
 
 OpenAI CLIP's two towers (ViT with class token, learned positions, pre-LN
-blocks, QuickGELU, fused q|k|v projection; a causal text transformer pooled
-at the first EOT, the largest id), written in plain PyTorch over a dict of
-weights named as the benchmark makes them (:func:`param_shapes`). Every
-block runs on every token; softmax and LayerNorm in fp32.
-
-``mode`` sets the precision of the products' operands: ``fp32`` is the
-reference (TF32 off); the controls stand in for the program at the nearest
-precision below the one a configuration states: ``tf32`` rounds every
-operand to TF32's 10-bit mantissa (what TF32 tensor cores read), ``int8``
-quantises the projections' activations per token and their weights per
-output channel, symmetric, and rounds the attention's operands to bf16 (the
-program's int8 path keeps attention in bf16). Products of rounded operands
-are taken in fp32.
+blocks, a 4x MLP with QuickGELU, or the exact (erf) GELU where the
+configuration's ``quick_gelu`` is false, fused q|k|v projection; a causal
+text transformer pooled at the first EOT, the largest id), written in plain
+PyTorch over a dict of weights named as the benchmark makes them
+(:func:`param_shapes`). Every block runs on every token; softmax and
+LayerNorm in fp32. ``mode`` sets the precision of the products' operands
+(:mod:`portbench.reference.operands`).
 """
 
 from __future__ import annotations
@@ -23,7 +17,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
-MODES = ("fp32", "tf32", "int8")
+from portbench.reference.operands import attention_operand, linear, round_tf32  # noqa: F401 (round_tf32: re-exported)
 
 
 def param_shapes(cfg: dict) -> List[Tuple[str, Tuple[int, ...]]]:
@@ -55,53 +49,23 @@ def param_shapes(cfg: dict) -> List[Tuple[str, Tuple[int, ...]]]:
             + [("text.ln_final.weight", (t,)), ("text.ln_final.bias", (t,))])
 
 
-def round_tf32(x: torch.Tensor) -> torch.Tensor:
-    """fp32 rounded to nearest even at TF32's 10 mantissa bits."""
-    bits = x.float().contiguous().view(torch.int32)
-    bits = (bits + 0x0FFF + ((bits >> 13) & 1)) & ~0x1FFF
-    return bits.view(torch.float32)
-
-
-def _round_bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.float().bfloat16().float()
-
-
-def _int8(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Symmetric int8 quantisation along ``dim``, returned dequantised."""
-    scale = x.abs().amax(dim=dim, keepdim=True).clamp_min(1e-12) / 127.0
-    return torch.clamp(torch.round(x / scale), -127, 127) * scale
-
-
-def linear(x: torch.Tensor, weight: torch.Tensor, bias, mode: str) -> torch.Tensor:
-    """``x @ weight^T + bias`` (``weight`` as (out, in))."""
-    if mode == "tf32":
-        x, weight = round_tf32(x), round_tf32(weight)
-    elif mode == "int8":
-        x, weight = _int8(x.float(), -1), _int8(weight.float(), 1)
-    return F.linear(x.float(), weight.float(), None if bias is None else bias.float())
-
-
-def _attention_operand(x: torch.Tensor, mode: str) -> torch.Tensor:
-    return round_tf32(x) if mode == "tf32" else _round_bf16(x) if mode == "int8" else x
-
-
 def _layer_norm(x, W: Dict[str, torch.Tensor], name: str) -> torch.Tensor:
     return F.layer_norm(x, (x.shape[-1],), W[name + ".weight"].float(), W[name + ".bias"].float(), 1e-5)
 
 
-def _block(x: torch.Tensor, W, prefix: str, heads: int, causal: bool, mode: str) -> torch.Tensor:
+def _block(x: torch.Tensor, W, prefix: str, heads: int, causal: bool, quick_gelu: bool, mode: str) -> torch.Tensor:
     b, n, d = x.shape
     hd = d // heads
     qkv = linear(_layer_norm(x, W, prefix + "ln_1"), W[prefix + "attn.qkv.weight"], W[prefix + "attn.qkv.bias"], mode)
     q, k, v = (t.reshape(b, n, heads, hd).transpose(1, 2) for t in qkv.split(d, dim=-1))
-    logits = _attention_operand(q * hd ** -0.5, mode) @ _attention_operand(k, mode).transpose(-1, -2)
+    logits = attention_operand(q * hd ** -0.5, mode) @ attention_operand(k, mode).transpose(-1, -2)
     if causal:
         logits = logits.masked_fill(torch.ones(n, n, dtype=torch.bool, device=x.device).triu(1), float("-inf"))
-    attn = _attention_operand(torch.softmax(logits, dim=-1), mode) @ _attention_operand(v, mode)
+    attn = attention_operand(torch.softmax(logits, dim=-1), mode) @ attention_operand(v, mode)
     x = x + linear(attn.transpose(1, 2).reshape(b, n, d), W[prefix + "attn.out.weight"], W[prefix + "attn.out.bias"],
                    mode)
     h = linear(_layer_norm(x, W, prefix + "ln_2"), W[prefix + "mlp_fc.weight"], W[prefix + "mlp_fc.bias"], mode)
-    h = h * torch.sigmoid(1.702 * h)
+    h = h * torch.sigmoid(1.702 * h) if quick_gelu else F.gelu(h)
     return x + linear(h, W[prefix + "mlp_proj.weight"], W[prefix + "mlp_proj.bias"], mode)
 
 
@@ -116,7 +80,7 @@ def encode_image(W, cfg: dict, pixels: torch.Tensor, mode: str = "fp32") -> torc
     x = _layer_norm(x + W["visual.positional_embedding"].float(), W, "visual.ln_pre")
     heads = cfg["vision_heads"]
     for i in range(cfg["vision_layers"]):
-        x = _block(x, W, f"visual.blocks.{i}.", heads, False, mode)
+        x = _block(x, W, f"visual.blocks.{i}.", heads, False, cfg["quick_gelu"], mode)
     out = linear(_layer_norm(x[:, 0], W, "visual.ln_post"), W["visual.proj"].t(), None, mode)
     return out / out.norm(dim=-1, keepdim=True)
 
@@ -126,7 +90,7 @@ def encode_text(W, cfg: dict, tokens: torch.Tensor, mode: str = "fp32") -> torch
     n = tokens.shape[1]
     x = W["text.token_embedding.weight"].float()[tokens] + W["text.positional_embedding"].float()[:n]
     for i in range(cfg["text_layers"]):
-        x = _block(x, W, f"text.blocks.{i}.", cfg["text_heads"], True, mode)
+        x = _block(x, W, f"text.blocks.{i}.", cfg["text_heads"], True, cfg["quick_gelu"], mode)
     pooled = _layer_norm(x, W, "text.ln_final")[torch.arange(len(tokens), device=x.device), tokens.argmax(dim=-1)]
     out = linear(pooled, W["text.text_projection"].t(), None, mode)
     return out / out.norm(dim=-1, keepdim=True)

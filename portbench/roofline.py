@@ -1,5 +1,7 @@
 """The yardstick's arithmetic: the card's peaks, a kernel's least time, and
-the least model FLOPs a detection's outputs need.
+the least model FLOPs a detection's outputs need (each tower's from the
+configuration's architecture module; :func:`image_flops` and
+:func:`text_flops` count OpenAI CLIP's, :mod:`portbench.arch.openai_clip`).
 
 Peaks of one NVIDIA H100 SXM (NVIDIA's H100 Tensor Core GPU data sheet,
 dense rates without sparsity, at the 700 W power limit): 989 TFLOP/s bf16,
@@ -11,6 +13,8 @@ power limit beside it (the result line's ``device.power_limit_w``).
 from __future__ import annotations
 
 from typing import Iterable, Sequence, Tuple
+
+from portbench import arch
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "fp32": 67e12}
@@ -70,5 +74,6 @@ def detection_flops(cfg: dict, n_images: int, text_lengths: Iterable[int],
                     searches: Sequence[Tuple[int, int]]) -> float:
     """A detection's least model FLOPs: every image, every text at its
     length, and each search's (queries, database rows) product."""
-    return (n_images * image_flops(cfg) + sum(text_flops(cfg, n) for n in text_lengths)
-            + sum(search_flops(q, d, cfg["embed_dim"]) for q, d in searches))
+    model = arch.of(cfg)
+    return (n_images * model.image_flops(cfg) + sum(model.text_flops(cfg, n) for n in text_lengths)
+            + sum(search_flops(q, d, model.embed_dim(cfg)) for q, d in searches))

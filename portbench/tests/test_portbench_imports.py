@@ -9,6 +9,8 @@ from pathlib import Path
 
 import pytest
 
+from portbench.tests.tiny import TINY
+
 PKG = Path(__file__).resolve().parents[1]
 SOURCES = sorted(p for p in PKG.rglob("*.py") if "tests" not in p.parts)
 FORBIDDEN = {"jax", "jaxlib", "flax", "lemon_tpu", "benchmarks"}
@@ -30,6 +32,28 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 @pytest.mark.parametrize("path", sorted((PKG / "reference").glob("*.py")), ids=lambda p: p.name)
 def test_the_reference_imports_nothing_of_the_program(path):
     assert not set(_roots(path)) & {"lemon_tpu_torch", "lemon_tpu"}
+
+
+def test_an_architectures_reference_loads_nothing_of_the_program():
+    """Every architecture module imports the program only inside ``encoder``:
+    importing each, and the weights, reference and FLOPs of ``openai_clip``
+    at a tiny size, leave no program, JAX or JAX package in ``sys.modules``."""
+    code = (
+        "import sys, importlib, pkgutil, torch, numpy as np\n"
+        "import portbench.arch as a\n"
+        "[importlib.import_module('portbench.arch.' + m.name) for m in pkgutil.iter_modules(a.__path__)]\n"
+        "from portbench.weights import make_weights\n"
+        f"cfg = {TINY!r}\n"
+        "m, W = a.of(cfg), make_weights(cfg, 3, torch.device('cpu'))\n"
+        "m.encode_image(W, cfg, m.preprocess(torch.zeros(2, 40, 40, 3, dtype=torch.uint8), cfg))\n"
+        "m.encode_text(W, cfg, torch.from_numpy(m.tokenize(['a cat', 'a dog'], cfg)))\n"
+        "m.image_flops(cfg) + m.text_flops(cfg, m.text_lengths(['a cat'], cfg)[0])\n"
+        "print(sorted({k.split('.')[0] for k in sys.modules} & {'jax', 'jaxlib', 'flax', 'lemon_tpu', "
+        "'lemon_tpu_torch'}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().split("\n")[-1] == "[]"
 
 
 def test_a_run_loads_neither_jax_nor_the_jax_package():
