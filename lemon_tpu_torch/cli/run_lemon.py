@@ -15,7 +15,8 @@ Differences from the JAX CLI: ``--platform`` is ``cuda`` (default) or
 the CPU; under ``torchrun``, or a world of one without it): batches and the
 database are sharded over DATA and replicated over MODEL, as in the JAX CLI,
 and global rank 0 writes the output files; ``--clip_model`` also takes
-``rn50``, a registry model the JAX CLI does not list. The towers' precision
+``rn50`` and ``laion_vit_h14`` (LAION's OpenCLIP ViT-H/14), registry models
+the JAX CLI does not list. The towers' precision
 mode comes from ``LEMON_TPU_PRECISION`` (``fp32``, the default, ``bf16``,
 ``int8`` or ``int8_static``; ``biomed_clip`` runs in fp32), as in the JAX
 CLI. The towers run the plain attention route, as the JAX CLI runs its XLA
@@ -56,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--normalize_d1", action="store_true")
     p.add_argument("--clip_model", type=str, default="huggingface_clip",
                    choices=["huggingface_clip", "biomed_clip", "mimic_clip_from_scratch_random",
-                            "mimic_clip_from_scratch_cat", "chexzero", "cc3m_clip_from_scratch", "tiny", "rn50"])
+                            "mimic_clip_from_scratch_cat", "chexzero", "cc3m_clip_from_scratch", "tiny", "rn50",
+                            "laion_vit_h14"])
     p.add_argument("--knn_k", default=5, type=int)
     p.add_argument("--batch_size", default=128, type=int)
     p.add_argument("--seed", default=0, type=int)

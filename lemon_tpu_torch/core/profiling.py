@@ -14,9 +14,11 @@ trace exists to share their clock), or on a thread that :func:`adopt` handed
 such a session's context to: the profiler's state is per thread and does not
 reach a thread the program starts. Otherwise a span costs one check and
 records nothing. A span's parent is the innermost span open on its thread;
-:func:`count` adds a number (the bytes uploaded) to that span,
-where the work happens. Finished spans collect in one buffer per process,
-read by :func:`spans` and emptied by :func:`reset`.
+:func:`count` adds a number (the bytes uploaded, the rows a tower ran) to
+that span, where the work happens; :func:`counting` says whether one would
+be added, so that a count that costs work to make is made only then.
+Finished spans collect in one buffer per process, read by :func:`spans`
+and emptied by :func:`reset`.
 """
 
 from __future__ import annotations
@@ -108,6 +110,11 @@ def count(name: str, n: int) -> None:
     if stack:
         counts = stack[-1].counts
         counts[name] = counts.get(name, 0) + n
+
+
+def counting() -> bool:
+    """Whether :func:`count` on this thread adds to a span (one is open)."""
+    return bool(_THREAD.open)
 
 
 def handoff() -> Optional[_Handoff]:

@@ -135,6 +135,15 @@ class ClipConfig:
         return ClipConfig(embed_dim=embed_dim, vision_patch_size=16, context_length=context_length)
 
     @staticmethod
+    def vit_h14() -> "ClipConfig":
+        """LAION's OpenCLIP ViT-H/14 (laion2b_s32b_b79k; open_clip's
+        ``ViT-H-14.json``): vision 32 x 1280 in 16 heads of 80 (not
+        ``width // 64``), patch 14 at 224 px; text 24 x 1024 in 16 heads;
+        embed 1024; the exact GELU."""
+        return ClipConfig(embed_dim=1024, vision_layers=32, vision_width=1280, vision_patch_size=14, vision_heads=16,
+                          text_width=1024, text_heads=16, text_layers=24, quick_gelu=False)
+
+    @staticmethod
     def rn50() -> "ClipConfig":
         """OpenAI CLIP RN50 (ModifiedResNet vision tower)."""
         return ClipConfig(embed_dim=1024, vision_layers=(3, 4, 6, 3), vision_width=64)

@@ -13,6 +13,14 @@ Any model with ``cfg``, ``precision``, ``encode_image`` and ``encode_text``
 fits (``ClipModel``, ``BiomedClipModel``); ``tokenize_fn`` replaces the
 CLIP BPE (WordPiece for BiomedCLIP).
 
+Under a profiler session (:mod:`lemon_tpu_torch.core.profiling`) each tower
+call is a span that counts its work from the host arrays, before the
+upload: ``embed.images`` the rows the image tower ran (``image_rows``),
+``embed.texts`` the text tower's (``text_rows``) and, for ``ClipModel``,
+the positions it ran (``positions``, rows x context) and those up to and
+with each row's first EOT (``eot_positions``), where it pools. Rows read
+from the ``.npz`` cache run no tower and count nothing.
+
 The model's :class:`~lemon_tpu_torch.core.precision.Precision` sets the
 rest, as in lemon_tpu/models/encoder.py:51-104: the int8 modes' weights are
 quantised once, when the model's weights are loaded
@@ -91,6 +99,11 @@ class ClipEncoder:
     def _embed_tokens(self, tokens: np.ndarray) -> torch.Tensor:
         def embed(rows):
             profiling.count("h2d_bytes", rows.nbytes)
+            if profiling.counting():
+                profiling.count("text_rows", len(rows))
+                if isinstance(self.model, ClipModel):  # causal, pooled at the first EOT, the largest id
+                    profiling.count("positions", rows.size)
+                    profiling.count("eot_positions", int(rows.argmax(axis=1).sum()) + len(rows))
             t = torch.from_numpy(rows).to(self.device, non_blocking=True).long()
             return _l2_normalize(self.model.encode_text(t))
 
@@ -102,6 +115,7 @@ class ClipEncoder:
         size = self.cfg.image_resolution
 
         def embed(rows):
+            profiling.count("image_rows", len(rows))
             return _l2_normalize(self.model.encode_image(
                 preprocess_device(rows, size=size, device=self.device, **self._pp_kwargs)))
 

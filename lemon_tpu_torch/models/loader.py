@@ -12,6 +12,7 @@ checkpoint route shares one converter.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping
 
 import numpy as np
@@ -234,6 +235,24 @@ def from_openai_state_dict(sd: Mapping[str, np.ndarray], cfg: ClipConfig | None 
         "logit_scale": a("logit_scale"),
     }
     return {"params": params}, cfg
+
+
+# the config fields a checkpoint's shapes give; not the heads, whose width
+# they cannot tell apart from their count, nor the GELU
+SHAPE_FIELDS = ("embed_dim", "image_resolution", "vision_layers", "vision_width", "vision_patch_size",
+                "context_length", "vocab_size", "text_width", "text_layers")
+
+
+def with_entry_heads(shaped: ClipConfig, entry: ClipConfig) -> ClipConfig:
+    """The config a checkpoint loads with: ``shaped`` (from its shapes,
+    ``width // 64`` heads and QuickGELU) with the registry ``entry``'s
+    ``vision_heads``, ``text_heads`` and ``quick_gelu`` when the shapes are
+    the entry's, else ``shaped`` as it is (any checkpoint loads under any
+    name)."""
+    if any(getattr(shaped, f) != getattr(entry, f) for f in SHAPE_FIELDS):
+        return shaped
+    return dataclasses.replace(shaped, vision_heads=entry.vision_heads, text_heads=entry.text_heads,
+                               quick_gelu=entry.quick_gelu)
 
 
 def detect_and_convert(sd: Mapping[str, np.ndarray]):

@@ -7,6 +7,8 @@
   ``'mimic_clip_from_scratch_cat'``   ViT-B/16 at 224 px, embed 768,
   text context 256
 - ``'cc3m_clip_from_scratch'``        ViT-B/16, embed 768, context 77
+- ``'laion_vit_h14'``                 LAION's OpenCLIP ViT-H/14 (16 heads of
+  80, exact GELU); the port's alone, the JAX registry has no such entry
 - ``'rn50'``                          OpenAI CLIP RN50 (ModifiedResNet tower)
 - ``'biomed_clip'``                   BiomedCLIP: timm ViT-B/16 + PubMedBERT
   (:mod:`lemon_tpu_torch.models.biomed`), in fp32 whatever the mode
@@ -15,7 +17,9 @@
 Checkpoint resolution (lemon_tpu/models/registry.py:41-51): the
 ``LEMON_TPU_CKPT_<NAME>`` environment variable, then
 ``<data_root>/checkpoints/<name>.{npz,pt,bin,safetensors}``; a checkpoint
-in either format (HF or OpenAI) loads under any name. Without one the
+in either format (HF or OpenAI) loads under any name, with the entry's
+heads and GELU when its shapes are the entry's (shapes cannot tell them),
+else with the config its shapes give. Without one the
 weights are a seeded random init, announced loudly: fine for benchmarks and
 synthetic data, wrong for real-data results. The precision mode comes from
 ``LEMON_TPU_PRECISION`` unless the caller passes one
@@ -42,7 +46,7 @@ from lemon_tpu_torch.models.biomed import BiomedClipConfig, BiomedClipModel, fro
 from lemon_tpu_torch.models.clip import ClipConfig, ClipModel, init_weights
 from lemon_tpu_torch.models.convert import from_flax_params, load_flax_npz
 from lemon_tpu_torch.models.encoder import ClipEncoder
-from lemon_tpu_torch.models.loader import detect_and_convert, load_torch_file
+from lemon_tpu_torch.models.loader import detect_and_convert, load_torch_file, with_entry_heads
 from lemon_tpu_torch.models.safetensors_io import load_numpy
 from lemon_tpu_torch.models.tokenizer import tokenize_batch
 from lemon_tpu_torch.models.wordpiece import WordPieceTokenizer
@@ -53,6 +57,7 @@ MODEL_CONFIGS = {
     "mimic_clip_from_scratch_random": ClipConfig.from_scratch_mimic(),
     "mimic_clip_from_scratch_cat": ClipConfig.from_scratch_mimic(),
     "cc3m_clip_from_scratch": ClipConfig.vit_b16(embed_dim=768, context_length=77),
+    "laion_vit_h14": ClipConfig.vit_h14(),  # open_clip ViT-H-14, laion2b_s32b_b79k
     "rn50": ClipConfig.rn50(),  # ModifiedResNet tower (chexzero_clip.py:120-174)
     "tiny": ClipConfig.tiny(),
 }
@@ -81,15 +86,16 @@ def checkpoint_fingerprint(ckpt: Optional[Path], seed: int, cfg: Union[ClipConfi
 
 def load_checkpoint(path: Path, cfg: ClipConfig):
     """(state dict, config) from a JAX ``.npz`` tree, or an HF or
-    OpenAI-format checkpoint."""
+    OpenAI-format checkpoint (:func:`with_entry_heads`: the entry ``cfg``'s
+    heads and GELU where the shapes are its own)."""
     if path.suffix == ".npz":
         return from_flax_params(load_flax_npz(path)), cfg
     if path.suffix == ".safetensors":
         sd = load_numpy(path)  # the port's own reader: the GPU machine has no safetensors package
     else:
         sd = load_torch_file(path)
-    tree, cfg = detect_and_convert({k: v for k, v in sd.items() if "position_ids" not in k})
-    return from_flax_params(tree), cfg
+    tree, shaped = detect_and_convert({k: v for k, v in sd.items() if "position_ids" not in k})
+    return from_flax_params(tree), with_entry_heads(shaped, cfg)
 
 
 def create_encoder(name: str, device: torch.device, seed: int = 0, batch_size: int = 128, checkpoint: Optional[str] = None,

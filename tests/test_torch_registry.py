@@ -153,8 +153,8 @@ def test_cli_takes_the_jax_clip_model_choices():
         return next(a.choices for a in parser._actions if a.dest == "clip_model")
 
     ours, theirs = choices(build_parser()), choices(jax_parser())
-    assert ours[: len(theirs)] == theirs and ours[len(theirs) :] == ["rn50"]
-    for name in NEW_NAMES + ["rn50", "biomed_clip"]:
+    assert ours[: len(theirs)] == theirs and ours[len(theirs) :] == ["rn50", "laion_vit_h14"]
+    for name in NEW_NAMES + ["rn50", "biomed_clip", "laion_vit_h14"]:
         assert build_parser().parse_args(["--output_dir", "x", "--clip_model", name]).clip_model == name
 
 

@@ -146,3 +146,36 @@ def test_spans_touch_no_device(monkeypatch):
 def _inner():
     with profiling.span("inner"):
         time.sleep(0.001)
+
+
+def test_tower_spans_count_rows_and_positions(encoder):
+    """``image_rows`` and ``text_rows``: each batch's rows, the tail's padding
+    included; ``positions``: rows x context; ``eot_positions``: each row's
+    first EOT position plus one, from the BPE's own lengths."""
+    spans, _ = _embed(encoder, profiled=True)
+    split, texts = _split()
+    ctx, batches = encoder.cfg.context_length, -(-ROWS // BATCH)
+    images = [s.counts for s in spans if s.name == "embed.images"]
+    text_spans = [s.counts for s in spans if s.name == "embed.texts"]
+    assert [c["image_rows"] for c in images] == [BATCH] * batches
+    assert [c["text_rows"] for c in text_spans] == [BATCH] * batches
+    assert [c["positions"] for c in text_spans] == [BATCH * ctx] * batches
+    tok = encoder.tokenizer
+    eot = [min(len(tok.encode(texts[min(i, ROWS - 1)])) + 2, ctx) for i in range(batches * BATCH)]
+    assert [c["eot_positions"] for c in text_spans] == [sum(eot[b * BATCH:(b + 1) * BATCH]) for b in range(batches)]
+
+
+def test_cached_rows_and_unrecorded_runs_count_nothing(encoder, tmp_path):
+    """A split read from the ``.npz`` cache runs no tower and counts no row;
+    without a profiler session nothing is counted and no span is open."""
+    split, texts = _split()
+    key = encoder.cache_key(split, texts)
+    profiling.reset()
+    encoder.embed_split(split, texts, cache_key=key, cache_dir=tmp_path)  # fills the cache, unrecorded
+    assert profiling.spans() == [] and not profiling.counting()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with PhaseTimer(CPU).phase("embed_val"):
+            assert profiling.counting()
+            encoder.embed_split(split, texts, cache_key=key, cache_dir=tmp_path)
+    recorded = profiling.spans()
+    assert [s.name for s in recorded] == ["embed_val"] and recorded[0].counts == {}
