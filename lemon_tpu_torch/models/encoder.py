@@ -1,9 +1,12 @@
 """Batched CLIP embedding engine (port of lemon_tpu/models/encoder.py:31-328).
 
 Texts are tokenised on the host; each batch then runs device preprocessing,
-both towers and L2 normalisation on the device. Batches keep one shape (the
-tail batch is padded by repeating its last row, and the padding rows are
-dropped afterwards), the embeddings stay on the device until one
+both towers and L2 normalisation on the device. A ``ClipModel``'s text tower
+is causal and pools each row at its first EOT (the largest id), so each text
+batch is cut on the host to its longest pooled position before the upload;
+no position after it reaches an embedding. Batches keep one number of rows
+(the tail batch is padded by repeating its last row, and the padding rows
+are dropped afterwards), the embeddings stay on the device until one
 concatenation and one copy per modality at the end of a split, and batch
 assembly (image gather + BPE) runs one batch ahead on a background thread.
 ``embed_split`` can cache a split's embeddings as an ``.npz`` keyed on their
@@ -17,8 +20,8 @@ Under a profiler session (:mod:`lemon_tpu_torch.core.profiling`) each tower
 call is a span that counts its work from the host arrays, before the
 upload: ``embed.images`` the rows the image tower ran (``image_rows``),
 ``embed.texts`` the text tower's (``text_rows``) and, for ``ClipModel``,
-the positions it ran (``positions``, rows x context) and those up to and
-with each row's first EOT (``eot_positions``), where it pools. Rows read
+the positions it ran (``positions``, rows x the cut length) and those up to
+and with each row's first EOT (``eot_positions``), where it pools. Rows read
 from the ``.npz`` cache run no tower and count nothing.
 
 The model's :class:`~lemon_tpu_torch.core.precision.Precision` sets the
@@ -30,8 +33,9 @@ scales on the first image batch the encoder embeds (``encode_images`` or
 takes the fast resize (no uint8 rounding emulation, one bf16 pass).
 
 With a ``mesh`` (:mod:`lemon_tpu_torch.core.mesh`) every rank builds the same
-batches, padded as on one device, embeds its data rank's rows of each and
-all-gathers the embeddings over the data group
+batches, padded as on one device, embeds its data rank's rows of each (a
+text batch cut to those rows' longest pooled position, the same on every
+rank of a model group) and all-gathers the embeddings over the data group
 (lemon_tpu/models/encoder.py:125-135), so every rank holds every embedding;
 the model axis replicates the work.
 """
@@ -97,13 +101,18 @@ class ClipEncoder:
 
     @torch.inference_mode()
     def _embed_tokens(self, tokens: np.ndarray) -> torch.Tensor:
+        causal = isinstance(self.model, ClipModel)  # pools each row at its first EOT, the largest id
+
         def embed(rows):
+            if causal:  # no position after the batch's last pooled one reaches an embedding
+                eot = rows.argmax(axis=1)
+                rows = np.ascontiguousarray(rows[:, :eot.max() + 1])
             profiling.count("h2d_bytes", rows.nbytes)
             if profiling.counting():
                 profiling.count("text_rows", len(rows))
-                if isinstance(self.model, ClipModel):  # causal, pooled at the first EOT, the largest id
+                if causal:
                     profiling.count("positions", rows.size)
-                    profiling.count("eot_positions", int(rows.argmax(axis=1).sum()) + len(rows))
+                    profiling.count("eot_positions", int(eot.sum()) + len(rows))
             t = torch.from_numpy(rows).to(self.device, non_blocking=True).long()
             return _l2_normalize(self.model.encode_text(t))
 

@@ -100,8 +100,8 @@ def test_h2d_bytes_are_the_bytes_handed_to_the_device(encoder, monkeypatch):
     images = [s.counts["h2d_bytes"] for s in spans if s.name == "embed.images"]
     texts = [s.counts["h2d_bytes"] for s in spans if s.name == "embed.texts"]
     per_image_batch = BATCH * SIDE * SIDE * 3 + 2 * resize_matrix(SIDE, 32).nbytes + 2 * 3 * 4  # pixels, A_h, A_w, mean, std
-    per_text_batch = BATCH * encoder.cfg.context_length * 4  # int32 tokens
-    assert images == [per_image_batch] * len(images) and texts == [per_text_batch] * len(texts)
+    per_text_batch = [BATCH * n * 4 for n in _longest_pooled(encoder)]  # int32 tokens, cut to the longest EOT
+    assert images == [per_image_batch] * len(images) and texts == per_text_batch
     assert sum(images) + sum(texts) == sum(handed)
 
 
@@ -148,21 +148,34 @@ def _inner():
         time.sleep(0.001)
 
 
+def _pooled_positions(encoder):
+    """Each row's first EOT position plus one, from the BPE's own lengths,
+    batch by batch, the tail's padding rows included."""
+    _, texts = _split()
+    ctx, batches = encoder.cfg.context_length, -(-ROWS // BATCH)
+    eot = [min(len(encoder.tokenizer.encode(texts[min(i, ROWS - 1)])) + 2, ctx) for i in range(batches * BATCH)]
+    return [eot[b * BATCH:(b + 1) * BATCH] for b in range(batches)]
+
+
+def _longest_pooled(encoder):
+    """The positions the text tower runs a batch to: its longest EOT."""
+    return [max(batch) for batch in _pooled_positions(encoder)]
+
+
 def test_tower_spans_count_rows_and_positions(encoder):
     """``image_rows`` and ``text_rows``: each batch's rows, the tail's padding
-    included; ``positions``: rows x context; ``eot_positions``: each row's
-    first EOT position plus one, from the BPE's own lengths."""
+    included; ``positions``: rows x the batch's longest pooled position, the
+    length the text tower ran; ``eot_positions``: each row's first EOT
+    position plus one, from the BPE's own lengths."""
     spans, _ = _embed(encoder, profiled=True)
-    split, texts = _split()
-    ctx, batches = encoder.cfg.context_length, -(-ROWS // BATCH)
+    batches = -(-ROWS // BATCH)
     images = [s.counts for s in spans if s.name == "embed.images"]
     text_spans = [s.counts for s in spans if s.name == "embed.texts"]
     assert [c["image_rows"] for c in images] == [BATCH] * batches
     assert [c["text_rows"] for c in text_spans] == [BATCH] * batches
-    assert [c["positions"] for c in text_spans] == [BATCH * ctx] * batches
-    tok = encoder.tokenizer
-    eot = [min(len(tok.encode(texts[min(i, ROWS - 1)])) + 2, ctx) for i in range(batches * BATCH)]
-    assert [c["eot_positions"] for c in text_spans] == [sum(eot[b * BATCH:(b + 1) * BATCH]) for b in range(batches)]
+    assert [c["positions"] for c in text_spans] == [BATCH * n for n in _longest_pooled(encoder)]
+    assert all(n < encoder.cfg.context_length for n in _longest_pooled(encoder))  # the cut engaged
+    assert [c["eot_positions"] for c in text_spans] == [sum(batch) for batch in _pooled_positions(encoder)]
 
 
 def test_cached_rows_and_unrecorded_runs_count_nothing(encoder, tmp_path):
